@@ -1,0 +1,517 @@
+"""Engine — the top-level index/query API (torch port of ``engine.py``;
+reference src/engine.rs:79-439).
+
+SQLite is the host-side metadata catalog (the durable mirror of the
+hashes); distances are computed by device scans over the packed store;
+ingest is a batched host-decode → device-embed pipeline.  A library
+written by either package opens in the other: the catalog schema, the
+persisted settings and the checkpoint format are shared.
+
+Semantics kept from the reference (as in the JAX package):
+
+- ``new``/``open`` lifecycle with WAL + idempotent inserts (engine.rs:98-145);
+- query language incl. the sticky ``similar:`` image cache, compared
+  case-insensitively by path (engine.rs:510-537);
+- text queries INNER JOIN semantic_hashes (engine.rs:306), ordered by
+  distance to the cached similar-image (0.0 when none), with NO distance
+  threshold (engine.rs:294-315);
+- image-hash queries apply strict ``dist < max_distance_from_query``
+  (engine.rs:375-383); results cached until the next query.
+
+Ported so far: the semantic modality on one device.  The phash, BLIP,
+face, IVF, duplicate and watch mixins, int4 precision and mesh serving
+wait (ROADMAP.md); phashes are still computed at ingest and stored in the
+catalog exactly as the JAX package stores them.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from pixelbox_tpu_torch.index.catalog import Catalog
+from pixelbox_tpu_torch.index.store import VectorStore
+from pixelbox_tpu_torch.ingest.decode import DecodedImage, decode_image_file
+from pixelbox_tpu_torch.ingest.thumbnail import make_thumbnail, qoi_encode
+from pixelbox_tpu_torch.models import get_embedder
+from pixelbox_tpu_torch.ops import phash as phash_ops
+from pixelbox_tpu_torch.ops.distances import cosine_distance
+from pixelbox_tpu_torch.ops.scan import cosine_scan_topk
+from pixelbox_tpu_torch.query import parse_query
+from pixelbox_tpu_torch.records import IndexedImage
+from pixelbox_tpu_torch.serving import SemanticServing
+from pixelbox_tpu_torch.serving.common import _read_locked
+from pixelbox_tpu_torch.utils.device import resolve_device
+from pixelbox_tpu_torch.utils.rwlock import RWLock
+from pixelbox_tpu_torch.utils.timing import timed
+
+DEFAULT_MAX_QUERY_DISTANCE = 1e3  # engine.rs:23
+DEFAULT_MAX_SEARCH_RESULTS = 100  # engine.rs:24
+
+
+class Engine(SemanticServing):
+    """Index + query engine over a catalog DB and a device vector store.
+
+    ``device`` ("cuda" by default, "cpu", or a torch.device) holds the
+    packed store and runs the embedder and the scans; a CUDA device
+    without a visible card raises instead of falling back to the CPU.
+    """
+
+    def __init__(
+        self,
+        db_path: str,
+        create: bool = False,
+        embedder: Optional[str] = None,
+        embedder_kwargs: Optional[dict] = None,
+        dim: Optional[int] = None,
+        phash_compat: Optional[bool] = None,
+        semantic_precision: Optional[str] = None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.catalog = Catalog(db_path, create=create)
+        self.db_path = db_path
+        # phash geometry persists (it defines how query phashes are
+        # computed); new libraries default to compat (phash.rs:7).
+        if phash_compat is None:
+            stored_pc = self.catalog.get_setting("phash_compat")
+            phash_compat = stored_pc in (None, "", "1")
+        else:
+            self.catalog.set_setting("phash_compat", "1" if phash_compat else "0")
+        self.phash_compat = bool(phash_compat)
+        if semantic_precision is None:
+            semantic_precision = self.catalog.get_setting("semantic_precision") or "int8"
+        if semantic_precision != "int8":
+            raise NotImplementedError(
+                f"semantic_precision={semantic_precision!r} is not yet ported to "
+                "pixelbox_tpu_torch (int8 only)"
+            )
+        self.semantic_precision = semantic_precision
+        #: Guards row↔image-id mappings and in-place device appends: query
+        #: flows hold the read side across scan→assemble; appends, deletes
+        #: and compaction take the write side (utils/rwlock.py).
+        self.index_rwlock = RWLock()
+
+        # The embedder CHOICE persists in the library (it defines what the
+        # stored hashes MEAN): explicit name / model path win and
+        # re-persist; omitted ones restore the library's stored choice; a
+        # brand-new library defaults to the stub.
+        if embedder is None:
+            embedder = self.catalog.get_setting("embedder_name") or "stub"
+        else:
+            self.catalog.set_setting("embedder_name", embedder)
+        self._embedder_name = embedder
+        self._embedder_kwargs = dict(embedder_kwargs or {})
+        if dim is not None:
+            self._embedder_kwargs.setdefault("dim", dim)
+        if self._embedder_kwargs.get("input_size"):
+            self.catalog.set_setting(
+                "embedder_input_size", str(int(self._embedder_kwargs["input_size"]))
+            )
+        elif "input_size" not in self._embedder_kwargs:
+            stored_isz = self.catalog.get_setting("embedder_input_size")
+            if stored_isz:
+                self._embedder_kwargs["input_size"] = int(stored_isz)
+        kw = self._embedder_kwargs
+        if "model" in kw and "checkpoint_path" not in kw:
+            kw["checkpoint_path"] = kw.pop("model")
+        model = kw.get("checkpoint_path")
+        if isinstance(model, str) and model:
+            self.catalog.set_setting("embedder_model", model)
+        elif "checkpoint_path" not in kw and embedder == "efficientnet":
+            stored_model = self.catalog.get_setting("embedder_model")
+            if stored_model:
+                kw["checkpoint_path"] = stored_model
+        # The embedding width persists too; stored semantic hashes are the
+        # fallback source for pre-existing/reference libraries.
+        if kw.get("dim") is not None:
+            self.catalog.set_setting("embedder_dim", str(int(kw["dim"])))
+        else:
+            stored_dim = self.catalog.get_setting("embedder_dim")
+            if not stored_dim:
+                first = next(self.catalog.iter_hashes("semantic_hashes"), None)
+                if first is not None:
+                    stored_dim = str(len(first[1]))
+            if stored_dim:
+                kw["dim"] = int(stored_dim)
+        self._embedder = None  # lazy, like the reference's lazy_static MODEL
+
+        # Searching and filtering (public fields, engine.rs:91-92).
+        self.max_search_results: int = DEFAULT_MAX_SEARCH_RESULTS
+        self.max_distance_from_query: float = DEFAULT_MAX_QUERY_DISTANCE
+        #: "auto" (default): fused threshold scan + exact repair, results
+        #: identical to "exact"; "exact": the blocked exact scan; "fast":
+        #: served as "auto"; "pallas": the fused exact kernel scan.
+        self.scan_mode: str = "auto"
+        self._row_meta = None
+        self._row_meta_at_ver = -1
+        self._scan_sample = None
+        self._scan_sample_at_ver = -1
+        self._cached_search_results: Optional[List[IndexedImage]] = None
+        self._cached_image_search: Optional[IndexedImage] = None
+        self.last_query_error: Optional[str] = None
+
+        # Device store + row↔image_id mappings, rebuilt from the catalog.
+        self._sem_store: Optional[VectorStore] = None
+        self._sem_image_ids: List[int] = []
+        self._sem_row_by_image: dict = {}
+        self._load_stores()
+
+        self._pipeline = None
+        self.last_pipeline = None
+
+    # ------------------------------------------------------------------ #
+    # Lifecycle (engine.rs:98-145)
+
+    @classmethod
+    def new(cls, db_path: str, **kwargs) -> "Engine":
+        """Create a fresh database (like Engine::new, engine.rs:98-115)."""
+        return cls(db_path, create=True, **kwargs)
+
+    @classmethod
+    def open(cls, db_path: str, **kwargs) -> "Engine":
+        """Open an existing database (engine.rs:117-145)."""
+        return cls(db_path, create=False, **kwargs)
+
+    def _new_sem_store(self, dim: int) -> VectorStore:
+        return VectorStore(dim=dim, kind="semantic", device=self.device)
+
+    def _load_stores(self) -> None:
+        sem = list(self.catalog.iter_hashes("semantic_hashes"))
+        if sem:
+            dim = len(sem[0][1])
+            self._sem_store = self._new_sem_store(dim)
+            rows = np.frombuffer(b"".join(h for _, h in sem), dtype=np.uint8)
+            self._sem_store.append(rows.reshape(len(sem), dim))
+            self._sem_image_ids = [i for i, _ in sem]
+            self._sem_row_by_image = {img: r for r, img in enumerate(self._sem_image_ids)}
+
+    @property
+    def embedder(self):
+        """The semantic embedder (on ``self.device``), or None in tags-only
+        mode (``embedder="none"``)."""
+        if self._embedder_name in (None, "none"):
+            return None
+        if self._embedder is None:
+            self._embedder = get_embedder(
+                self._embedder_name, device=self.device, **self._embedder_kwargs
+            )
+        return self._embedder
+
+    # ------------------------------------------------------------------ #
+    # Index size (engine.rs:157-171)
+
+    def get_num_indexed_images(self) -> int:
+        return self.catalog.num_images()
+
+    # ------------------------------------------------------------------ #
+    # Ingest (engine.rs:173-259)
+
+    def is_indexing_active(self) -> bool:
+        return self._pipeline is not None and self._pipeline.is_active()
+
+    def start_indexing(self, num_workers: Optional[int] = None) -> None:
+        """Crawl tracked folders and index everything new (engine.rs:177-205)."""
+        from pixelbox_tpu_torch.ingest.pipeline import IngestPipeline
+
+        if self.is_indexing_active():
+            return
+        self._pipeline = IngestPipeline(
+            engine=self, folders=self.get_tracked_folders(), num_workers=num_workers
+        )
+        self._pipeline.start()
+
+    def stop_indexing(self) -> None:
+        if self._pipeline is not None:
+            self._pipeline.stop()
+            self._pipeline = None
+
+    def wait_for_indexing(self, timeout: Optional[float] = None) -> bool:
+        """Join the running ingest; the finished pipeline stays readable as
+        ``last_pipeline`` (its counters and ``elapsed_s``)."""
+        if self._pipeline is None:
+            return True
+        done = self._pipeline.join(timeout)
+        if done:
+            self.last_pipeline = self._pipeline
+            self._pipeline = None
+        return done
+
+    def insert_records_batch(self, records) -> List[Optional[int]]:
+        """Insert many fully-hashed records in one catalog transaction and
+        one device append (the ingest writer's hot path).
+
+        Takes the index WRITE lock: the append writes in place into the
+        device tensors a concurrent query may be scanning."""
+        with self.index_rwlock.write_locked():
+            return self._insert_records_batch_locked(records)
+
+    def _insert_records_batch_locked(self, records) -> List[Optional[int]]:
+        rows = [
+            {
+                "filename": r.filename,
+                "path": r.path,
+                "width": r.resolution[0],
+                "height": r.resolution[1],
+                "thumbnail": r.thumbnail,
+                "tags": r.tags,
+                "phash": None if r.phash is None else r.phash.tobytes(),
+                "semantic_hash": (
+                    None if r.visual_hash is None else r.visual_hash.tobytes()
+                ),
+            }
+            for r in records
+        ]
+        ids = self.catalog.insert_images_batch(rows)
+
+        new = [(i, r) for i, r in zip(ids, records) if i is not None]
+        if new:
+            sem = [(i, r.visual_hash) for i, r in new if r.visual_hash is not None]
+            if sem:
+                if self._sem_store is None:
+                    self._sem_store = self._new_sem_store(len(sem[0][1]))
+                row_ids = self._sem_store.append(np.stack([h for _, h in sem]))
+                for (img_id, _), row in zip(sem, row_ids):
+                    self._sem_image_ids.append(img_id)
+                    self._sem_row_by_image[img_id] = int(row)
+        return ids
+
+    # ------------------------------------------------------------------ #
+    # Record construction (indexed_image.rs:35-91)
+
+    def load_image(self, path: str) -> Optional[IndexedImage]:
+        """Decode + hash one image file into an IndexedImage record."""
+        decoded = decode_image_file(path)
+        if decoded is None:
+            return None
+        return self._record_from_decoded(decoded)
+
+    def set_embed_batch_size(self, batch_size: int) -> None:
+        """Record the ingest embed batch size (in-process AND persisted)."""
+        batch_size = int(batch_size)
+        self._embed_batch_size = batch_size
+        if self.catalog.get_setting("embed_batch_size") != str(batch_size):
+            self.catalog.set_setting("embed_batch_size", str(batch_size))
+
+    def _embed_query_ingest_exact(
+        self, rgb: np.ndarray, frame: Optional[np.ndarray] = None
+    ) -> np.ndarray:
+        """Quantized semantic hash through the EXACT ingest batch path.
+
+        A re-dropped copy of an indexed image must score exactly 0
+        (engine.rs:352-361).  A batched ingest embed and a single-query
+        embed could pick different convolution algorithms and drift by
+        ulps, flipping a u8 bin; replaying the ingest writer's padded batch
+        shape through the same functions — with cuDNN deterministic and
+        benchmark off (utils/device.hold_exact_numerics) — makes the two
+        bit-identical.  The batch size is read from the library when not
+        set in-process (set_embed_batch_size).
+        """
+        from pixelbox_tpu_torch.ingest.pipeline import DEFAULT_BATCH_SIZE, _normalize_frames
+        from pixelbox_tpu_torch.ops.preprocess import fill_resize_u8
+        from pixelbox_tpu_torch.ops.quantize import quantize_embedding
+
+        b = getattr(self, "_embed_batch_size", None)
+        if b is None:
+            stored = self.catalog.get_setting("embed_batch_size")
+            b = int(stored) if stored else DEFAULT_BATCH_SIZE
+            self._embed_batch_size = b
+        if frame is None:
+            frame = fill_resize_u8(rgb, self.embedder.input_size)
+        with timed("engine.query_embed"):
+            frames = np.zeros((b,) + frame.shape, dtype=np.uint8)
+            frames[0] = frame
+            stacked = _normalize_frames(torch.from_numpy(frames).to(self.embedder.device))
+            latents = self.embedder.embed_preprocessed(stacked)
+            return quantize_embedding(latents).cpu().numpy()[0]
+
+    def _record_from_decoded(self, decoded: DecodedImage) -> IndexedImage:
+        # Share the embed frame's pre-crop cover image as the thumbnail
+        # source (one full-res resample, same as the ingest pipeline).
+        frame = big = None
+        if self.embedder is not None:
+            from pixelbox_tpu_torch.ops.preprocess import fill_resize_u8_with_big
+
+            frame, big = fill_resize_u8_with_big(decoded.rgb, self.embedder.input_size)
+        thumb = qoi_encode(make_thumbnail(decoded.rgb, prescaled=big))
+        ph = phash_ops.phash(decoded.rgb, aspect_preserving=self.phash_compat)
+        vh = (
+            None
+            if self.embedder is None
+            else self._embed_query_ingest_exact(decoded.rgb, frame=frame)
+        )
+        return IndexedImage(
+            filename=decoded.filename,
+            path=decoded.path,
+            resolution=decoded.resolution,
+            thumbnail=thumb,
+            tags=decoded.tags,
+            phash=ph,
+            visual_hash=vh,
+        )
+
+    # ------------------------------------------------------------------ #
+    # Tracked folders (engine.rs:404-439)
+
+    def add_tracked_folder(self, folder_glob: str) -> None:
+        self.catalog.add_tracked_folder(folder_glob)
+
+    def remove_tracked_folder(self, folder_glob: str) -> None:
+        self.catalog.remove_tracked_folder(folder_glob)
+
+    def get_tracked_folders(self) -> List[str]:
+        return self.catalog.get_tracked_folders()
+
+    # ------------------------------------------------------------------ #
+    # Text query (engine.rs:261-350)
+
+    @_read_locked
+    def query(self, user_input: str) -> None:
+        """Run a text query; results via :meth:`get_query_results`.
+
+        Raises QueryTokenizeError on malformed input (the reference's Err).
+        """
+        self.last_query_error = None
+        if not user_input:
+            return  # bail early, keep previous results (engine.rs:273)
+
+        parsed = parse_query(user_input)
+        self._cached_search_results = None
+
+        # `similar:` — recompute the cached query image only when the path
+        # changed (case-insensitive), engine.rs:510-533; the cache is sticky.
+        if parsed.similar_path is not None and self.embedder is None:
+            self.last_query_error = "similar: requires an embedder model (tags-only mode)"
+        elif parsed.similar_path is not None:
+            cached = self._cached_image_search
+            if cached is None or cached.path.lower() != parsed.similar_path.lower():
+                t0 = time.perf_counter()
+                record = self.load_image(parsed.similar_path)
+                print(
+                    f"Time to compute image hash: {time.perf_counter()-t0:.3f}s",
+                    file=sys.stderr,
+                )
+                self._cached_image_search = record
+                if record is not None:
+                    # Remember the path as typed for the staleness compare.
+                    record.path = parsed.similar_path
+
+        if parsed.face_path is not None or parsed.text_query is not None:
+            self.last_query_error = (
+                "face: and text: queries are not yet ported to pixelbox_tpu_torch"
+            )
+            self._cached_search_results = []
+            return
+
+        # Tags-only mode with no stored hashes: serve text queries straight
+        # from the catalog.
+        if self.embedder is None and not self._sem_image_ids:
+            if parsed.has_filter:
+                ids = self.catalog.filter_images(parsed.where_sql, parsed.params)
+            else:
+                conn = self.catalog._connect()
+                ids = [r[0] for r in conn.execute("SELECT id FROM images ORDER BY id")]
+            ids = ids[: int(self.max_search_results)]
+            self._cached_search_results = self._results_from_image_ids(
+                ids, np.zeros(len(ids), dtype=np.float32)
+            )
+            print(f"{len(self._cached_search_results)} results", file=sys.stderr)
+            return
+
+        # Candidate rows: text filters via the catalog; INNER JOIN
+        # semantic_hashes semantics — only images with embeddings match.
+        if parsed.has_filter:
+            ids = self.catalog.filter_images(parsed.where_sql, parsed.params)
+            rows = np.array(
+                [self._sem_row_by_image[i] for i in ids if i in self._sem_row_by_image],
+                dtype=np.int64,
+            )
+        else:
+            rows = np.arange(len(self._sem_image_ids), dtype=np.int64)
+
+        k = int(self.max_search_results)
+        sim = self._cached_image_search
+        if sim is not None and sim.visual_hash is not None and len(rows):
+            # Order by cosine distance to the cached image over the matched
+            # subset; NO distance threshold on this path (engine.rs:294-315).
+            with timed("engine.text_query_scan"):
+                if len(rows) > 16384:
+                    # Broad filter: one exact device scan with the filter
+                    # folded into the validity mask.
+                    base = self._sem_store.device_index
+                    mask = torch.zeros(base.capacity, dtype=torch.bool, device=base.device)
+                    mask[torch.from_numpy(rows).to(base.device)] = True
+                    masked = base._replace(valid=base.valid & mask)
+                    q = torch.as_tensor(np.asarray(sim.visual_hash, dtype=np.uint8))
+                    dists, idxs = cosine_scan_topk(q, masked, k=k, max_distance=np.inf)
+                    dists = dists.cpu().numpy()
+                    idxs = idxs.cpu().numpy()
+                    keep = idxs >= 0
+                    sel, sel_dists = idxs[keep], dists[keep]
+                else:
+                    db_rows = self._sem_store.get_rows(rows)
+                    dists = cosine_distance(
+                        torch.as_tensor(np.asarray(sim.visual_hash, dtype=np.uint8))[None, :],
+                        torch.from_numpy(db_rows),
+                    ).numpy()
+                    order = np.argsort(dists, kind="stable")[:k]
+                    sel, sel_dists = rows[order], dists[order]
+        else:
+            sel = rows[:k]  # id order, dist 0.0 (engine.rs:291-293)
+            sel_dists = np.zeros(len(sel), dtype=np.float32)
+
+        self._cached_search_results = self._build_results(sel, sel_dists)
+        print(f"{len(self._cached_search_results)} results", file=sys.stderr)
+
+    # ------------------------------------------------------------------ #
+    # Results (engine.rs:398-402)
+
+    def get_query_results(self) -> Optional[List[IndexedImage]]:
+        return self._cached_search_results
+
+    def _build_results(self, rows, dists) -> List[IndexedImage]:
+        ids = [self._sem_image_ids[int(row)] for row in rows]
+        infos = self.catalog.get_images_with_tags(ids)
+        out = []
+        for row, image_id, d in zip(rows, ids, dists):
+            info = infos.get(image_id)
+            if info is None:
+                continue
+            rec = self._record_from_info(info)
+            rec.visual_hash = self._sem_store.get_rows([int(row)])[0]
+            rec.distance_from_query = float(d)
+            out.append(rec)
+        return out
+
+    def _results_from_image_ids(self, ids, dists) -> List[IndexedImage]:
+        infos = self.catalog.get_images_with_tags(ids)
+        out = []
+        for image_id, d in zip(ids, dists):
+            info = infos.get(image_id)
+            if info is None:
+                continue
+            rec = self._record_from_info(info)
+            rec.distance_from_query = float(d)
+            out.append(rec)
+        return out
+
+    @staticmethod
+    def _record_from_info(info: dict) -> IndexedImage:
+        return IndexedImage(
+            id=info["id"],
+            filename=info["filename"],
+            path=info["path"],
+            resolution=info["resolution"],
+            thumbnail=info["thumbnail"],
+            tags=info["tags"],
+        )
+
+    # ------------------------------------------------------------------ #
+
+    def close(self) -> None:
+        self.stop_indexing()
+        self.catalog.close()
