@@ -18,6 +18,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and the end-to-end results must equal the exact scan, and the numpy
    oracle on a sub-sample of queries.  Kernel and plain medians are timed
    with CUDA events.
+3b. Hamming kernels vs plain at the phash's published width (1,048,576
+   rows × 32 bytes, k = 100, Q ∈ {1, 8, 256, 2048}) in seven cases: θ
+   from the sample, θ = max_distance, max_distance 0.1, 1% tombstones,
+   the u8 wrap, byte_limit 24 with a width-group mask, and an 8,192-row
+   tie flood that must defeat the proof and be repaired.  Replayed and
+   checked as in phase 3, with the proof rate and the repaired count
+   printed per Q.
+3c. Large batches (the JAX package's buffer-select kernel, Q > 1024):
+   cosine ``auto`` at Q = 2048 over phase 3's 1,048,576 × 128 rows, every
+   launch replayed through its plain version.
 4. Engine: indexes 32 seeded images with EfficientNet-B0 at 224²/dim 128
    from a seeded checkpoint (then 64 more, warm), checks the exact-0.0
    self-match, grows the store to 1,048,576 rows with seeded hash-only
@@ -25,8 +35,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    kernel launches from zero, and splitting its latency into the engine's
    timing spans — and holds the results against the exact scan and the
    plain (CPU) path.
+5. Phash engine: indexes seeded images under ``phash_compat=False`` and a
+   second library with mixed aspect ratios under ``True``; ``phash-similar``
+   (the CLI) returns an indexed image at exactly 0.0 in both; grows the
+   phash store to 1,048,576 rows with seeded, clustered hash-only
+   records; times ``query_by_phash`` with the engine's spans; runs
+   ``find_duplicate_pairs`` by phash over the whole phash store and by
+   semantic over phase 4's store, holding sampled batches against the
+   plain path — counting kernel launches from zero.
 
-The last lines are the kernels' JSON summary and
+The last lines are the card's nvidia-smi line, the kernels' JSON summary
+(time, plain time, bound, library time per kernel) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,9 +61,20 @@ import time
 
 N_ROWS = 1 << 20
 DIM = 128
+PH_BYTES = 32  # 16×16 phash bits (phash.rs:4-5)
 K = 100
 QS = (1, 8, 256)
+PH_QS = (1, 8, 256, 2048)
+MAIN_Q = 256   # the main pass's timed batch
+REPAIR_Q = 8   # a repair bucket
+BIG_Q = 2048   # past the JAX package's carry kernels (buffer select)
+FLOOD = (123456, 600000, 8192)  # tie flood: source row, first copy, copies
 SEED = 20261016
+#: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8
+#: tensor-core ops/s, f32 outside the tensor cores (scalar compares).
+HBM_BPS = 3.35e12
+INT8_OPS = 1979e12
+F32_OPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -77,6 +107,29 @@ def clustered_hashes(rng, n, d, n_centers=4096, noise=0.35):
     return out
 
 
+def clustered_phashes(rng, n, h, n_centers=65536):
+    """phash-like rows: random centres with ~1/8 of their bits flipped."""
+    import numpy as np
+
+    centers = rng.integers(0, 256, (n_centers, h), dtype=np.uint8)
+    out = centers[rng.integers(0, n_centers, n)]
+    # AND of three random bytes: each noise bit is set with p = 1/8.
+    noise = rng.integers(0, 256, (n, h), dtype=np.uint8)
+    noise &= rng.integers(0, 256, (n, h), dtype=np.uint8)
+    noise &= rng.integers(0, 256, (n, h), dtype=np.uint8)
+    return out ^ noise
+
+
+def flip_bits(rng, rows, flips=6):
+    import numpy as np
+
+    out = rows.copy()
+    for r in range(out.shape[0]):
+        bits = rng.choice(8 * out.shape[1], flips, replace=False)
+        out[r, bits // 8] ^= (1 << (bits % 8)).astype(np.uint8)
+    return out
+
+
 def perturb(rng, rows, flips=6):
     import numpy as np
 
@@ -104,10 +157,13 @@ def oracle_topk(q, db, valid, k, md):
 
 
 class Recorder:
-    """Wraps the three kernel wrappers of ops.fused_scan; records inputs
+    """Wraps the five kernel wrappers of ops.fused_scan; records inputs
     and outputs so each call can be replayed through its plain version."""
 
-    NAMES = ("cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments")
+    NAMES = (
+        "cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments",
+        "hamming_threshold_collect", "hamming_chunk_topk",
+    )
 
     def __init__(self, fs):
         self.fs = fs
@@ -138,23 +194,21 @@ def replay(fs, call):
     import torch
 
     name, args, kwargs, out = call
-    if name == "cosine_threshold_collect":
-        q_codes, q_sum, q_mag2, qr, theta, data, meta, cap = args
-        c2, d2, i2 = fs.cosine_threshold_collect_plain(
-            q_codes, q_sum, q_mag2, qr, theta, data, meta, cap
-        )
+    if name in ("cosine_threshold_collect", "hamming_threshold_collect"):
+        cap = args[-1]
+        c2, d2, i2 = getattr(fs, name + "_plain")(*args)
         c1, d1, i1 = out
-        check(torch.equal(c1, c2), "K1a count differs from plain")
+        check(torch.equal(c1, c2), f"{name} count differs from plain")
         ok = c1 <= cap
         lens = torch.clamp(c1, max=cap)
         s1 = fs.lex_topk_segments_plain(d1, i1, cap, lens, segment=cap)
         s2 = fs.lex_topk_segments_plain(d2, i2, cap, lens, segment=cap)
-        check(torch.equal(s1[0][ok], s2[0][ok]), "K1a distances differ from plain")
-        check(torch.equal(s1[1][ok], s2[1][ok]), "K1a row ids differ from plain")
+        check(torch.equal(s1[0][ok], s2[0][ok]), f"{name} distances differ from plain")
+        check(torch.equal(s1[1][ok], s2[1][ok]), f"{name} row ids differ from plain")
         a, b = s1[0][ok], s2[0][ok]
-    elif name == "cosine_chunk_topk":
-        d2, i2 = fs.cosine_chunk_topk_plain(*args, **kwargs)
-        check(torch.equal(out[0], d2) and torch.equal(out[1], i2), "K1b differs from plain")
+    elif name in ("cosine_chunk_topk", "hamming_chunk_topk"):
+        d2, i2 = getattr(fs, name + "_plain")(*args, **kwargs)
+        check(torch.equal(out[0], d2) and torch.equal(out[1], i2), f"{name} differs from plain")
         a, b = out[0], d2
     else:
         dist, idx, k = args[:3]
@@ -183,7 +237,7 @@ def median_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def phase_kernels(fs, scan, smi):
+def phase_kernels(fs, scan, smi, err):
     import numpy as np
     import torch
 
@@ -197,7 +251,7 @@ def phase_kernels(fs, scan, smi):
     base_q[1] = db[4242]  # an exact copy: distance 0 at row 4242
     log(f"[3] seeded {N_ROWS}x{DIM} rows in {time.perf_counter() - t0:.1f}s")
 
-    flood_row = 123456
+    flood_row, flood_at, flood_n = FLOOD
     cases = []
     valid_all = np.ones(N_ROWS, bool)
     cases.append(("theta_from_sample", db, valid_all, base_q, 1e3, "auto"))
@@ -208,13 +262,12 @@ def phase_kernels(fs, scan, smi):
     valid_1pct[4242] = False  # the exact copy's row is a tombstone
     cases.append(("invalid_rows_1pct", db, valid_1pct, base_q, 1e3, "both"))
     db_flood = db.copy()
-    db_flood[600000:608192] = db[flood_row]  # 8,192 duplicates
+    db_flood[flood_at : flood_at + flood_n] = db[flood_row]  # 8,192 duplicates
     flood_q = base_q.copy()
     flood_q[0] = db[flood_row]
     flood_q[2] = perturb(rng, db[flood_row][None])[0]
     cases.append(("tie_flood", db_flood, valid_all, flood_q, 1e3, "both"))
 
-    err = {n: 0.0 for n in Recorder.NAMES}
     timed_calls = {}
     for name, rows, valid, queries, md, which in cases:
         data, rsum, rmag2 = semantic_rows_from_u8(rows)
@@ -257,32 +310,297 @@ def phase_kernels(fs, scan, smi):
                 f"= exact scan and oracle{extra}")
             if name == "tie_flood" and qn >= 1:
                 fi = i[0].cpu().numpy()
-                flood_ids = np.concatenate([[flood_row], np.arange(600000, 600000 + K - 1)])
+                flood_ids = np.concatenate([[flood_row], np.arange(flood_at, flood_at + K - 1)])
                 check(np.array_equal(fi, flood_ids), "tie flood: ids not ascending within the tie")
                 check(not bool(exact[0]), "tie flood: the proof was not defeated")
         del idx, meta, smp
         torch.cuda.empty_cache()
 
     # Timing at the main path's shapes: K1a and K1c at the main pass
-    # (Q = 256 over all rows, k = 100), K1b at a repair bucket (Q = 8).
+    # (Q = MAIN_Q over all rows, k = 100), K1b at a repair bucket.
     def main_pass(call):
         name, args, kwargs, _ = call
         if name == "lex_topk_segments":
             return args[2] == K and (len(args) > 3 or kwargs.get("lens") is not None)
         return args[5].shape[0] == N_ROWS
 
-    timing = {}
-    for n, qn in (("cosine_threshold_collect", 256), ("cosine_chunk_topk", 8),
-                  ("lex_topk_segments", 256)):
-        _, args, kwargs, _ = next(c for c in timed_calls[(n, qn)] if main_pass(c))
-        kern, plain = getattr(fs, n), getattr(fs, n + "_plain")
-        k_ms = median_ms(lambda: kern(*args, **kwargs))
-        p_ms = median_ms(lambda: plain(*args, **kwargs))
-        timing[n] = (k_ms, p_ms)
-        shape = "x".join(str(x) for x in args[0].shape)
-        log(f"[3] {n} on {shape} (Q={qn}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-            f"(median of 10, CUDA events; {smi})")
-    return err, timing
+    stats = {}
+    for n, qn in (("cosine_threshold_collect", MAIN_Q), ("cosine_chunk_topk", REPAIR_Q),
+                  ("lex_topk_segments", MAIN_Q)):
+        call = next(c for c in timed_calls[(n, qn)] if main_pass(c))
+        stats[n] = time_kernel(fs, call, smi, "[3]")
+    return stats, db
+
+
+# --------------------------------------------------------------------- #
+# Phase 3b: the Hamming kernels at the phash's published width
+
+
+def oracle_hamming(q, db, valid, k, md, limit, wrap):
+    import numpy as np
+
+    from pixelbox_tpu_torch.ops.oracle import hamming_scan_topk_np
+
+    keep = np.nonzero(valid)[0]
+    od, oi = hamming_scan_topk_np(q[:, :limit], db[keep][:, :limit], k=k, max_distance=md, wrap_u8=wrap)
+    return od, np.where(oi >= 0, keep[np.maximum(oi, 0)], -1).astype(np.int32)
+
+
+def phase_hamming(fs, scan, hg, smi, err):
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.ops.packed import PackedHammingIndex
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    db = clustered_phashes(rng, N_ROWS, PH_BYTES)
+    base_q = flip_bits(rng, db[rng.integers(0, N_ROWS, max(PH_QS))])
+    base_q[1] = db[4242]  # an exact copy: distance 0 at row 4242
+    log(f"[3b] seeded {N_ROWS}x{PH_BYTES} phash rows in {time.perf_counter() - t0:.1f}s")
+
+    flood_row, flood_at, flood_n = FLOOD
+    valid_all = np.ones(N_ROWS, bool)
+    valid_1pct = valid_all.copy()
+    valid_1pct[rng.choice(N_ROWS, N_ROWS // 100, replace=False)] = False
+    valid_1pct[4242] = False
+    wrap_q = base_q.copy()
+    wrap_q[0] = ~db[777]            # 256 differing bits: wraps to distance 0
+    wrap_q[2] = ~db[778] ^ 1        # 255 bits
+    group = np.arange(N_ROWS) % 3 != 0   # a width group
+    db_flood = db.copy()
+    db_flood[flood_at : flood_at + flood_n] = db[flood_row]  # 8,192 duplicates
+    flood_q = base_q.copy()
+    flood_q[0] = db[flood_row]
+    flood_q[2] = flip_bits(rng, db[flood_row][None])[0]
+    # (name, rows, valid, group, queries, max_distance, byte_limit, wrap, paths)
+    cases = [
+        ("theta_from_sample", db, valid_all, None, base_q, 1e3, PH_BYTES, False, "auto"),
+        ("theta_max_distance", db, valid_all, None, base_q, 1e3, PH_BYTES, False, "fused"),
+        ("max_distance_0.1", db, valid_all, None, base_q, 0.1, PH_BYTES, False, "both"),
+        ("tombstones_1pct", db, valid_1pct, None, base_q, 1e3, PH_BYTES, False, "both"),
+        ("wrap_u8", db, valid_all, None, wrap_q, 1e3, PH_BYTES, True, "both"),
+        ("byte_limit_24_group", db, valid_all, group, base_q, 1e3, 24, False, "both"),
+        ("tie_flood", db_flood, valid_all, None, flood_q, 1e3, PH_BYTES, False, "both"),
+    ]
+    timed_calls = {}
+    for name, rows, valid, grp, queries, md, limit, wrap, which in cases:
+        idx = PackedHammingIndex(torch.from_numpy(rows).to(dev), torch.from_numpy(valid).to(dev))
+        meta = fs.build_hamming_meta(idx, grp)
+        smp = hg.build_hamming_scan_sample(idx, meta)
+        ref = idx if grp is None else idx._replace(valid=meta.bool())
+        sub = [0, 1, 2] if which != "fused" else [1]
+        ovalid = valid if grp is None else valid & grp
+        od, oi = oracle_hamming(queries[sub], rows, ovalid, K, md, limit, wrap)
+        for qn in PH_QS:
+            q = torch.from_numpy(queries[:qn]).to(dev)
+            ex_d, ex_i = scan.hamming_scan_topk(q, ref, k=K, max_distance=md, wrap_u8=wrap, byte_limit=limit)
+            kw = dict(k=K, max_distance=md, wrap_u8=wrap, byte_limit=limit)
+            extra = ""
+            with Recorder(fs) as rec:
+                results = []
+                if which in ("auto", "both"):
+                    td, ti, exact = fs.fused_hamming_threshold_scan_topk(q, idx, meta, smp, **kw)
+                    check(torch.equal(td[exact], ex_d[exact]) and torch.equal(ti[exact], ex_i[exact]),
+                          f"{name}: a query flagged exact differs from the exact scan")
+                    results.append(("auto", *hg.hamming_gemm_scan_topk_auto(
+                        q, idx, sample=smp, meta=meta, **kw)))
+                    n_exact = int(exact.sum())
+                    extra = f"; proven {n_exact}/{qn}, repaired {qn - n_exact}"
+                if which in ("fused", "both"):
+                    results.append(("fused", *hg.hamming_gemm_scan_topk(q, idx, meta=meta, **kw)))
+                torch.cuda.synchronize()
+            for call in rec.calls:
+                err[call[0]] = max(err[call[0]], replay(fs, call))
+                if name in ("theta_from_sample", "theta_max_distance"):
+                    timed_calls.setdefault((call[0], qn), []).append(call)
+            for label, d, i in results:
+                check(tuple(d.shape) == (qn, K) and tuple(i.shape) == (qn, K), f"{name}/{label}: shape")
+                check(torch.equal(d, ex_d) and torch.equal(i, ex_i),
+                      f"{name}/{label}: differs from the exact scan at Q={qn}")
+                for r, qrow in enumerate(sub):
+                    if qrow < qn:
+                        check(np.array_equal(d[qrow].cpu().numpy(), od[r])
+                              and np.array_equal(i[qrow].cpu().numpy(), oi[r]),
+                              f"{name}/{label}: differs from the numpy oracle (query {qrow})")
+            log(f"[3b] {name} Q={qn}: {len(rec.calls)} kernel calls replayed bit-identical; "
+                f"= exact scan and oracle{extra}")
+            if name == "tie_flood":
+                fi = i[0].cpu().numpy()
+                flood_ids = np.concatenate([[flood_row], np.arange(flood_at, flood_at + K - 1)])
+                check(np.array_equal(fi, flood_ids), "tie flood: ids not ascending within the tie")
+                check(not bool(exact[0]), "tie flood: the proof was not defeated")
+            if name == "wrap_u8":
+                check(float(d[0, 0]) == 0.0 and int(i[0, 0]) == 777, "wrap_u8: 256 bits did not wrap to 0")
+        del idx, meta, smp, ref
+        torch.cuda.empty_cache()
+
+    stats = {}
+    for n, qn in (("hamming_threshold_collect", MAIN_Q), ("hamming_chunk_topk", REPAIR_Q),
+                  ("hamming_threshold_collect", BIG_Q), ("hamming_chunk_topk", MAIN_Q)):
+        call = next(c for c in timed_calls[(n, qn)] if c[1][2].shape[0] == N_ROWS)
+        st = time_kernel(fs, call, smi, "[3b]", reps=10 if qn <= MAIN_Q else 3)
+        stats.setdefault(n, st)  # the main-path shape (listed first) goes in the kernels line
+    return stats
+
+
+# --------------------------------------------------------------------- #
+# Phase 3c: large batches — cosine auto at Q = 2048 (the JAX package's
+# buffer-select kernel, pallas_threshold_scan_topk, serves Q > 1024)
+
+
+def phase_big_batch(fs, scan, smi, err, db):
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    queries = perturb(rng, db[rng.integers(0, N_ROWS, BIG_Q)])
+    queries[5] = db[31337]
+    data, rsum, rmag2 = semantic_rows_from_u8(db)
+    idx = PackedSemanticIndex(*(torch.from_numpy(x).to(dev)
+                                for x in (data, rsum, rmag2, np.ones(N_ROWS, bool))))
+    meta = fs.build_row_meta(idx)
+    smp = scan.build_scan_sample(idx)
+    q = torch.from_numpy(queries).to(dev)
+    ex_d, ex_i = scan.cosine_scan_topk(q, idx, k=K)
+    with Recorder(fs) as rec:
+        td, ti, exact = fs.fused_threshold_scan_topk(q, idx, meta, smp, k=K)
+        d, i = scan.cosine_scan_topk_auto(q, idx, k=K, sample=smp, row_meta=meta)
+        torch.cuda.synchronize()
+    check(torch.equal(td[exact], ex_d[exact]) and torch.equal(ti[exact], ex_i[exact]),
+          "Q=2048: a query flagged exact differs from the exact scan")
+    check(torch.equal(d, ex_d) and torch.equal(i, ex_i), "Q=2048: auto differs from the exact scan")
+    check(float(d[5, 0]) == 0.0 and int(i[5, 0]) == 31337, "Q=2048: the exact copy is not first at 0")
+    od, oi = oracle_topk(queries[[0, 5]], db, np.ones(N_ROWS, bool), K, 1e3)
+    for r, qrow in enumerate((0, 5)):
+        check(np.array_equal(d[qrow].cpu().numpy(), od[r]) and np.array_equal(i[qrow].cpu().numpy(), oi[r]),
+              f"Q=2048: differs from the numpy oracle (query {qrow})")
+    names = sorted({c[0] for c in rec.calls})
+    check("cosine_threshold_collect" in names, "Q=2048: K1a was not launched")
+    for call in rec.calls:
+        err[call[0]] = max(err[call[0]], replay(fs, call))
+    n_exact = int(exact.sum())
+    log(f"[3c] cosine auto Q={BIG_Q} over {N_ROWS:,}x{DIM}: {len(rec.calls)} kernel calls "
+        f"({', '.join(names)}) replayed bit-identical; = exact scan and oracle; proven "
+        f"{n_exact}/{BIG_Q}, repaired {BIG_Q - n_exact}")
+    main = next(c for c in rec.calls if c[0] == "cosine_threshold_collect" and c[1][5].shape[0] == N_ROWS)
+    st = time_kernel(fs, main, smi, "[3c]", reps=3)
+    del idx, meta, smp
+    torch.cuda.empty_cache()
+    return st
+
+
+# --------------------------------------------------------------------- #
+# Kernel time, plain time, bound and library time of one recorded call
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def work_of(name, args, out):
+    """(bytes, ops, ops peak) that the call's function needs on these
+    inputs: each input read once (rows the kernel skips as invalid are
+    not read), each output written once (only the collected candidates of
+    a buffer, only the meaningful entries of a K1c input); ops as the
+    int8 products of the dot (Hamming: the ±1 int8 product of 8·limit
+    bits per (query, row) that the TPU kernel computes) or, for K1c, one
+    comparison per meaningful candidate at the f32 scalar rate."""
+    import torch
+
+    if name == "lex_topk_segments":
+        dist, k = args[0], args[2]
+        lens = args[3] if len(args) > 3 else None
+        qn, m = dist.shape
+        used = int(torch.clamp(lens, max=m).sum()) if lens is not None else qn * m
+        return used * 8 + (qn * 4 if lens is not None else 0) + out[0].numel() * 8, used, F32_OPS
+    if name.startswith("cosine"):
+        q, data, meta = args[0], args[5], args[6]
+        nv = int((meta[1] > 0).sum())
+        qn, d = q.shape
+        qbytes = qn * (d + 12) + (4 * qn if name == "cosine_threshold_collect" else 0)
+        rows = nv * d + 12 * data.shape[0]
+        ops = 2 * qn * nv * d
+    else:
+        q, data, meta, limit = args[0], args[2], args[3], args[4]
+        nv = int((meta != 0).sum())
+        qn, h = q.shape
+        qbytes = qn * h + (4 * qn if name == "hamming_threshold_collect" else 0)
+        rows = nv * limit + data.shape[0]
+        ops = 2 * qn * nv * 8 * limit
+    if name.endswith("collect"):
+        cap = args[-1]
+        outb = int(torch.clamp(out[0], max=cap).sum()) * 8 + 4 * qn
+    else:
+        outb = out[0].numel() * 8
+    return rows + qbytes + outb, ops, INT8_OPS
+
+
+def dot_only(name, args):
+    """The dot alone, as one library call: ``torch._int_mm`` of the int8
+    query codes (cosine) or the ±1 bit-unpacked hashes (Hamming, the TPU
+    kernel's layout) against the rows; queries padded to 32 rows, the
+    call's least M."""
+    import torch
+
+    if name.startswith("cosine"):
+        q, data = args[0], args[5]
+    else:
+        shifts = torch.arange(8, device=args[0].device, dtype=torch.uint8)
+
+        def pm1(x):
+            bits = (x[..., None] >> shifts) & 1
+            return (bits.to(torch.int8) * 2 - 1).reshape(x.shape[0], -1).contiguous()
+
+        q, data = pm1(args[0]), pm1(args[2])
+    qp = torch.zeros((max(32, q.shape[0]), q.shape[1]), dtype=torch.int8, device=q.device)
+    qp[: q.shape[0]] = q
+    bt = data.t()
+    return lambda: torch._int_mm(qp, bt)
+
+
+def time_kernel(fs, call, smi, tag, reps=10):
+    """Kernel and plain medians (CUDA events), the bound from this call's
+    inputs, and the library call's time."""
+    import torch
+
+    name, args, kwargs, out = call
+    kern, plain = getattr(fs, name), getattr(fs, name + "_plain")
+    k_ms = median_ms(lambda: kern(*args, **kwargs), reps)
+    p_ms = median_ms(lambda: plain(*args, **kwargs), reps)
+    nbytes, ops, peak = work_of(name, args, out)
+    b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    st = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
+          "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+          "bytes": nbytes, "ops": ops, "library_ms": None}
+    extra = ""
+    if name == "lex_topk_segments":
+        dist, idx, k = args[:3]
+        lens = args[3] if len(args) > 3 else kwargs.get("lens")
+        keys = fs._keys(dist, idx, lens)
+        st["library_ms"] = median_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), reps)
+        extra = f", library torch.topk on the (dist, id) keys {st['library_ms']:.4f} ms"
+    else:
+        st["dot_only_ms"] = median_ms(dot_only(name, args), reps)
+        extra = f", dot only (torch._int_mm, not the same function) {st['dot_only_ms']:.4f} ms"
+    if name.startswith("hamming"):
+        limit, q, meta = args[4], args[0], args[3]
+        words = -(-limit // 4)
+        popc_ms = q.shape[0] * int((meta != 0).sum()) * words / (132 * 16 * sm_clock_hz()) * 1e3
+        extra += f", estimate (not measured): __popc at 16/clock/SM {popc_ms:.4f} ms"
+    qn = args[0].shape[0]
+    log(f"{tag} {name} Q={qn}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {nbytes:,} B, {ops:,} ops){extra} "
+        f"(median of {reps}, CUDA events; {smi})")
+    return st
 
 
 # --------------------------------------------------------------------- #
@@ -389,22 +707,26 @@ def phase_engine(fs, scan, smi, tmp):
         res = eng.get_query_results()
         out[mode] = [(r.path, r.distance_from_query) for r in res]
         check(res[0].path == paths[9] and res[0].distance_from_query == 0.0, f"{mode}: self-match")
-        h = res[0].visual_hash
+        log(f"[4] similar ({mode}) on {eng._sem_store.n:,} rows: end-to-end median "
+            f"{statistics.median(lat) * 1e3:.2f} ms (decode+B0+scan); {smi}")
+        log(f"[4] similar ({mode}) spans, mean ms over the 5 timed queries: {json.dumps(spans)}")
+    counts = fs.launch_counts()  # the main path ends here; the timings below launch on their own
+    log(f"[4] kernel launches on the main path: {json.dumps(counts)}")
+    for n in ("cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments"):
+        check(counts[n] > 0, f"kernel {n} was not launched on the main path")
+
+    h = res[0].visual_hash
+    for mode in ("auto", "pallas"):
+        eng.scan_mode = mode
         scan_lat = []
         for rep in range(5):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            d, i = eng.similarity_scan(h, K, 1e3)
+            eng.similarity_scan(h, K, 1e3)
             torch.cuda.synchronize()
             scan_lat.append(time.perf_counter() - t)
-        log(f"[4] similar ({mode}) on {eng._sem_store.n:,} rows: end-to-end median "
-            f"{statistics.median(lat) * 1e3:.2f} ms (decode+B0+scan), scan median "
+        log(f"[4] similar ({mode}) scan alone (direct call, synchronized): median "
             f"{statistics.median(scan_lat) * 1e3:.3f} ms; {smi}")
-        log(f"[4] similar ({mode}) spans, mean ms over the 5 timed queries: {json.dumps(spans)}")
-    counts = fs.launch_counts()  # the main path ends here
-    log(f"[4] kernel launches on the main path: {json.dumps(counts)}")
-    for n, c in counts.items():
-        check(c > 0, f"kernel {n} was not launched on the main path")
 
     eng.scan_mode = "exact"
     eng.query_by_image_hash_from_file(paths[9])
@@ -416,6 +738,163 @@ def phase_engine(fs, scan, smi, tmp):
     check(torch.equal(d.cpu(), pd) and torch.equal(i.cpu(), pi), "engine scan differs from the plain path")
     log(f"[4] auto and pallas results = exact scan = plain (CPU) path; top-3 "
         f"{[(os.path.basename(p), round(x, 6)) for p, x in exact[:3]]}")
+    return counts, eng, ckpt
+
+
+# --------------------------------------------------------------------- #
+# Phase 5: the phash engine and the duplicate finder
+
+
+def run_cli(argv):
+    """One CLI command in this process; returns its standard output."""
+    import io
+    from contextlib import redirect_stdout
+
+    from pixelbox_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = cli_main(argv)
+    check(rc == 0, f"CLI {' '.join(argv[:1])} exited {rc}")
+    return buf.getvalue()
+
+
+def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pixelbox_tpu_torch.engine import Engine
+    from pixelbox_tpu_torch.ingest.decode import decode_image_file
+    from pixelbox_tpu_torch.ops.phash import phash
+    from pixelbox_tpu_torch.records import IndexedImage
+    from pixelbox_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(SEED + 4)
+    fs.reset_launch_counts()  # the phash path starts here
+    libs = {}
+    for compat in (False, True):
+        folder = os.path.join(tmp, f"phash_photos_{int(compat)}")
+        os.makedirs(folder)
+        paths = write_images(folder, 24, rng, prefix="ph")  # random sizes: mixed aspects
+        first = Image.open(paths[0]).convert("RGB")
+        first.save(os.path.join(folder, "ph_copy.png"))
+        first.save(os.path.join(folder, "ph_000_q70.jpg"), quality=70)
+        db = os.path.join(tmp, f"phash_{int(compat)}.db")
+        eng = Engine.new(
+            db, embedder="efficientnet", dim=DIM, phash_compat=compat, device="cuda",
+            embedder_kwargs={"checkpoint_path": ckpt, "input_size": 224},
+        )
+        eng.add_tracked_folder(folder)
+        eng.start_indexing()
+        check(eng.wait_for_indexing(timeout=600), "phash library: indexing did not finish")
+        widths = sorted(set(eng._ph_widths))
+        check(len(widths) > 1 if compat else widths == [PH_BYTES], f"phash widths {widths}")
+        eng.close()
+        probe = paths[3]
+        got = run_cli(["phash-similar", db, probe, "--json", "--device", "cuda"])
+        res = json.loads(got)
+        check(res[0]["path"] == probe and res[0]["distance"] == 0.0,
+              f"phash-similar self-match not first at 0.0: {res[:2]}")
+        check(got == run_cli(["phash-similar", db, probe, "--json", "--device", "cpu"]),
+              "phash-similar on the card differs from the plain (CPU) path")
+        dup = run_cli(["duplicates", db, "--json", "--device", "cuda"])
+        check(dup == run_cli(["duplicates", db, "--json", "--device", "cpu"]),
+              "duplicates on the card differ from the plain (CPU) path")
+        pairs = json.loads(dup)
+        check(len(pairs) >= 1, "duplicates found no pair in a library holding a copy")
+        log(f"[5] phash_compat={compat}: 26 images, phash widths {widths}; phash-similar "
+            f"(CLI) returns {os.path.basename(probe)} first at 0.0 ({len(res)} results); "
+            f"duplicates {len(pairs)} pairs; both = the plain (CPU) path")
+        libs[compat] = (db, paths)
+
+    db, paths = libs[False]
+    eng = Engine.open(db, device="cuda")
+    n0 = eng._ph_store.n
+    t0 = time.perf_counter()
+    filler = clustered_phashes(rng, N_ROWS - n0, PH_BYTES, n_centers=262144)
+    filler[1::1000] = flip_bits(rng, filler[0::1000][: len(filler[1::1000])], 4)  # near-dups
+    step = 1 << 17
+    for s in range(0, filler.shape[0], step):
+        eng.insert_records_batch([
+            IndexedImage(filename=f"ph_{j:07d}.png", path=f"/synthetic/ph_{j:07d}.png",
+                         phash=filler[j])
+            for j in range(s, min(filler.shape[0], s + step))
+        ])
+    check(eng._ph_store.n == N_ROWS, f"phash store did not reach {N_ROWS:,} rows")
+    log(f"[5] grew the phash store to {eng._ph_store.n:,} rows x {eng._ph_store.dim} B "
+        f"(capacity {eng._ph_store.device_index.capacity:,}) in {time.perf_counter() - t0:.1f}s")
+
+    probe = paths[3]
+    ph = phash(decode_image_file(probe).rgb, aspect_preserving=False)
+    eng.query_by_phash(ph)  # warm-up: builds the cached row mask and θ sample
+    timing.reset_stats()
+    lat = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.query_by_phash(ph)
+        lat.append(time.perf_counter() - t)
+    spans = {n: round(v["mean_ms"], 3) for n, v in sorted(timing.get_stats().items())}
+    res = eng.get_query_results()
+
+    dups = []
+    for e, by, md in ((eng, "phash", 0.1), (sem_eng, "semantic", 0.05)):
+        timing.reset_stats()
+        t = time.perf_counter()
+        pairs = e.find_duplicate_pairs(max_distance=md, by=by)
+        dt = time.perf_counter() - t
+        span = timing.get_stats().get("engine.duplicate_scan", {}).get("total_s", float("nan"))
+        dups.append((e, by, md, pairs, dt, span))
+    counts = fs.launch_counts()  # the phash path ends here; the checks below launch on their own
+    log(f"[5] kernel launches on the phash path: {json.dumps(counts)}")
+    for n in ("hamming_threshold_collect", "hamming_chunk_topk", "lex_topk_segments"):
+        check(counts[n] > 0, f"kernel {n} was not launched on the phash path")
+
+    check(res[0].path == probe and res[0].distance_from_query == 0.0, "query_by_phash: self-match")
+    index = eng._ph_store.device_index
+    ed, ei = scan.hamming_scan_topk(torch.from_numpy(ph).cuda(), index, k=K)
+    keep = ei >= 0
+    check([eng._ph_image_ids[int(r)] for r in ei[keep].cpu()] == [r.id for r in res]
+          and ed[keep].cpu().tolist() == [r.distance_from_query for r in res],
+          "query_by_phash differs from the plain exact scan")
+    scan_lat = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng._phash_gemm_scan(ph, K, 1e3)
+        torch.cuda.synchronize()
+        scan_lat.append(time.perf_counter() - t)
+    log(f"[5] query_by_phash on {N_ROWS:,} rows: end-to-end median "
+        f"{statistics.median(lat) * 1e3:.2f} ms, scan alone (direct call, synchronized) median "
+        f"{statistics.median(scan_lat) * 1e3:.3f} ms; = plain exact scan; {smi}")
+    log(f"[5] query_by_phash spans, mean ms over the 5 timed queries: {json.dumps(spans)}")
+
+    for e, by, md, pairs, dt, span in dups:
+        store = e._ph_store if by == "phash" else e._sem_store
+        row_map = e._ph_row_by_image if by == "phash" else e._sem_row_by_image
+        rows = np.asarray(sorted(row_map.values()), dtype=np.int64)
+        index = store.device_index
+        for s in (0, len(rows) // 2, len(rows) - 256):
+            qb = store.get_rows(rows[s : s + 256])
+            if by == "phash":
+                d1, i1 = e._phash_gemm_scan(qb, 8, md)
+                d2, i2 = scan.hamming_scan_topk(torch.from_numpy(qb).cuda(), index, k=8, max_distance=md)
+            else:
+                smp = e._get_scan_sample()
+                d1, i1 = scan.cosine_scan_topk_auto(
+                    torch.from_numpy(qb).cuda(), index, k=8, max_distance=md, sample=smp,
+                    row_meta=e._get_row_meta(),
+                )
+                d1, i1 = d1.cpu().numpy(), i1.cpu().numpy()
+                d2, i2 = scan.cosine_scan_topk(torch.from_numpy(qb).cuda(), index, k=8, max_distance=md)
+            check(np.array_equal(d1, d2.cpu().numpy()) and np.array_equal(i1, i2.cpu().numpy()),
+                  f"duplicates by {by}: batch at row {s} differs from the plain exact scan")
+        log(f"[5] find_duplicate_pairs(by={by}, max_distance={md}) over {len(rows):,} rows: "
+            f"{len(pairs):,} pairs in {dt:.2f}s (engine.duplicate_scan {span:.2f}s; "
+            f"{len(rows) / dt:,.0f} rows/s); 3 sampled batches = plain exact scan; {smi}")
+        if by == "phash":
+            check(len(pairs) >= len(filler) // 1000, "duplicates by phash missed the planted near-dups")
     eng.close()
     return counts
 
@@ -428,6 +907,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from pixelbox_tpu_torch.ops import fused_scan as fs
+    from pixelbox_tpu_torch.ops import hamming_gemm as hg
     from pixelbox_tpu_torch.ops import scan
     from pixelbox_tpu_torch.utils.device import hold_exact_numerics
 
@@ -450,32 +930,40 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"[2] ptxas: {line.strip()}")
 
-    # [3] kernels vs plain
-    err, timing = phase_kernels(fs, scan, smi)
+    # [3] kernels vs plain, [3b] Hamming, [3c] large batches
+    err = {n: 0.0 for n in Recorder.NAMES}
+    stats, db = phase_kernels(fs, scan, smi, err)
+    stats.update(phase_hamming(fs, scan, hg, smi, err))
+    phase_big_batch(fs, scan, smi, err, db)
+    del db
 
-    # [4] engine
+    # [4] engine, [5] phash engine and duplicates
     with tempfile.TemporaryDirectory(prefix="pixelbox_smoke_") as tmp:
-        counts = phase_engine(fs, scan, smi, tmp)
+        counts4, sem_eng, ckpt = phase_engine(fs, scan, smi, tmp)
+        counts5 = phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt)
+        sem_eng.close()
 
     check("jax" not in sys.modules, "jax was imported")
     replaces = {
-        "cosine_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:192",
-        "cosine_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:192",
+        "cosine_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:979",
+        "cosine_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:1074",
         "lex_topk_segments": "pixelbox_tpu/ops/pallas_scan.py:192",
+        "hamming_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:1012",
+        "hamming_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:192",
     }
-    kernels = [
-        {
+    kernels = []
+    for n in Recorder.NAMES:
+        st = stats[n]
+        kernels.append({
             "name": n,
             "route": "cuda",
             "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
             "replaces": replaces[n],
-            "launches": counts[n],
+            "launches": counts4[n] + counts5[n],
             "max_abs_err": err[n],
-            "ms": timing[n][0],
-            "plain_ms": timing[n][1],
-        }
-        for n in Recorder.NAMES
-    ]
+            **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **({"dot_only_ms": st["dot_only_ms"]} if "dot_only_ms" in st else {}),
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

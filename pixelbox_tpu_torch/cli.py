@@ -9,6 +9,8 @@ Subcommands (the JAX CLI's names and flags):
     index <db>                     — crawl tracked folders, index new images
     search <db> <query...>         — text query (similar:/tag:/exif:/all:/...)
     similar <db> <image>           — find images similar to a file
+    phash-similar <db> <image>     — near-duplicate search by perceptual hash
+    duplicates <db>                — whole-index near-duplicate pairs/groups
     show <db> <id>                 — one indexed image's metadata
     stats <db>                     — index statistics
 
@@ -75,6 +77,37 @@ def _print_results(engine, as_json=False):
     print(f"{len(results)} results", file=sys.stderr)
 
 
+def _duplicates(engine, args) -> int:
+    md = args.max_distance
+    if md is None:
+        md = 0.1 if args.by == "phash" else 0.05
+    if args.groups:
+        groups = engine.find_duplicate_groups(max_distance=md, k=args.k, by=args.by)
+        if args.json:
+            print(json.dumps(groups, indent=2))
+        else:
+            for g in groups:
+                print("group:")
+                for i in g:
+                    info = engine.catalog.get_image(i)
+                    print(f"  {i}  {info['path'] if info else '?'}")
+            print(f"{len(groups)} duplicate groups", file=sys.stderr)
+        return 0
+    pairs = engine.find_duplicate_pairs(max_distance=md, k=args.k, by=args.by)
+    if args.json:
+        print(json.dumps([{"a": a, "b": b, "distance": d} for a, b, d in pairs], indent=2))
+    else:
+        for a, b, d in pairs:
+            ia = engine.catalog.get_image(a)
+            ib = engine.catalog.get_image(b)
+            print(
+                f"dist={d:.6f}  {a}:{ia['path'] if ia else '?'}"
+                f"  <->  {b}:{ib['path'] if ib else '?'}"
+            )
+        print(f"{len(pairs)} near-duplicate pairs", file=sys.stderr)
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pixelbox-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -125,6 +158,26 @@ def _parser() -> argparse.ArgumentParser:
     sp.add_argument("--json", action="store_true")
     sp.add_argument("--limit", type=int, default=100)
     sp.add_argument("--max-distance", type=float, default=1e3)
+    sp = add_db_cmd("phash-similar", help="find near-duplicates by perceptual hash")
+    sp.add_argument("image")
+    sp.add_argument("--json", action="store_true")
+    sp.add_argument("--limit", type=int, default=100)
+    sp.add_argument("--max-distance", type=float, default=1e3)
+    sp = add_db_cmd(
+        "duplicates",
+        help="find near-duplicate image pairs across the whole index "
+        "(batched device self-scan)",
+    )
+    sp.add_argument("--by", default="phash", choices=("phash", "semantic"))
+    sp.add_argument(
+        "--max-distance", type=float, default=None,
+        help="strict distance cutoff (default: 0.1 hamming for phash, "
+        "0.05 reciprocal-cosine for semantic)",
+    )
+    sp.add_argument("--k", type=int, default=8, help="max neighbors considered per image")
+    sp.add_argument("--groups", action="store_true",
+                    help="print transitive duplicate GROUPS instead of pairs")
+    sp.add_argument("--json", action="store_true")
     sp = add_db_cmd("show", help="show one indexed image's metadata")
     sp.add_argument("id", type=int)
     add_db_cmd("stats", help="index statistics")
@@ -172,6 +225,22 @@ def main(argv=None) -> int:
                 print(f"error: {engine.last_query_error}", file=sys.stderr)
                 return 1
             _print_results(engine, as_json=args.json)
+        elif args.cmd == "phash-similar":
+            from pixelbox_tpu_torch.ingest.decode import decode_image_file
+            from pixelbox_tpu_torch.ops.phash import phash as phash_fn
+
+            decoded = decode_image_file(args.image)
+            if decoded is None:
+                print(f"error: cannot decode image: {args.image}", file=sys.stderr)
+                return 1
+            engine.max_search_results = args.limit
+            engine.max_distance_from_query = args.max_distance
+            engine.query_by_phash(
+                phash_fn(decoded.rgb, aspect_preserving=engine.phash_compat)
+            )
+            _print_results(engine, as_json=args.json)
+        elif args.cmd == "duplicates":
+            return _duplicates(engine, args)
         elif args.cmd == "show":
             info = engine.catalog.get_image(args.id)
             if info is None:
@@ -196,6 +265,7 @@ def main(argv=None) -> int:
                         "semantic_precision": engine.semantic_precision,
                         "embedder": engine._embedder_name,
                         "phash_compat": engine.phash_compat,
+                        "phash_dim": engine._ph_store.dim if engine._ph_store else None,
                         "device": str(engine.device),
                         "timings": get_stats(),
                     },

@@ -1,12 +1,21 @@
-// Hopper (sm_90a) kernels for the guaranteed-exact cosine scan.
+// Hopper (sm_90a) kernels for the guaranteed-exact cosine and Hamming scans.
 //
-// They replace the one Pallas TPU kernel on the main path,
+// They replace the one Pallas TPU kernel family of the repo,
 // pixelbox_tpu/ops/pallas_scan.py:_threshold_kernel (launched by
-// _call_threshold_kernel, distance maths in _kind_dist_tile), in its three
-// uses by ops/scan.py:cosine_scan_topk_auto:
-//   - the θ-estimate stage 2 (_pallas_sample_theta)      -> K1a + K1c
-//   - the main pass (pallas_threshold_scan_topk_v2)      -> K1a + K1c
-//   - the exact repair (pallas_cosine_scan_topk)         -> K1b + K1c
+// _call_threshold_kernel, distance maths in _kind_dist_tile), in its uses
+// by ops/scan.py:cosine_scan_topk_auto and ops/hamming_gemm.py:
+//   - the θ-estimate stage 2 (_pallas_sample_theta)      -> K1a/K2a + K1c
+//   - the cosine main pass (pallas_threshold_scan_topk_v2, and the
+//     buffer-select pallas_threshold_scan_topk for Q > 1024) -> K1a + K1c
+//   - the exact cosine repair (pallas_cosine_scan_topk)  -> K1b + K1c
+//   - the Hamming main pass
+//     (pallas_hamming_threshold_scan_topk(_v2))          -> K2a + K1c
+//   - the exact Hamming scan and repair                  -> K2b + K1c
+//
+// The Hamming kernels read the packed u8 phash rows (32 bytes for the
+// published 16x16 hash) and count differing bits with xor + __popc; the
+// TPU kernel multiplied a ±1 bit-unpacked int8 copy on its matrix unit,
+// which costs 8x the bytes and gives the same integer.
 //
 // The contract is ported, not the loop shape: output (dist [Q,k] f32,
 // idx [Q,k] i32) with missing entries +inf / -1, the strict dist < θ
@@ -104,15 +113,72 @@ __device__ __forceinline__ unsigned long long make_key(float dist, int row) {
 }
 
 // Stage QT query rows (zero-padded past nq) into shared memory.
-template <int QT>
-__device__ __forceinline__ void stage_queries(const int8_t* __restrict__ q_codes,
-                                              int q0, int nq, int D,
-                                              int8_t* q_sh) {
+template <int QT, typename T>
+__device__ __forceinline__ void stage_queries(const T* __restrict__ q_codes,
+                                              int q0, int nq, int D, T* q_sh) {
   for (int t = threadIdx.x; t < QT * D; t += blockDim.x) {
     const int j = t / D;
     q_sh[t] = (j < nq) ? q_codes[static_cast<size_t>(q0 + j) * D + (t - j * D)]
-                       : static_cast<int8_t>(0);
+                       : static_cast<T>(0);
   }
+}
+
+// Differing bits between one packed u8 row (width H) and QT staged
+// queries over the first `limit` bytes (the reference's zip-truncate,
+// engine.rs:594-604).  16-byte loads where H allows, then 32-bit words,
+// then a masked word for a limit that is not a multiple of 4 (rows of a
+// width that is not a multiple of 4 — compat hashes of 16x9 images are
+// 18 bytes — take the byte loop).  Little-endian: a word's low byte is
+// the row's first byte, so the tail mask keeps the low 8*tail bits.
+template <int QT>
+__device__ __forceinline__ void row_popc(const uint8_t* __restrict__ row,
+                                         const uint8_t* q_sh, int H, int limit,
+                                         int (&acc)[QT]) {
+#pragma unroll
+  for (int j = 0; j < QT; ++j) acc[j] = 0;
+  if ((H & 3) != 0) {
+    for (int c = 0; c < limit; ++c) {
+      const unsigned r = row[c];
+#pragma unroll
+      for (int j = 0; j < QT; ++j) acc[j] += __popc(r ^ q_sh[j * H + c]);
+    }
+    return;
+  }
+  int c = 0;
+  if ((H & 15) == 0) {
+    for (; c + 16 <= limit; c += 16) {
+      const uint4 r = *reinterpret_cast<const uint4*>(row + c);
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const uint4 q = *reinterpret_cast<const uint4*>(q_sh + j * H + c);
+        acc[j] += __popc(r.x ^ q.x) + __popc(r.y ^ q.y) + __popc(r.z ^ q.z) +
+                  __popc(r.w ^ q.w);
+      }
+    }
+  }
+  for (; c + 4 <= limit; c += 4) {
+    const unsigned r = *reinterpret_cast<const unsigned*>(row + c);
+#pragma unroll
+    for (int j = 0; j < QT; ++j)
+      acc[j] += __popc(r ^ *reinterpret_cast<const unsigned*>(q_sh + j * H + c));
+  }
+  const int tail = limit - c;
+  if (tail > 0) {
+    const unsigned mask = (1u << (8 * tail)) - 1u;
+    const unsigned r = *reinterpret_cast<const unsigned*>(row + c) & mask;
+#pragma unroll
+    for (int j = 0; j < QT; ++j)
+      acc[j] += __popc((r ^ *reinterpret_cast<const unsigned*>(q_sh + j * H + c)) & mask);
+  }
+}
+
+// Normalized Hamming distance, the JAX spec op for op (ops/scan.py
+// hamming_scan_topk, pallas_scan.py _kind_dist_tile): the optional u8
+// accumulator wrap of the reference (engine.rs:603), then one correctly
+// rounded f32 multiply by the host's f32(1 / (8 * limit)).
+__device__ __forceinline__ float hamming_dist(int bits, int wrap, float scale) {
+  if (wrap) bits &= 255;
+  return __fmul_rn(__int2float_rn(bits), scale);
 }
 
 // Sort every `seg`-long segment of keys[0:total] ascending (bitonic; seg
@@ -155,7 +221,7 @@ threshold_collect_kernel(const int8_t* __restrict__ q_codes,
   extern __shared__ __align__(16) int8_t q_sh[];
   const int q0 = blockIdx.y * QT;
   const int nq = min(QT, Q - q0);
-  stage_queries<QT>(q_codes, q0, nq, D, q_sh);
+  stage_queries<QT, int8_t>(q_codes, q0, nq, D, q_sh);
   __syncthreads();
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
@@ -202,7 +268,7 @@ chunk_topk_kernel(const int8_t* __restrict__ q_codes,
   const int chunk = blockIdx.x;
   const int q0 = blockIdx.y * QB;
   const int nq = min(QB, Q - q0);
-  stage_queries<QB>(q_codes, q0, nq, D, q_sh);
+  stage_queries<QB, int8_t>(q_codes, q0, nq, D, q_sh);
   __syncthreads();
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const int row = chunk * R + r;
@@ -227,6 +293,93 @@ chunk_topk_kernel(const int8_t* __restrict__ q_codes,
         const int q = q0 + j;
         const float dist = spec_dist(acc[j], q_sum[q], row_sum, D, qr[q], rr,
                                      q_mag2f[q], row_mag2f);
+        if (dist < max_distance) key = make_key(dist, row);
+      }
+      keys[j * R + r] = key;
+    }
+  }
+  __syncthreads();
+  bitonic_sort_segments(keys, QB * R, R);
+  for (int t = threadIdx.x; t < nq * k; t += blockDim.x) {
+    const int j = t / k;
+    const int s = t - j * k;
+    const unsigned long long key = keys[j * R + s];
+    const size_t o = (static_cast<size_t>(q0 + j) * n_chunks + chunk) * k + s;
+    out_d[o] = key == kNoKey ? __int_as_float(0x7f800000)
+                             : __uint_as_float(static_cast<unsigned>(key >> 32));
+    out_i[o] = key == kNoKey ? -1 : static_cast<int>(key & 0xffffffffu);
+  }
+}
+
+// K2a: K1a for the Hamming kind.  Every row with row_ok != 0 (validity
+// AND the optional width-group mask, built by ops/fused_scan.py
+// build_hamming_meta) and dist < theta[q] is appended to query q's
+// buffer under an exact atomic count.  Bound on the card by __popc
+// (limit/4 per query and row, 32 queries a block share one read of the
+// row); the packed rows are read once per 32 queries.
+template <int QT>
+__global__ void __launch_bounds__(kThreads)
+hamming_collect_kernel(const uint8_t* __restrict__ q_bytes,
+                       const float* __restrict__ theta,
+                       const uint8_t* __restrict__ data,
+                       const uint8_t* __restrict__ row_ok, int Q, int N, int H,
+                       int limit, int wrap, float scale, int cap,
+                       int* __restrict__ count, float* __restrict__ cand_d,
+                       int* __restrict__ cand_i) {
+  extern __shared__ __align__(16) uint8_t hq_sh[];
+  const int q0 = blockIdx.y * QT;
+  const int nq = min(QT, Q - q0);
+  stage_queries<QT, uint8_t>(q_bytes, q0, nq, H, hq_sh);
+  __syncthreads();
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N || row_ok[row] == 0) return;
+  int acc[QT];
+  row_popc<QT>(data + static_cast<size_t>(row) * H, hq_sh, H, limit, acc);
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    if (j < nq) {
+      const int q = q0 + j;
+      const float dist = hamming_dist(acc[j], wrap, scale);
+      if (dist < theta[q]) {
+        const int slot = atomicAdd(count + q, 1);
+        if (slot < cap) {
+          cand_d[static_cast<size_t>(q) * cap + slot] = dist;
+          cand_i[static_cast<size_t>(q) * cap + slot] = row;
+        }
+      }
+    }
+  }
+}
+
+// K2b: K1b for the Hamming kind — per (row chunk, query tile) the chunk's
+// exact top-k of {row_ok rows with dist < max_distance} by (dist, row id),
+// sorted in shared memory; K1c finishes the [Q, n_chunks, k] partials.
+template <int QB>
+__global__ void __launch_bounds__(kThreads)
+hamming_chunk_topk_kernel(const uint8_t* __restrict__ q_bytes,
+                          float max_distance, const uint8_t* __restrict__ data,
+                          const uint8_t* __restrict__ row_ok, int Q, int N,
+                          int H, int limit, int wrap, float scale, int R, int k,
+                          int n_chunks, float* __restrict__ out_d,
+                          int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char hsmem[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(hsmem);
+  uint8_t* q_sh = reinterpret_cast<uint8_t*>(keys + QB * R);
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * QB;
+  const int nq = min(QB, Q - q0);
+  stage_queries<QB, uint8_t>(q_bytes, q0, nq, H, q_sh);
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int row = chunk * R + r;
+    const bool ok = row < N && row_ok[row] != 0;
+    int acc[QB];
+    if (ok) row_popc<QB>(data + static_cast<size_t>(row) * H, q_sh, H, limit, acc);
+#pragma unroll
+    for (int j = 0; j < QB; ++j) {
+      unsigned long long key = kNoKey;
+      if (ok && j < nq) {
+        const float dist = hamming_dist(acc[j], wrap, scale);
         if (dist < max_distance) key = make_key(dist, row);
       }
       keys[j * R + r] = key;
@@ -333,5 +486,39 @@ PX_EXPORT int px_lex_topk_segments(const void* in_d, const void* in_i,
       static_cast<const float*>(in_d), static_cast<const int*>(in_i),
       static_cast<const int*>(lens), M, S, k, n_seg,
       static_cast<float*>(out_d), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+PX_EXPORT int px_hamming_collect(const void* q_bytes, const void* theta,
+                                 const void* data, const void* row_ok, int Q,
+                                 int N, int H, int limit, int wrap, float scale,
+                                 int cap, void* count, void* cand_d,
+                                 void* cand_i, void* stream) {
+  const dim3 grid((N + kThreads - 1) / kThreads,
+                  (Q + kCollectQueries - 1) / kCollectQueries);
+  const size_t smem = static_cast<size_t>(kCollectQueries) * H;
+  hamming_collect_kernel<kCollectQueries>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(q_bytes), static_cast<const float*>(theta),
+          static_cast<const uint8_t*>(data), static_cast<const uint8_t*>(row_ok),
+          Q, N, H, limit, wrap, scale, cap, static_cast<int*>(count),
+          static_cast<float*>(cand_d), static_cast<int*>(cand_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+PX_EXPORT int px_hamming_chunk_topk(const void* q_bytes, float max_distance,
+                                    const void* data, const void* row_ok, int Q,
+                                    int N, int H, int limit, int wrap,
+                                    float scale, int R, int k, int n_chunks,
+                                    void* out_d, void* out_i, void* stream) {
+  const dim3 grid(n_chunks, (Q + kChunkQueries - 1) / kChunkQueries);
+  const size_t smem = static_cast<size_t>(kChunkQueries) * R * 8 +
+                      static_cast<size_t>(kChunkQueries) * H;
+  hamming_chunk_topk_kernel<kChunkQueries>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(q_bytes), max_distance,
+          static_cast<const uint8_t*>(data), static_cast<const uint8_t*>(row_ok),
+          Q, N, H, limit, wrap, scale, R, k, n_chunks,
+          static_cast<float*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }

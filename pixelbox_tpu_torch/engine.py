@@ -18,10 +18,10 @@ Semantics kept from the reference (as in the JAX package):
 - image-hash queries apply strict ``dist < max_distance_from_query``
   (engine.rs:375-383); results cached until the next query.
 
-Ported so far: the semantic modality on one device.  The phash, BLIP,
-face, IVF, duplicate and watch mixins, int4 precision and mesh serving
-wait (ROADMAP.md); phashes are still computed at ingest and stored in the
-catalog exactly as the JAX package stores them.
+Ported so far, on one device: the semantic modality, perceptual-hash
+search (``query_by_phash``) and whole-index duplicate finding.  The BLIP,
+face, IVF and watch mixins, int4 precision and mesh serving wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from pixelbox_tpu_torch.ops.distances import cosine_distance
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk
 from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
-from pixelbox_tpu_torch.serving import SemanticServing
+from pixelbox_tpu_torch.serving import DuplicateFinding, PhashServing, SemanticServing
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.device import resolve_device
 from pixelbox_tpu_torch.utils.rwlock import RWLock
@@ -53,7 +53,7 @@ DEFAULT_MAX_QUERY_DISTANCE = 1e3  # engine.rs:23
 DEFAULT_MAX_SEARCH_RESULTS = 100  # engine.rs:24
 
 
-class Engine(SemanticServing):
+class Engine(SemanticServing, PhashServing, DuplicateFinding):
     """Index + query engine over a catalog DB and a device vector store.
 
     ``device`` ("cuda" by default, "cpu", or a torch.device) holds the
@@ -159,6 +159,18 @@ class Engine(SemanticServing):
         self._sem_store: Optional[VectorStore] = None
         self._sem_image_ids: List[int] = []
         self._sem_row_by_image: dict = {}
+        self._ph_store: Optional[VectorStore] = None
+        self._ph_image_ids: List[int] = []
+        self._ph_row_by_image: dict = {}
+        #: True byte width per phash row (aspect-preserving compat hashes
+        #: vary in length, phash.rs:7); the store zero-pads to the max
+        #: width but distances use zip-truncate semantics over TRUE widths
+        #: (engine.rs:594-604) — see query_by_phash.
+        self._ph_widths: List[int] = []
+        self._ph_gemm = None
+        self._ph_gemm_at_ver = -1
+        #: Mesh serving is not yet ported: the scans raise unless None.
+        self.scan_mesh = None
         self._load_stores()
 
         self._pipeline = None
@@ -189,6 +201,21 @@ class Engine(SemanticServing):
             self._sem_store.append(rows.reshape(len(sem), dim))
             self._sem_image_ids = [i for i, _ in sem]
             self._sem_row_by_image = {img: r for r, img in enumerate(self._sem_image_ids)}
+        ph = list(self.catalog.iter_hashes("phashes"))
+        if ph:
+            # Aspect-preserving compat hashes vary in width; the store
+            # zero-pads to the max, and the TRUE widths are kept so
+            # queries replicate the reference's zip-truncate distance
+            # (engine.rs:594-604) per row-width group.
+            self._ph_widths = [len(h) for _, h in ph]
+            dim = max(self._ph_widths)
+            self._ph_store = VectorStore(dim=dim, kind="hamming", device=self.device)
+            mat = np.zeros((len(ph), dim), dtype=np.uint8)
+            for r, (_, h) in enumerate(ph):
+                mat[r, : len(h)] = np.frombuffer(h, dtype=np.uint8)
+            self._ph_store.append(mat)
+            self._ph_image_ids = [i for i, _ in ph]
+            self._ph_row_by_image = {img: r for r, img in enumerate(self._ph_image_ids)}
 
     @property
     def embedder(self):
@@ -278,6 +305,25 @@ class Engine(SemanticServing):
                 for (img_id, _), row in zip(sem, row_ids):
                     self._sem_image_ids.append(img_id)
                     self._sem_row_by_image[img_id] = int(row)
+            ph = [(i, r.phash) for i, r in new if r.phash is not None]
+            if ph:
+                if self._ph_store is None:
+                    self._ph_store = VectorStore(
+                        dim=len(ph[0][1]), kind="hamming", device=self.device
+                    )
+                # Never truncate: a wider hash grows the whole store
+                # (existing rows zero-pad; true widths stay recorded).
+                w = max(self._ph_store.dim, max(len(h) for _, h in ph))
+                if w > self._ph_store.dim:
+                    self._ph_store.grow_dim(w)
+                mat = np.zeros((len(ph), w), dtype=np.uint8)
+                for j, (_, h) in enumerate(ph):
+                    mat[j, : len(h)] = h
+                row_ids = self._ph_store.append(mat)
+                for (img_id, h), row in zip(ph, row_ids):
+                    self._ph_image_ids.append(img_id)
+                    self._ph_widths.append(len(h))
+                    self._ph_row_by_image[img_id] = int(row)
         return ids
 
     # ------------------------------------------------------------------ #

@@ -1,5 +1,5 @@
-"""Device-resident vector store with streaming append (torch port of
-``index/store.py``, ``kind="semantic"``).
+"""Device-resident vector stores with streaming append (torch port of
+``index/store.py``, kinds ``"semantic"`` and ``"hamming"``).
 
 Vectors live packed on the device (see ``ops.packed``); the host keeps a
 uint8 mirror for re-packing and result assembly.  Capacity grows by
@@ -13,8 +13,8 @@ donation required.  The validity mask gates padded/deleted rows out of
 every scan.
 
 Deletes are tombstones (valid=False), compacted away by
-:meth:`VectorStore.compact`.  The ``semantic4`` (int4) and ``hamming``
-kinds wait (ROADMAP.md).
+:meth:`VectorStore.compact`.  The ``semantic4`` (int4) kind waits
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,7 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
+from pixelbox_tpu_torch.ops.packed import (
+    PackedHammingIndex,
+    PackedSemanticIndex,
+    semantic_rows_from_u8,
+)
 from pixelbox_tpu_torch.utils.device import resolve_device
 
 DEFAULT_BLOCK_ROWS = 32768
@@ -30,12 +34,14 @@ _MIN_CAPACITY = 1024
 
 
 class VectorStore:
-    """A growable device-resident u8 vector index.
+    """A growable device-resident u8 vector index (semantic or hamming).
 
     Parameters
     ----------
-    dim: vector width in bytes (the embedding dim).
-    kind: "semantic" (the only kind ported so far).
+    dim: vector width in bytes (embedding dim for semantic, hash bytes for
+        phash; the reference treats hash width as opaque, engine.rs:48).
+    kind: "semantic" (int8 cosine scan) or "hamming" (xor-popcount; rows
+        stay packed u8 on the device).
     device: where the packed tensors live ("cuda", "cpu", a torch.device).
     """
 
@@ -46,7 +52,7 @@ class VectorStore:
         block_rows: int = DEFAULT_BLOCK_ROWS,
         device="cuda",
     ):
-        if kind != "semantic":
+        if kind not in ("semantic", "hamming"):
             raise NotImplementedError(
                 f"VectorStore kind {kind!r} is not yet ported to pixelbox_tpu_torch"
             )
@@ -60,11 +66,15 @@ class VectorStore:
         #: Derived layouts (row meta, the scan sample) key their caches on
         #: this — NOT on ``n``, which does not change on tombstone deletes.
         self.version = 0
+        #: Bumps only on layout-changing mutations (realloc/delete/compact/
+        #: grow); in-capacity appends bump ``version`` alone — the JAX
+        #: package's contract for mirrors that sync incrementally.
+        self.structural_version = 0
         # Host mirrors (uint8 raw rows; authoritative for repacking).
         self._host_rows = np.zeros((0, self.dim), dtype=np.uint8)
         self._host_valid = np.zeros((0,), dtype=bool)
         self._capacity = 0
-        self._device_arrays = None  # PackedSemanticIndex
+        self._device_arrays = None  # PackedSemanticIndex | PackedHammingIndex
 
     # ------------------------------------------------------------------ #
     # Capacity management
@@ -79,15 +89,19 @@ class VectorStore:
     def _alloc(self, capacity: int):
         """(Re)allocate device tensors at ``capacity`` and repack live rows."""
         self._capacity = capacity
+        self.structural_version += 1
         n = self.n
         rows = np.zeros((capacity, self.dim), dtype=np.uint8)
         rows[:n] = self._host_rows[:n]
         valid = np.zeros((capacity,), dtype=bool)
         valid[:n] = self._host_valid[:n]
-        data, row_sum, row_mag2 = semantic_rows_from_u8(rows)
-        self._device_arrays = PackedSemanticIndex(
-            self._put(data), self._put(row_sum), self._put(row_mag2), self._put(valid)
-        )
+        if self.kind == "semantic":
+            data, row_sum, row_mag2 = semantic_rows_from_u8(rows)
+            self._device_arrays = PackedSemanticIndex(
+                self._put(data), self._put(row_sum), self._put(row_mag2), self._put(valid)
+            )
+        else:
+            self._device_arrays = PackedHammingIndex(self._put(rows), self._put(valid))
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -133,11 +147,14 @@ class VectorStore:
     def _write_device_rows(self, rows_u8: np.ndarray, start: int):
         """In-place write of appended rows (caller holds the write lock)."""
         end = start + rows_u8.shape[0]
-        data, row_sum, row_mag2 = semantic_rows_from_u8(rows_u8)
         a = self._device_arrays
-        a.data[start:end] = self._put(data)
-        a.row_sum[start:end] = self._put(row_sum)
-        a.row_mag2[start:end] = self._put(row_mag2)
+        if self.kind == "semantic":
+            data, row_sum, row_mag2 = semantic_rows_from_u8(rows_u8)
+            a.data[start:end] = self._put(data)
+            a.row_sum[start:end] = self._put(row_sum)
+            a.row_mag2[start:end] = self._put(row_mag2)
+        else:
+            a.data[start:end] = self._put(rows_u8)
         a.valid[start:end] = True
 
     def delete(self, row_ids) -> None:
@@ -147,6 +164,7 @@ class VectorStore:
         self._host_valid[row_ids] = False
         self.n_deleted += int(np.count_nonzero(fresh))
         self.version += 1
+        self.structural_version += 1
         if self._device_arrays is not None:
             self._device_arrays.valid[torch.from_numpy(row_ids).to(self.device)] = False
 
@@ -165,11 +183,28 @@ class VectorStore:
         self._alloc(self._target_capacity(max(self.n, 1)))
         return mapping
 
+    def grow_dim(self, new_dim: int) -> None:
+        """Widen rows to ``new_dim`` bytes, zero-padding existing rows.
+
+        Used by variable-width hamming stores (aspect-preserving compat
+        phashes, reference src/image_hashes/phash.rs:7): when a wider hash
+        arrives the whole store grows so no hash bits are ever truncated.
+        Bumps ``version``, so every cache derived from the rows rebuilds.
+        """
+        if new_dim <= self.dim:
+            return
+        grown = np.zeros((self._host_rows.shape[0], new_dim), dtype=np.uint8)
+        grown[:, : self.dim] = self._host_rows
+        self._host_rows = grown
+        self.dim = int(new_dim)
+        self.version += 1
+        self._alloc(self._target_capacity(max(self.n, 1)))
+
     # ------------------------------------------------------------------ #
     # Access
 
     @property
-    def device_index(self) -> PackedSemanticIndex:
+    def device_index(self):
         """The packed device tensors for the scans (padded/masked)."""
         if self._device_arrays is None:
             self._alloc(self._target_capacity(1))

@@ -1,14 +1,14 @@
 """Native (C++) host codecs, loaded via ctypes.
 
-The C++ sources are the reference package's (``pixelbox_tpu/native/*.cpp``:
-QOI thumbnails, libjpeg/libpng/libwebp decode, the separable resampler,
-the CPU scan).  They are compiled BY PATH into this package's git-ignored
-build directory (``pixelbox_tpu_torch/_build/``, or
-$PIXELBOX_TPU_TORCH_BUILD_DIR) with g++ -O3 on first use; the Python
-package ``pixelbox_tpu`` is never imported (it loads jax).  Every native
-entry point has a pure-Python fallback in its caller, so a host without
-a toolchain degrades gracefully: these are host codecs, not device
-kernels.
+The C++ sources live beside this file (``qoi.cpp``: QOI thumbnails;
+``image_decode.cpp``: libjpeg/libpng/libwebp decode and the separable
+resampler; ``cpu_scan.cpp``: the CPU scan) — unchanged copies of the JAX
+package's, so both packages decode, thumbnail and resample alike.  They
+are compiled into this package's git-ignored build directory
+(``pixelbox_tpu_torch/_build/``, or $PIXELBOX_TPU_TORCH_BUILD_DIR) with
+g++ -O3 on first use.  Every native entry point has a pure-Python
+fallback in its caller, so a host without a toolchain degrades
+gracefully: these are host codecs, not device kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC_DIR = _PKG.parent / "pixelbox_tpu" / "native"
+_SRC_DIR = Path(__file__).resolve().parent
 _LOCK = threading.Lock()
 _LIB = None
 _LIB_FAILED = False

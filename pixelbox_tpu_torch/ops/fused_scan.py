@@ -1,9 +1,10 @@
 """Fused threshold scans with guaranteed-exact top-k — the counterpart of
 ``pixelbox_tpu/ops/pallas_scan.py``.
 
-Three hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
-JAX package's one Pallas TPU kernel on the main path
-(``pallas_scan.py:_threshold_kernel``, kind="cosine", select="carry"):
+Five hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
+JAX package's one Pallas TPU kernel family
+(``pallas_scan.py:_threshold_kernel``; kinds "cosine" and "hamming",
+selects "carry" and "buffer"):
 
 - **K1a** :func:`cosine_threshold_collect` — exact int8 dot + spec-v2
   epilogue + strict ``dist < θ_q`` filter; passing rows are appended to a
@@ -15,17 +16,29 @@ JAX package's one Pallas TPU kernel on the main path
   (dist, id), keeping k; re-launched until one segment per query remains.
   It finishes K1a's buffer and K1b's partials, and sorting on the id as
   the second key makes both independent of atomic order.
+- **K2a** :func:`hamming_threshold_collect` and **K2b**
+  :func:`hamming_chunk_topk` — K1a and K1b for the Hamming kind: xor +
+  popcount over the first ``byte_limit`` bytes of the packed u8 phash
+  rows, the optional u8 wrap of the reference (engine.rs:603), one f32
+  multiply by ``f32(1 / (8 * byte_limit))``.  K1c finishes both.
 
-Uses, exactly where the JAX package launched its kernel:
+Uses, exactly where the JAX package launched its kernel.  One code path
+serves both kinds; a kind object (:class:`CosineQueries`,
+:class:`HammingQueries`) picks the distance and the collect and chunk
+kernels:
 
 - θ estimate (:func:`sample_theta`, was ``_pallas_sample_theta``): stage 1
-  plain torch over a 1/16 mini-sample, stage 2 K1a + K1c over the sample;
+  plain torch over a 1/16 mini-sample, stage 2 K1a/K2a + K1c over the
+  sample;
 - main pass (:func:`fused_threshold_scan_topk`, was
-  ``pallas_threshold_scan_topk_v2``): K1a + K1c, proof
-  ``count <= cap ∧ (count >= k ∨ θ unbound)`` (the JAX buffer contract);
+  ``pallas_threshold_scan_topk(_v2)``; :func:`fused_hamming_threshold_scan_topk`,
+  was ``pallas_hamming_threshold_scan_topk(_v2)``): K1a/K2a + K1c at every
+  batch size, proof ``count <= cap ∧ (count >= k ∨ θ unbound)`` (the JAX
+  buffer contract);
 - exact scan (:func:`fused_cosine_scan_topk`, was
-  ``pallas_cosine_scan_topk``): K1b + K1c, unconditionally exact — the
-  auto path's repair and ``--scan-mode pallas``.
+  ``pallas_cosine_scan_topk``; :func:`fused_hamming_scan_topk`):
+  K1b/K2b + K1c, unconditionally exact — the auto paths' repair,
+  ``--scan-mode pallas``, and the mixed-width phash and duplicate scans.
 
 Dispatch is by device and nothing else: a CUDA tensor goes to the kernel
 (or the wrapper raises), a CPU tensor goes to the kernel's plain PyTorch
@@ -37,10 +50,12 @@ package, and ``chip_smoke.py`` holds the kernels bit-identical to them.
 What bounds the kernels on the card: K1a/K1b read the int8 index once
 per query tile (32 / 4 queries) and spend ~D/4 ``__dp4a`` per (query,
 row) plus one correctly-rounded divide — integer-ALU and divide bound at
-Q >= 32, HBM-read bound below.  The design keeps distances out of device
-memory (only θ-passing rows or each chunk's top-k are written); making
-the dot a tensor-core ``wgmma`` int8 product and fusing K1a with K1c is
-later work (ROADMAP.md).
+Q >= 32, HBM-read bound below.  K2a/K2b spend byte_limit/4 ``__popc``
+per (query, row) — popcount-throughput bound at Q >= 32.  The design
+keeps distances out of device memory (only θ-passing rows or each
+chunk's top-k are written); tensor-core versions (an int8 ``wgmma`` dot,
+a ``.b1`` MMA or ±1 int8 product for Hamming) and fusing K1a with K1c
+are later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,7 +75,11 @@ import torch
 
 from pixelbox_tpu_torch.ops import topk as topk_ops
 from pixelbox_tpu_torch.ops.distances import _f32, rsqrt_spec
-from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, query_moments_from_u8
+from pixelbox_tpu_torch.ops.packed import (
+    PackedHammingIndex,
+    PackedSemanticIndex,
+    query_moments_from_u8,
+)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("fused_scan.cu",)
@@ -81,6 +100,8 @@ SEGMENT = 2048
 MAX_K = 1024
 #: Row block of the plain versions (bounds their [Q, block] temporaries).
 _PLAIN_BLOCK = 65536
+#: Element budget of the plain Hamming versions' [Q, rows, bytes] xor.
+_PLAIN_XOR_ELEMS = 1 << 26
 
 
 # --------------------------------------------------------------------- #
@@ -152,6 +173,10 @@ def _build_and_load() -> _Kernels:
     lib.px_chunk_topk.argtypes = [vp] * 4 + [cf, vp, vp] + [ci] * 6 + [vp] * 3
     lib.px_lex_topk_segments.restype = ci
     lib.px_lex_topk_segments.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
+    lib.px_hamming_collect.restype = ci
+    lib.px_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
+    lib.px_hamming_chunk_topk.restype = ci
+    lib.px_hamming_chunk_topk.argtypes = [vp, cf, vp, vp] + [ci] * 5 + [cf] + [ci] * 3 + [vp] * 3
     return _Kernels(lib, str(so), time.perf_counter() - t0, ptxas)
 
 
@@ -197,7 +222,13 @@ def _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta):
 #: Plain-integer launch counts, one per kernel wrapper; each wrapper adds
 #: one where it launches its kernel and nowhere else (CPU tensors, which
 #: take the plain version, do not count).
-LAUNCHES = {"cosine_threshold_collect": 0, "cosine_chunk_topk": 0, "lex_topk_segments": 0}
+LAUNCHES = {
+    "cosine_threshold_collect": 0,
+    "cosine_chunk_topk": 0,
+    "lex_topk_segments": 0,
+    "hamming_threshold_collect": 0,
+    "hamming_chunk_topk": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -292,16 +323,22 @@ def cosine_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap:
 
 def cosine_threshold_collect_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap):
     """Plain PyTorch version of K1a (collects in ascending row order)."""
-    dev = data.device
-    qn, n = q_codes.shape[0], data.shape[0]
+    return _collect_plain(
+        lambda lo, hi: _tile_dist(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi]),
+        q_codes.shape[0], data.shape[0], theta, cap, _PLAIN_BLOCK,
+    )
+
+
+def _collect_plain(tile, qn, n, theta, cap, block):
+    """The collect shared by the plain K1a and K2a: ``tile(lo, hi)`` gives
+    a row block's [Q, B] distances and [1, B] validity."""
+    dev = theta.device
     count = torch.zeros(qn, dtype=torch.int64, device=dev)
     cand_d = torch.full((qn, cap), float("inf"), dtype=torch.float32, device=dev)
     cand_i = torch.full((qn, cap), -1, dtype=torch.int32, device=dev)
-    for start in range(0, n, _PLAIN_BLOCK):
-        end = min(n, start + _PLAIN_BLOCK)
-        dist, valid = _tile_dist(
-            q_codes, q_sum, q_mag2, qr, data[start:end], meta[:, start:end]
-        )
+    for start in range(0, n, block):
+        end = min(n, start + block)
+        dist, valid = tile(start, end)
         mask = valid & (dist < theta[:, None])
         pos = torch.cumsum(mask, dim=1) - 1 + count[:, None]
         qi, ri = mask.nonzero(as_tuple=True)
@@ -465,7 +502,185 @@ def lex_topk(dist, idx, k: int, lens=None):
 
 
 # --------------------------------------------------------------------- #
-# Query prep, θ estimate, and the two public scans
+# Hamming: K2a (θ-filtered collect) and K2b (per-chunk exact top-k) over
+# packed u8 phash rows.  Row "meta" is one uint8 [N] row mask: validity
+# AND the optional width-group mask (build_hamming_meta).
+
+#: Popcount of every byte value — the plain versions' exact bit count.
+_POPCOUNT = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.uint8)
+
+
+def hamming_scale(byte_limit: int) -> float:
+    """The distance scale ``f32(1 / (8 * byte_limit))`` (JAX spec:
+    ``ops/scan.py:hamming_scan_topk``, ``pallas_scan.py:_kind_dist_tile``)."""
+    return float(np.float32(1.0 / (8.0 * byte_limit)))
+
+
+def build_hamming_meta(index: PackedHammingIndex, group=None) -> torch.Tensor:
+    """uint8 [N] row mask of the Hamming kernels: 1 where the row is valid
+    and (when ``group`` — a bool [N] width-group mask, numpy or torch —
+    is given) in the group.  The counterpart of the JAX package's
+    ``build_hamming_meta`` (its row 0 is the validity)."""
+    ok = index.valid
+    if group is not None:
+        ok = ok & torch.as_tensor(group, dtype=torch.bool).to(index.device)
+    return ok.to(torch.uint8).contiguous()
+
+
+def hamming_bits(q: torch.Tensor, rows: torch.Tensor, byte_limit: int) -> torch.Tensor:
+    """[Q, B] int32 differing bits of u8 queries [Q, H] and rows [B, H]
+    over the first ``byte_limit`` bytes: ``torch.bitwise_xor`` plus a
+    byte popcount table, in row blocks that bound the [Q, rows, bytes]
+    temporaries."""
+    qn, b = q.shape[0], rows.shape[0]
+    qs = q[:, None, :byte_limit]
+    lut = _POPCOUNT.to(q.device)
+    step = max(1, _PLAIN_XOR_ELEMS // max(1, qn * byte_limit))
+    out = torch.empty((qn, b), dtype=torch.int32, device=q.device)
+    for s in range(0, b, step):
+        x = torch.bitwise_xor(qs, rows[None, s : s + step, :byte_limit])
+        cnt = torch.index_select(lut, 0, x.reshape(-1).to(torch.int32))
+        out[:, s : s + step] = cnt.reshape(x.shape).sum(dim=-1, dtype=torch.int32)
+    return out
+
+
+def _hamming_tile_dist(q, data, meta, byte_limit: int, wrap_u8: bool):
+    """Plain [Q, B] distances + [1, B] row mask of a row block — op for op
+    the kernels' ``hamming_dist``."""
+    bits = hamming_bits(q, data, byte_limit)
+    if wrap_u8:
+        bits = bits & 255
+    dist = bits.to(torch.float32)
+    dist = dist * _f32(hamming_scale(byte_limit), dist)
+    return dist, (meta != 0)[None, :]
+
+
+def _check_hamming_args(q, data, meta, byte_limit):
+    dev = data.device
+    qn, h = q.shape
+    n = data.shape[0]
+    _require(q, "q", torch.uint8, (qn, h), dev)
+    _require(data, "data", torch.uint8, (n, h), dev)
+    _require(meta, "meta", torch.uint8, (n,), dev)
+    if not 0 < byte_limit <= h:
+        raise ValueError(f"byte_limit {byte_limit} outside 1..{h}")
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned")
+    return dev, qn, n, h
+
+
+def hamming_threshold_collect(q, theta, data, meta, byte_limit: int, wrap_u8: bool, cap: int):
+    """K2a: append every row with ``meta != 0`` and ``dist < theta[q]`` to
+    query q's buffer.  Same outputs and contract as
+    :func:`cosine_threshold_collect` (exact count; slot order unspecified
+    on the card, ascending row id in the plain version).
+
+    Replaces ``pallas_scan.py:_threshold_kernel`` for kind="hamming" (the
+    θ stage and the main pass of ``pallas_hamming_threshold_scan_topk``
+    and ``_v2``).  Bound on the card by ``__popc`` throughput
+    (byte_limit/4 per query and row); the packed rows are read once per
+    32 queries and only θ-passing rows are written.
+    """
+    dev, qn, n, h = _check_hamming_args(q, data, meta, byte_limit)
+    _require(theta, "theta", torch.float32, (qn,), dev)
+    if dev.type != "cuda":
+        return hamming_threshold_collect_plain(q, theta, data, meta, byte_limit, wrap_u8, cap)
+    if _COLLECT_Q * h > 48 * 1024:
+        raise ValueError(f"hash width {h} too wide for hamming_threshold_collect")
+    kern = load_kernels()
+    count = torch.zeros(qn, dtype=torch.int32, device=dev)
+    cand_d = torch.empty((qn, cap), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_hamming_collect(
+            _ptr(q), _ptr(theta), _ptr(data), _ptr(meta), qn, n, h, byte_limit,
+            int(wrap_u8), hamming_scale(byte_limit), cap,
+            _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
+        )
+    _check(rc, "hamming_threshold_collect")
+    LAUNCHES["hamming_threshold_collect"] += 1
+    return count, cand_d, cand_i
+
+
+def hamming_threshold_collect_plain(q, theta, data, meta, byte_limit, wrap_u8, cap):
+    """Plain PyTorch version of K2a (collects in ascending row order)."""
+    return _collect_plain(
+        lambda lo, hi: _hamming_tile_dist(q, data[lo:hi], meta[lo:hi], byte_limit, wrap_u8),
+        q.shape[0], data.shape[0], theta, cap, _PLAIN_BLOCK,
+    )
+
+
+def hamming_chunk_topk(q, max_distance, data, meta, byte_limit: int, wrap_u8: bool, k: int):
+    """K2b: per row chunk of :data:`CHUNK_ROWS`, the exact top-k by
+    (dist, id) of {rows with ``meta != 0`` and dist < max_distance}:
+    ([Q, n_chunks, k] f32, [Q, n_chunks, k] i32), missing entries +inf / -1.
+
+    The Hamming counterpart of :func:`cosine_chunk_topk` — the exact scan
+    behind the Hamming repair, the mixed-width phash search and the
+    duplicate scans.  Bound on the card by ``__popc`` and by the shared-
+    memory bitonic sort of each 1024-row chunk (4 queries a block).
+    """
+    dev, qn, n, h = _check_hamming_args(q, data, meta, byte_limit)
+    md = float(np.float32(max_distance))
+    if dev.type != "cuda":
+        return hamming_chunk_topk_plain(q, md, data, meta, byte_limit, wrap_u8, k)
+    if k > MAX_K:
+        raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
+    if 4 * CHUNK_ROWS * 8 + 4 * h > 48 * 1024:
+        raise ValueError(f"hash width {h} too wide for hamming_chunk_topk")
+    kern = load_kernels()
+    n_chunks = -(-n // CHUNK_ROWS)
+    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_hamming_chunk_topk(
+            _ptr(q), md, _ptr(data), _ptr(meta), qn, n, h, byte_limit,
+            int(wrap_u8), hamming_scale(byte_limit), CHUNK_ROWS, k, n_chunks,
+            _ptr(out_d), _ptr(out_i), _stream(dev),
+        )
+    _check(rc, "hamming_chunk_topk")
+    LAUNCHES["hamming_chunk_topk"] += 1
+    return out_d, out_i
+
+
+def hamming_chunk_topk_plain(q, max_distance, data, meta, byte_limit, wrap_u8, k):
+    """Plain PyTorch version of K2b: (dist, id) int64 keys per chunk, the
+    k smallest by ``torch.topk`` (keys are unique, so the order is)."""
+    dev = data.device
+    qn, n = q.shape[0], data.shape[0]
+    n_chunks = -(-n // CHUNK_ROWS)
+    kk = min(k, CHUNK_ROWS)
+    out_d = torch.full((qn, n_chunks, k), float("inf"), dtype=torch.float32, device=dev)
+    out_i = torch.full((qn, n_chunks, k), -1, dtype=torch.int32, device=dev)
+    md = _f32(max_distance, out_d)
+    big = torch.iinfo(torch.int64).max
+    per = _PLAIN_BLOCK // CHUNK_ROWS
+    for c0 in range(0, n_chunks, per):
+        start, end = c0 * CHUNK_ROWS, min(n, (c0 + per) * CHUNK_ROWS)
+        dist, ok = _hamming_tile_dist(q, data[start:end], meta[start:end], byte_limit, wrap_u8)
+        rows = torch.arange(start, end, dtype=torch.int64, device=dev)
+        key = (dist.contiguous().view(torch.int32).to(torch.int64) << 32) | rows[None, :]
+        key = torch.where(ok & (dist < md), key, torch.full_like(key, big))
+        nc = -(-(end - start) // CHUNK_ROWS)
+        pad = nc * CHUNK_ROWS - (end - start)
+        if pad:
+            key = torch.cat([key, key.new_full((qn, pad), big)], 1)
+        top = torch.topk(
+            key.reshape(qn, nc, CHUNK_ROWS), kk, dim=-1, largest=False, sorted=True
+        ).values
+        empty = top == big
+        d = (top >> 32).to(torch.int32).contiguous().view(torch.float32)
+        out_d[:, c0 : c0 + nc, :kk] = torch.where(empty, torch.full_like(d, float("inf")), d)
+        out_i[:, c0 : c0 + nc, :kk] = torch.where(
+            empty, torch.full_like(top, -1), top & 0xFFFFFFFF
+        ).to(torch.int32)
+    return out_d, out_i
+
+
+# --------------------------------------------------------------------- #
+# The two kinds: what the shared θ estimate, main pass and exact scan
+# need from each (a distance tile for the mini-sample, the collect and
+# chunk kernels, the θ widening).
 
 
 def _prep(query_u8: torch.Tensor):
@@ -474,22 +689,91 @@ def _prep(query_u8: torch.Tensor):
     return q_codes.contiguous(), q_sum.contiguous(), q_mag2.contiguous(), qr
 
 
-def sample_theta(q_codes, q_sum, q_mag2, qr, smp, max_distance, j: int):
+class CosineQueries(NamedTuple):
+    """u8 queries prepared for the cosine kernels (spec-v2 moments)."""
+
+    q_codes: torch.Tensor
+    q_sum: torch.Tensor
+    q_mag2: torch.Tensor
+    qr: torch.Tensor
+
+    @classmethod
+    def from_u8(cls, query_u8: torch.Tensor) -> "CosineQueries":
+        return cls(*_prep(query_u8))
+
+    def dist(self, data, meta):
+        return _tile_dist(self.q_codes, self.q_sum, self.q_mag2, self.qr, data, meta)
+
+    def collect(self, theta, data, meta, cap):
+        return cosine_threshold_collect(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta, cap
+        )
+
+    def chunk_topk(self, max_distance, data, meta, k):
+        return cosine_chunk_topk(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, max_distance, data, meta, k
+        )
+
+    def widen(self, theta):
+        return theta
+
+
+class HammingQueries(NamedTuple):
+    """u8 queries [Q, H] (zero-padded to the store width) for the Hamming
+    kernels, with the zip-truncate ``byte_limit`` and the u8 wrap."""
+
+    q: torch.Tensor
+    byte_limit: int
+    wrap_u8: bool
+
+    def dist(self, data, meta):
+        return _hamming_tile_dist(self.q, data, meta, self.byte_limit, self.wrap_u8)
+
+    def collect(self, theta, data, meta, cap):
+        return hamming_threshold_collect(
+            self.q, theta, data, meta, self.byte_limit, self.wrap_u8, cap
+        )
+
+    def chunk_topk(self, max_distance, data, meta, k):
+        return hamming_chunk_topk(
+            self.q, max_distance, data, meta, self.byte_limit, self.wrap_u8, k
+        )
+
+    def widen(self, theta):
+        """The next distance value above θ: Hamming distances take only
+        8·byte_limit + 1 values, so a strict θ sitting on the sample's
+        j-th value leaves that whole tie plateau out and the proof fails.
+        ``fl((b + 1) · scale)`` for θ = ``fl(b · scale)`` collects it.
+        Sound for any θ' ≥ θ: the proof reads the exact count of rows
+        under the θ actually used."""
+        scale = hamming_scale(self.byte_limit)
+        b = torch.round(theta.to(torch.float64) * (8 * self.byte_limit))
+        up = (b + 1).to(torch.float32)
+        up = up * _f32(scale, up)
+        return torch.where(torch.isfinite(theta), up, theta)
+
+
+# --------------------------------------------------------------------- #
+# θ estimate, the main pass and the exact scan (one code path, both kinds)
+
+
+def sample_theta(qk, smp, max_distance, j: int):
     """Per-query j-th smallest sample distance — the θ estimate for the
     threshold scan — in the JAX package's two stages
     (``pallas_scan.py:_pallas_sample_theta``):
 
     1. θ0 from a 1/16 mini-subsample in plain torch (~4j mini rows' worth,
        floor 8);
-    2. K1a + K1c over the FULL sample: the exact top-j of {dist < θ0}.
+    2. K1a/K2a + K1c over the FULL sample: the exact top-j of {dist < θ0}.
 
-    ``smp`` is an ``ops.scan.ScanSample`` (contiguous ``data`` [S, D] and
-    its [4, S] kernel ``meta``).
+    ``qk`` is a :class:`CosineQueries` or :class:`HammingQueries`;
+    ``smp`` an ``ops.scan.ScanSample`` (contiguous ``data`` and its
+    kernel ``meta``, the index's layouts).
 
-    If θ0 comes up short (fewer than j rows under it) or K1a's buffer
-    overflowed, the value falls back to θ0 itself, exactly as the JAX
-    package does; θ accuracy only shapes work, never the proof.  Returns
-    [Q] f32; value == max_distance ⟺ θ is unbound.
+    If θ0 comes up short (fewer than j rows under it) or the collect
+    buffer overflowed, the value falls back to θ0 itself, exactly as the
+    JAX package does; θ accuracy only shapes work, never the proof.
+    Returns [Q] f32; value == max_distance ⟺ θ is unbound.
     """
     s = smp.data.shape[0]
     dev = smp.data.device
@@ -498,18 +782,16 @@ def sample_theta(q_codes, q_sum, q_mag2, qr, smp, max_distance, j: int):
     while stride > 1 and (s // stride < 1024 or s % stride != 0):
         stride //= 2
     mini = smp.data[::stride].contiguous()
-    mmeta = smp.meta[:, ::stride].contiguous()
+    mmeta = smp.meta[..., ::stride].contiguous()
     s0 = mini.shape[0]
     j0 = min(s0, max(8, -(-4 * j * s0 // s)))
-    dist0, valid0 = _tile_dist(q_codes, q_sum, q_mag2, qr, mini, mmeta)
+    dist0, valid0 = qk.dist(mini, mmeta)
     dist0 = torch.where(valid0 & (dist0 < md), dist0, torch.full_like(dist0, float("inf")))
     t0, _ = topk_ops.block_topk(dist0, torch.zeros_like(dist0, dtype=torch.int32), j0)
     theta0 = torch.minimum(t0[:, j0 - 1], md).contiguous()
 
     cap = max(2048, topk_ops._next_pow2(16 * j))
-    count, cand_d, cand_i = cosine_threshold_collect(
-        q_codes, q_sum, q_mag2, qr, theta0, smp.data, smp.meta, cap
-    )
+    count, cand_d, cand_i = qk.collect(theta0, smp.data, smp.meta, cap)
     best_d, _ = lex_topk(cand_d, cand_i, j, lens=torch.clamp(count, max=cap))
     jth = best_d[:, j - 1]
     ok = torch.isfinite(jth) & (count <= cap)
@@ -525,6 +807,37 @@ def _as_queries(query_u8, device) -> Tuple[torch.Tensor, bool]:
     return (q[None, :] if squeeze else q), squeeze
 
 
+def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap):
+    """The main pass shared by both kinds: θ from the sample (widened by
+    the kind), K1a/K2a over every row, K1c over the buffer, and the proof.
+    Returns (dist [Q,k], idx [Q,k], exact [Q])."""
+    n_pad = data.shape[0]
+    md = _f32(max_distance, data)
+    s = smp.data.shape[0]
+    if target_count is None:
+        target_count = max(16 * k // 5, 256)
+    j = min(s, max(1, -(-target_count * s // n_pad)))
+    theta_j = qk.widen(sample_theta(qk, smp, max_distance, j))
+    theta = torch.minimum(theta_j, md).contiguous()
+    unbound = ~(theta_j < md)
+    if cap is None:
+        cap = max(4096, topk_ops._next_pow2(8 * target_count))
+    count, cand_d, cand_i = qk.collect(theta, data, meta, cap)
+    best_d, best_i = lex_topk(cand_d, cand_i, k, lens=torch.clamp(count, max=cap))
+    exact = (count <= cap) & ((count >= k) | unbound)
+    return best_d, best_i, exact
+
+
+def _exact_scan(qk, qn, data, meta, k, max_distance):
+    """K1b/K2b + K1c: the exact top-k of ``WHERE dist < max_distance``."""
+    part_d, part_i = qk.chunk_topk(max_distance, data, meta, k)
+    return lex_topk(part_d.reshape(qn, -1), part_i.reshape(qn, -1), k)
+
+
+def _squeezed(out, squeeze):
+    return tuple(x[0] for x in out) if squeeze else out
+
+
 def fused_threshold_scan_topk(
     query_u8,
     index: PackedSemanticIndex,
@@ -536,9 +849,9 @@ def fused_threshold_scan_topk(
     cap: Optional[int] = None,
 ):
     """Batched guaranteed-verifiable u8 cosine threshold scan — the port of
-    ``pallas_threshold_scan_topk_v2`` (and of the buffer-select
-    ``pallas_threshold_scan_topk``: one design serves every batch size).
-    Returns (dist [Q,k], idx [Q,k], exact [Q]).
+    ``pallas_threshold_scan_topk_v2`` and of the buffer-select
+    ``pallas_threshold_scan_topk`` (Q > 1024): K1a's exact-count buffer
+    serves every batch size.  Returns (dist [Q,k], idx [Q,k], exact [Q]).
 
     ``exact[q]`` ⟺ the result provably equals the exact scan: K1a's count
     is exact, so ``count <= cap`` means every θ-passing row was collected,
@@ -548,26 +861,11 @@ def fused_threshold_scan_topk(
     repairs unproven queries.
     """
     q, squeeze = _as_queries(query_u8, index.device)
-    n_pad = index.capacity
-    q_codes, q_sum, q_mag2, qr = _prep(q)
-    md = _f32(max_distance, q_codes)
-    s = smp.data.shape[0]
-    if target_count is None:
-        target_count = max(16 * k // 5, 256)
-    j = min(s, max(1, -(-target_count * s // n_pad)))
-    theta_j = sample_theta(q_codes, q_sum, q_mag2, qr, smp, max_distance, j)
-    theta = torch.minimum(theta_j, md).contiguous()
-    unbound = ~(theta_j < md)
-    if cap is None:
-        cap = max(4096, topk_ops._next_pow2(8 * target_count))
-    count, cand_d, cand_i = cosine_threshold_collect(
-        q_codes, q_sum, q_mag2, qr, theta, index.data, row_meta, cap
+    out = _threshold_scan(
+        CosineQueries.from_u8(q), index.data, row_meta, smp, k, max_distance,
+        target_count, cap,
     )
-    best_d, best_i = lex_topk(cand_d, cand_i, k, lens=torch.clamp(count, max=cap))
-    exact = (count <= cap) & ((count >= k) | unbound)
-    if squeeze:
-        return best_d[0], best_i[0], exact[0]
-    return best_d, best_i, exact
+    return _squeezed(out, squeeze)
 
 
 def fused_cosine_scan_topk(
@@ -582,12 +880,55 @@ def fused_cosine_scan_topk(
     exact top-k of ``WHERE dist < max_distance``: the auto path's repair
     and ``--scan-mode pallas``."""
     q, squeeze = _as_queries(query_u8, index.device)
-    q_codes, q_sum, q_mag2, qr = _prep(q)
-    part_d, part_i = cosine_chunk_topk(
-        q_codes, q_sum, q_mag2, qr, max_distance, index.data, row_meta, k
+    out = _exact_scan(
+        CosineQueries.from_u8(q), q.shape[0], index.data, row_meta, k, max_distance
     )
-    qn = q.shape[0]
-    best_d, best_i = lex_topk(part_d.reshape(qn, -1), part_i.reshape(qn, -1), k)
-    if squeeze:
-        return best_d[0], best_i[0]
-    return best_d, best_i
+    return _squeezed(out, squeeze)
+
+
+def _hamming_queries(query_u8, index, byte_limit, wrap_u8):
+    q, squeeze = _as_queries(query_u8, index.device)
+    if q.shape[1] != index.dim:
+        raise ValueError(f"query width {q.shape[1]} != store width {index.dim}")
+    limit = index.dim if byte_limit is None else int(byte_limit)
+    return HammingQueries(q.contiguous(), limit, bool(wrap_u8)), squeeze
+
+
+def fused_hamming_threshold_scan_topk(
+    query_u8,
+    index: PackedHammingIndex,
+    meta: torch.Tensor,
+    smp,
+    k: int = 100,
+    max_distance: float = 1e3,
+    wrap_u8: bool = False,
+    byte_limit: Optional[int] = None,
+    target_count: Optional[int] = None,
+    cap: Optional[int] = None,
+):
+    """Batched guaranteed-verifiable Hamming threshold scan over the packed
+    u8 rows — the port of ``pallas_hamming_threshold_scan_topk`` (buffer)
+    and ``_v2`` (carry): K2a + K1c at every batch size, with the cosine
+    scan's θ estimate and proof.  ``meta`` is :func:`build_hamming_meta`
+    (validity AND an optional group mask) and ``smp`` its strided sample.
+    Returns (dist [Q,k], idx [Q,k], exact [Q])."""
+    qk, squeeze = _hamming_queries(query_u8, index, byte_limit, wrap_u8)
+    out = _threshold_scan(qk, index.data, meta, smp, k, max_distance, target_count, cap)
+    return _squeezed(out, squeeze)
+
+
+def fused_hamming_scan_topk(
+    query_u8,
+    index: PackedHammingIndex,
+    meta: torch.Tensor,
+    k: int = 100,
+    max_distance: float = 1e3,
+    wrap_u8: bool = False,
+    byte_limit: Optional[int] = None,
+):
+    """Exact Hamming top-k of ``WHERE dist < max_distance`` (K2b + K1c):
+    the Hamming repair, and the per-group scan of the mixed-width phash
+    search and of the duplicate finder (``byte_limit`` + group ``meta``)."""
+    qk, squeeze = _hamming_queries(query_u8, index, byte_limit, wrap_u8)
+    out = _exact_scan(qk, qk.q.shape[0], index.data, meta, k, max_distance)
+    return _squeezed(out, squeeze)

@@ -1,8 +1,9 @@
 """Packed device-resident index representation (torch port of
 ``ops/packed.py``).
 
-- ``data``: int8 ``[N_pad, D]`` storing ``q - 128`` (centered so the scan
-  kernels run int8 dot products);
+- ``data``: for semantic hashes, int8 ``[N_pad, D]`` storing ``q - 128``
+  (centered so the scan kernels run int8 dot products); for phashes,
+  uint8 ``[N_pad, H]`` raw bytes (xor/popcount scan);
 - ``row_sum`` int32 ``[N_pad]``: sum of the centered int8 row — the affine
   correction recovering the exact u8 dot product from the int8 one;
 - ``row_mag2`` int32 ``[N_pad]``: exact squared magnitude of the centered
@@ -29,6 +30,25 @@ class PackedSemanticIndex(NamedTuple):
     row_sum: torch.Tensor   # int32 [N_pad]
     row_mag2: torch.Tensor  # int32 [N_pad]
     valid: torch.Tensor     # bool [N_pad]
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+class PackedHammingIndex(NamedTuple):
+    """Device tensors for the perceptual-hash (Hamming) index."""
+
+    data: torch.Tensor   # uint8 [N_pad, H]
+    valid: torch.Tensor  # bool [N_pad]
 
     @property
     def capacity(self) -> int:

@@ -12,7 +12,9 @@ The exact scan runs in plain PyTorch (the JAX package ran it in XLA)::
 ``cosine_scan_topk_auto`` is the guaranteed-exact fast path: the fused
 threshold scan (``ops/fused_scan.py``; hand-written kernels on a CUDA
 index, their plain versions on a CPU index) plus an exact repair of the
-queries it could not prove.
+queries it could not prove.  ``hamming_scan_topk`` is the plain exact
+phash scan; its guaranteed-exact fast path is
+``ops.hamming_gemm.hamming_gemm_scan_topk_auto``.
 
 Result semantics replicate ``WHERE dist < max_distance ORDER BY dist ASC
 LIMIT k`` (engine.rs:375-383): entries with dist >= max_distance are
@@ -30,11 +32,16 @@ from pixelbox_tpu_torch.ops import topk as topk_ops
 from pixelbox_tpu_torch.ops.distances import _cosine_distance_from_moments, _f32
 from pixelbox_tpu_torch.ops.fused_scan import (
     _as_queries,
+    _hamming_tile_dist,
     build_row_meta,
     fused_cosine_scan_topk,
     fused_threshold_scan_topk,
 )
-from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, query_moments_from_u8
+from pixelbox_tpu_torch.ops.packed import (
+    PackedHammingIndex,
+    PackedSemanticIndex,
+    query_moments_from_u8,
+)
 
 DEFAULT_BLOCK_ROWS = 32768
 
@@ -94,13 +101,15 @@ def cosine_scan_topk(
 
 
 class ScanSample(NamedTuple):
-    """Strided row subsample of a PackedSemanticIndex (θ estimation): a
-    contiguous copy of its codes (the kernels read it densely) and their
-    [4, S] kernel meta (fused_scan.build_row_meta layout; row sums, and
-    mag2 = 0 for invalid rows)."""
+    """Strided row subsample of a packed index (θ estimation): a
+    contiguous copy of its rows (the kernels read them densely) and their
+    kernel meta — for a PackedSemanticIndex the [4, S] int32 layout of
+    fused_scan.build_row_meta (row sums, and mag2 = 0 for invalid rows);
+    for a PackedHammingIndex the uint8 [S] row mask of
+    fused_scan.build_hamming_meta."""
 
-    data: torch.Tensor      # int8 [S, D]
-    meta: torch.Tensor      # int32 [4, S]
+    data: torch.Tensor      # int8 [S, D] | uint8 [S, H]
+    meta: torch.Tensor      # int32 [4, S] | uint8 [S]
 
 
 def build_scan_sample(
@@ -154,7 +163,8 @@ def cosine_scan_topk_auto(
     to :func:`cosine_scan_topk`.
 
     Small indexes (capacity <= 4·block_rows — the JAX package's own gate)
-    scan exactly.  Otherwise the fused threshold scan runs and unproven
+    take the fused exact scan (K1b + K1c).  Otherwise the fused threshold
+    scan runs and unproven
     queries (rare — unlucky sampling, tie floods) are re-scanned by the
     fused exact scan in a small padded bucket and spliced back.  On a
     CUDA index both go through the hand-written kernels; on a CPU index
@@ -163,15 +173,15 @@ def cosine_scan_topk_auto(
     skip re-deriving them.
     """
     q, squeeze = _as_queries(query_u8, index.device)
+    if row_meta is None:
+        row_meta = build_row_meta(index)
     if index.capacity <= 4 * block_rows:
-        best_d, best_i = cosine_scan_topk(
-            q, index, k=k, max_distance=max_distance, block_rows=block_rows
+        best_d, best_i = fused_cosine_scan_topk(
+            q, index, row_meta, k=k, max_distance=max_distance
         )
     else:
         if sample is None:
             sample = build_scan_sample(index)
-        if row_meta is None:
-            row_meta = build_row_meta(index)
         best_d, best_i, exact = fused_threshold_scan_topk(
             q, index, row_meta, sample, k=k, max_distance=max_distance
         )
@@ -182,6 +192,50 @@ def cosine_scan_topk_auto(
             )
 
         best_d, best_i = repair_unproven(q, best_d, best_i, exact, exact_rescan)
+    if squeeze:
+        return best_d[0], best_i[0]
+    return best_d, best_i
+
+
+@torch.no_grad()
+def hamming_scan_topk(
+    query_u8,
+    index: PackedHammingIndex,
+    k: int = 100,
+    max_distance: float = 1e3,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    wrap_u8: bool = False,
+    byte_limit: Optional[int] = None,
+):
+    """Top-k smallest normalized Hamming distances (phash search), the
+    plain blocked exact scan.
+
+    Same result semantics as :func:`cosine_scan_topk`.  ``wrap_u8``
+    replicates the reference's u8 popcount-accumulator overflow
+    (engine.rs:603).  ``byte_limit`` compares only the first
+    ``byte_limit`` bytes and normalizes by 8×byte_limit — the device half
+    of the reference's zip-truncate semantics for unequal-width hashes
+    (engine.rs:594-604).  Query width must equal the index width.
+    """
+    q, squeeze = _as_queries(query_u8, index.device)
+    qn, h = q.shape
+    assert h == index.dim, (h, index.dim)
+    n_pad = index.capacity
+    block_rows = min(block_rows, n_pad)
+    assert n_pad % block_rows == 0, (n_pad, block_rows)
+    eff = h if byte_limit is None else int(byte_limit)
+    assert 0 < eff <= h, (eff, h)
+
+    md = _f32(max_distance, q)
+    best_d, best_i = topk_ops.empty_topk((qn,), k, device=q.device)
+    for base in range(0, n_pad, block_rows):
+        sl = slice(base, base + block_rows)
+        dist, valid = _hamming_tile_dist(q, index.data[sl], index.valid[sl], eff, wrap_u8)
+        dist = torch.where(valid & (dist < md), dist, torch.full_like(dist, float("inf")))
+        idx = base + torch.arange(block_rows, dtype=torch.int32, device=q.device)
+        cand_d, cand_i = topk_ops.block_topk(dist, idx.expand(qn, -1), k)
+        best_d, best_i = topk_ops.merge_sorted_topk(best_d, best_i, cand_d, cand_i, k)
+    best_d, best_i = topk_ops.finalize_topk(best_d, best_i)
     if squeeze:
         return best_d[0], best_i[0]
     return best_d, best_i

@@ -49,7 +49,7 @@ class SemanticServing:
 
     def _get_scan_sample(self):
         """Cached θ-estimation subsample for the auto scan; None while the
-        index is small enough that auto scans directly."""
+        index is small enough that auto takes the fused exact scan."""
         index = self._sem_store.device_index
         if index.capacity <= 4 * DEFAULT_BLOCK_ROWS:
             return None
@@ -115,10 +115,9 @@ class SemanticServing:
             return fused_cosine_scan_topk(
                 q, index, self._get_row_meta(), k=k, max_distance=max_distance
             )
-        sample = self._get_scan_sample()
         return cosine_scan_topk_auto(
-            q, index, k=k, max_distance=max_distance, sample=sample,
-            row_meta=None if sample is None else self._get_row_meta(),
+            q, index, k=k, max_distance=max_distance,
+            sample=self._get_scan_sample(), row_meta=self._get_row_meta(),
         )
 
     @_read_locked

@@ -13,9 +13,14 @@ import pytest
 import torch
 
 from pixelbox_tpu_torch.ops import fused_scan as fs
+from pixelbox_tpu_torch.ops import hamming_gemm as hg
 from pixelbox_tpu_torch.ops import scan as tscan
 from pixelbox_tpu_torch.ops.oracle import quantize_embedding_np
-from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
+from pixelbox_tpu_torch.ops.packed import (
+    PackedHammingIndex,
+    PackedSemanticIndex,
+    semantic_rows_from_u8,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +92,53 @@ def test_wrappers_reject_bad_inputs():
         fs.cosine_chunk_topk(qc, qs, qm, qr, 1e3, idx.data, meta.t().contiguous().t(), 10)
     with pytest.raises(ValueError, match="exceeds"):
         fs.cosine_chunk_topk(qc, qs, qm, qr, 1e3, idx.data, meta, fs.MAX_K + 1)
+
+
+def _phash_index(n, h, seed, dev):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (256, h), dtype=np.uint8)
+    noise = rng.integers(0, 256, (n, h), dtype=np.uint8) & rng.integers(0, 256, (n, h), dtype=np.uint8)
+    db = base[rng.integers(0, 256, n)] ^ (noise & rng.integers(0, 256, (n, h), dtype=np.uint8))
+    valid = rng.uniform(size=n) > 0.01
+    idx = PackedHammingIndex(torch.from_numpy(db).to(dev), torch.from_numpy(valid).to(dev))
+    q = db[rng.integers(0, n, 40)]
+    q[1] = ~db[7]  # every bit differs: 8*h bits, wraps under wrap_u8 for h >= 32
+    return idx, torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.parametrize(
+    "h,limit,wrap",
+    [(32, 32, False), (32, 24, False), (32, 32, True), (18, 18, False), (24, 18, True)],
+    ids=["h32", "h32_limit24", "h32_wrap", "h18_bytes", "h24_limit18_wrap"],
+)
+def test_hamming_kernels_match_plain(h, limit, wrap):
+    dev = _card()
+    idx, q = _phash_index(65536, h, seed=h + limit, dev=dev)
+    group = torch.arange(65536, device=dev) % 3 != 0
+    meta = fs.build_hamming_meta(idx, group)
+    got = fs.hamming_chunk_topk(q, 0.45, idx.data, meta, limit, wrap, 50)
+    want = fs.hamming_chunk_topk_plain(q, 0.45, idx.data, meta, limit, wrap, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    theta = torch.full((40,), 0.3, device=dev)
+    c1, d1, i1 = fs.hamming_threshold_collect(q, theta, idx.data, meta, limit, wrap, 4096)
+    c2, d2, i2 = fs.hamming_threshold_collect_plain(q, theta, idx.data, meta, limit, wrap, 4096)
+    assert torch.equal(c1, c2)
+    lens = torch.clamp(c1, max=4096)
+    s1 = fs.lex_topk_segments_plain(d1, i1, 4096, lens, segment=4096)
+    s2 = fs.lex_topk_segments_plain(d2, i2, 4096, lens, segment=4096)
+    ok = c1 <= 4096
+    assert torch.equal(s1[0][ok], s2[0][ok]) and torch.equal(s1[1][ok], s2[1][ok])
+
+
+def test_hamming_main_path_goes_through_the_kernels():
+    dev = _card()
+    idx, q = _phash_index(262144, 32, seed=3, dev=dev)
+    fs.reset_launch_counts()
+    got = hg.hamming_gemm_scan_topk_auto(q, idx, k=100)
+    assert fs.launch_counts()["hamming_threshold_collect"] > 0
+    cpu = PackedHammingIndex(*(t.cpu() for t in idx))
+    want = tscan.hamming_scan_topk(q.cpu(), cpu, k=100)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    exact = hg.hamming_gemm_scan_topk(q, idx, k=100)
+    assert fs.launch_counts()["hamming_chunk_topk"] > 0
+    assert torch.equal(exact[0].cpu(), want[0]) and torch.equal(exact[1].cpu(), want[1])
