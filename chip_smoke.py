@@ -28,6 +28,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 3c. Large batches (the JAX package's buffer-select kernel, Q > 1024):
    cosine ``auto`` at Q = 2048 over phase 3's 1,048,576 × 128 rows, every
    launch replayed through its plain version.
+3d. int4 kernels vs plain over phase 3's rows packed to 4 bits (1,048,576
+   × 64 bytes), k ∈ {100, 400} (400 = the rerank's candidate count),
+   Q ∈ {1, 8, 256, 2048}, both query modes (asym, sym), in five cases: θ
+   from the sample, θ = max_distance, a max_distance filter, 1%
+   tombstones, and a tie flood that must be repaired.  Every launch is
+   replayed bit-identical through its plain version; end results must
+   equal the plain exact scan, and the numpy oracle on one query per case
+   and mode; the proof rate is printed per Q.
 4. Engine: indexes 32 seeded images with EfficientNet-B0 at 224²/dim 128
    from a seeded checkpoint (then 64 more, warm), checks the exact-0.0
    self-match, grows the store to 1,048,576 rows with seeded hash-only
@@ -43,6 +51,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``find_duplicate_pairs`` by phash over the whole phash store and by
    semantic over phase 4's store, holding sampled batches against the
    plain path — counting kernel launches from zero.
+6. int4 engine: a ``semantic_precision="int4"`` library on phase 4's
+   checkpoint (32 images, grown to 1,048,576 rows with seeded hash-only
+   records); ``similar`` under ``auto`` with the exact-u8 rerank, split
+   into the int4 scan and the host rerank, checked against the plain
+   (CPU) path, with recall@10 against the u8 exact scan; the same query
+   with the rerank off against the numpy oracle; ``duplicates`` by
+   semantic over a 65,536-row int4 library (a cut of the 1M library)
+   with its scan and rerank timed apart — counting launches from zero.
 
 The last lines are the card's nvidia-smi line, the kernels' JSON summary
 (time, plain time, bound, library time per kernel) and
@@ -75,6 +91,8 @@ SEED = 20261016
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 F32_OPS = 67e12
+INT4_KS = (100, 400)   # k = 100, and C = 400 candidates of the exact-u8 rerank
+INT4_DUP_ROWS = 1 << 16  # the int4 duplicates library: a cut of the 1M one
 
 
 def log(msg: str) -> None:
@@ -157,12 +175,13 @@ def oracle_topk(q, db, valid, k, md):
 
 
 class Recorder:
-    """Wraps the five kernel wrappers of ops.fused_scan; records inputs
+    """Wraps the seven kernel wrappers of ops.fused_scan; records inputs
     and outputs so each call can be replayed through its plain version."""
 
     NAMES = (
         "cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments",
         "hamming_threshold_collect", "hamming_chunk_topk",
+        "cosine4_threshold_collect", "cosine4_chunk_topk",
     )
 
     def __init__(self, fs):
@@ -194,7 +213,7 @@ def replay(fs, call):
     import torch
 
     name, args, kwargs, out = call
-    if name in ("cosine_threshold_collect", "hamming_threshold_collect"):
+    if name.endswith("threshold_collect"):
         cap = args[-1]
         c2, d2, i2 = getattr(fs, name + "_plain")(*args)
         c1, d1, i1 = out
@@ -206,7 +225,7 @@ def replay(fs, call):
         check(torch.equal(s1[0][ok], s2[0][ok]), f"{name} distances differ from plain")
         check(torch.equal(s1[1][ok], s2[1][ok]), f"{name} row ids differ from plain")
         a, b = s1[0][ok], s2[0][ok]
-    elif name in ("cosine_chunk_topk", "hamming_chunk_topk"):
+    elif name.endswith("chunk_topk"):
         d2, i2 = getattr(fs, name + "_plain")(*args, **kwargs)
         check(torch.equal(out[0], d2) and torch.equal(out[1], i2), f"{name} differs from plain")
         a, b = out[0], d2
@@ -495,6 +514,134 @@ def phase_big_batch(fs, scan, smi, err, db):
 
 
 # --------------------------------------------------------------------- #
+# Phase 3d: the int4 kernels (K4a/K4b) over the packed 4-bit rows
+
+
+def phase_int4_kernels(fs, scan, smi, err, db):
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.ops import int4
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    base_q = perturb(rng, db[rng.integers(0, N_ROWS, BIG_Q)])
+    base_q[1] = db[4242]  # an exact copy of row 4242
+    flood_row, flood_at, flood_n = FLOOD
+    valid_all = np.ones(N_ROWS, bool)
+    valid_1pct = valid_all.copy()
+    valid_1pct[rng.choice(N_ROWS, N_ROWS // 100, replace=False)] = False
+    valid_1pct[4242] = False
+    # 20,000 copies: more than k = 400's 16,384-slot collect buffer, so
+    # even the one-ulp-widened θ cannot prove the flood.
+    flood_n = 20000
+    db_flood = db.copy()
+    db_flood[flood_at : flood_at + flood_n] = db[flood_row]
+    flood_q = base_q.copy()
+    flood_q[0] = db[flood_row]
+    flood_q[2] = perturb(rng, db[flood_row][None])[0]
+    # (name, rows, valid, queries, max_distance, paths, largest Q,
+    #  oracle query, oracle modes): Q = 2048 (past the JAX carry kernels)
+    # for the main pass and the flood; the numpy oracle (seconds a query
+    # at 1M rows) on one query of each row set.
+    both = ("asym", "sym")
+    cases = [
+        ("theta_from_sample", db, valid_all, base_q, 1e3, "auto", BIG_Q, 1, both),
+        ("theta_max_distance", db, valid_all, base_q, 1e3, "fused", MAIN_Q, 1, both),
+        ("max_distance_filter", db, valid_all, base_q, 0.05, "both", MAIN_Q, 1, both),
+        ("tombstones_1pct", db, valid_1pct, base_q, 1e3, "both", MAIN_Q, 1, ("asym",)),
+        ("tie_flood", db_flood, valid_all, flood_q, 1e3, "both", BIG_Q, 0, ("asym",)),
+    ]
+    oracles = {}
+    timed_calls = {}
+    proof = {}
+    kmax = max(INT4_KS)
+    for name, rows, valid, queries, md, which, q_max, oq, oracle_modes in cases:
+        idx = int4.build_semantic4_index(rows, device=dev)
+        idx = idx._replace(valid=torch.from_numpy(valid).to(dev))
+        meta = int4.build_semantic4_meta(idx)
+        smp = scan.build_scan_sample(idx)
+        qall = torch.from_numpy(queries).to(dev)
+        for mode in ("asym", "sym"):
+            exact_fn = int4.cosine4a_scan_topk if mode == "asym" else int4.cosine4_scan_topk
+            oracle_fn = int4.cosine4a_scan_topk_np if mode == "asym" else int4.cosine4_scan_topk_np
+            # The exact scan and the oracle at the largest Q and k: smaller
+            # Q and k are their prefixes ((dist, id) order, same filter).
+            ex_d, ex_i = exact_fn(qall[:q_max], idx, k=kmax, max_distance=md)
+            okey = (id(rows), id(valid), mode, oq)
+            if mode in oracle_modes and okey not in oracles:
+                keep = np.nonzero(valid)[0]
+                od, oi = oracle_fn(queries[oq], rows[keep], k=kmax, max_distance=int4.UNBOUNDED_DISTANCE)
+                oracles[okey] = (od[0], np.where(oi[0] >= 0, keep[np.maximum(oi[0], 0)], -1))
+            if mode in oracle_modes:
+                od, oi = oracles[okey]
+                od, oi = np.where(od < np.float32(md), od, np.inf), np.where(od < np.float32(md), oi, -1)
+            for k in INT4_KS:
+                for qn in (x for x in PH_QS if x <= q_max):
+                    q = qall[:qn]
+                    wd, wi = ex_d[:qn, :k], ex_i[:qn, :k]
+                    extra = ""
+                    with Recorder(fs) as rec:
+                        results = []
+                        if which in ("auto", "both"):
+                            td, ti, exact = fs.fused_threshold4_scan_topk(
+                                q, idx, meta, smp, k=k, max_distance=md, query_mode=mode)
+                            check(torch.equal(td[exact], wd[exact]) and torch.equal(ti[exact], wi[exact]),
+                                  f"int4 {name}/{mode}: a query flagged exact differs from the exact scan")
+                            results.append(("auto", *int4.cosine4_scan_topk_auto(
+                                q, idx, k=k, max_distance=md, sample=smp, meta=meta, query_mode=mode)))
+                            n_exact = int(exact.sum())
+                            proof.setdefault((qn, name == "tie_flood"), []).append((n_exact, qn))
+                            extra = f"; proven {n_exact}/{qn}, repaired {qn - n_exact}"
+                        if which in ("fused", "both") and qn <= MAIN_Q:
+                            results.append(("fused", *fs.fused_cosine4_scan_topk(
+                                q, idx, meta, k=k, max_distance=md, query_mode=mode)))
+                        torch.cuda.synchronize()
+                    for call in rec.calls:
+                        err[call[0]] = max(err[call[0]], replay(fs, call))
+                        if name in ("theta_from_sample", "theta_max_distance"):
+                            timed_calls.setdefault((call[0], mode, k, qn), []).append(call)
+                    for label, d, i in results:
+                        check(tuple(d.shape) == (qn, k) and tuple(i.shape) == (qn, k),
+                              f"int4 {name}/{label}: shape")
+                        check(torch.equal(d, wd) and torch.equal(i, wi),
+                              f"int4 {name}/{mode}/{label}: differs from the exact scan at Q={qn}, k={k}")
+                        if oq < qn and mode in oracle_modes:
+                            check(np.array_equal(d[oq].cpu().numpy(), od[:k])
+                                  and np.array_equal(i[oq].cpu().numpy(), oi[:k]),
+                                  f"int4 {name}/{mode}/{label}: differs from the numpy oracle")
+                    oracle = " and oracle" if oq < qn and mode in oracle_modes else ""
+                    log(f"[3d] int4 {name} {mode} k={k} Q={qn}: {len(rec.calls)} kernel calls replayed "
+                        f"bit-identical; = exact scan{oracle}{extra}")
+                    if name == "tie_flood":
+                        fi = i[0].cpu().numpy()
+                        flood_ids = np.concatenate([[flood_row], np.arange(flood_at, flood_at + k - 1)])
+                        check(np.array_equal(fi, flood_ids), "int4 tie flood: ids not ascending within the tie")
+                        check(not bool(exact[0]), "int4 tie flood: the proof was not defeated")
+                        if mode == "sym":
+                            check(float(d[0, 0]) == 0.0, "int4 sym: a stored row's self-distance is not 0")
+            del ex_d, ex_i
+        del idx, meta, smp, qall
+        torch.cuda.empty_cache()
+    for (qn, flood), runs in sorted(proof.items()):
+        got, tot = sum(a for a, _ in runs), sum(b for _, b in runs)
+        log(f"[3d] int4 proof rate Q={qn}{' (tie flood)' if flood else ''}: {got}/{tot} = {got / tot:.4f}")
+
+    # Timing at the int4 main path's shapes: K4a at the main pass (Q =
+    # MAIN_Q over all rows, k = 400 — the rerank's candidates), K4b at a
+    # repair bucket; asym (the default) in the kernels line, sym logged.
+    stats = {}
+    for n, qn in (("cosine4_threshold_collect", MAIN_Q), ("cosine4_chunk_topk", REPAIR_Q),
+                  ("cosine4_threshold_collect", BIG_Q)):
+        for mode in ("asym", "sym"):
+            call = next(c for c in timed_calls[(n, mode, kmax, qn)] if c[1][5].shape[0] == N_ROWS)
+            st = time_kernel(fs, call, smi, f"[3d] {mode} k={kmax}", reps=10 if qn <= MAIN_Q else 3)
+            if mode == "asym":
+                stats.setdefault(n, st)
+    return stats
+
+
+# --------------------------------------------------------------------- #
 # Kernel time, plain time, bound and library time of one recorded call
 
 
@@ -526,8 +673,8 @@ def work_of(name, args, out):
         q, data, meta = args[0], args[5], args[6]
         nv = int((meta[1] > 0).sum())
         qn, d = q.shape
-        qbytes = qn * (d + 12) + (4 * qn if name == "cosine_threshold_collect" else 0)
-        rows = nv * d + 12 * data.shape[0]
+        qbytes = qn * (d + 12) + (4 * qn if name.endswith("collect") else 0)
+        rows = nv * data.shape[1] + 12 * data.shape[0]   # int4: D/2 packed bytes a row
         ops = 2 * qn * nv * d
     else:
         q, data, meta, limit = args[0], args[2], args[3], args[4]
@@ -546,12 +693,17 @@ def work_of(name, args, out):
 
 def dot_only(name, args):
     """The dot alone, as one library call: ``torch._int_mm`` of the int8
-    query codes (cosine) or the ±1 bit-unpacked hashes (Hamming, the TPU
-    kernel's layout) against the rows; queries padded to 32 rows, the
-    call's least M."""
+    query codes (cosine; int4: against an unpacked int8 copy of the
+    rows) or the ±1 bit-unpacked hashes (Hamming, the TPU kernel's
+    layout) against the rows; queries padded to 32 rows, the call's least
+    M."""
     import torch
 
-    if name.startswith("cosine"):
+    if name.startswith("cosine4"):
+        from pixelbox_tpu_torch.ops.fused_scan import unpack_u4
+
+        q, data = args[0], unpack_u4(args[5]).contiguous()
+    elif name.startswith("cosine"):
         q, data = args[0], args[5]
     else:
         shifts = torch.arange(8, device=args[0].device, dtype=torch.uint8)
@@ -590,7 +742,8 @@ def time_kernel(fs, call, smi, tag, reps=10):
         extra = f", library torch.topk on the (dist, id) keys {st['library_ms']:.4f} ms"
     else:
         st["dot_only_ms"] = median_ms(dot_only(name, args), reps)
-        extra = f", dot only (torch._int_mm, not the same function) {st['dot_only_ms']:.4f} ms"
+        of = " over an unpacked int8 copy" if name.startswith("cosine4") else ""
+        extra = f", dot only (torch._int_mm{of}, not the same function) {st['dot_only_ms']:.4f} ms"
     if name.startswith("hamming"):
         limit, q, meta = args[4], args[0], args[3]
         words = -(-limit // 4)
@@ -899,6 +1052,175 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# Phase 6: the int4 engine (semantic4 store, exact-u8 rerank, duplicates)
+
+
+def grow_semantic(eng, rng, n_rows, prefix):
+    """Seeded hash-only records up to ``n_rows`` semantic rows."""
+    from pixelbox_tpu_torch.records import IndexedImage
+
+    n0 = eng._sem_store.n if eng._sem_store is not None else 0
+    filler = clustered_hashes(rng, n_rows - n0, DIM)
+    filler[1::1000] = perturb(rng, filler[0::1000][: len(filler[1::1000])], 3)  # near-dups
+    step = 1 << 17
+    for s in range(0, filler.shape[0], step):
+        eng.insert_records_batch([
+            IndexedImage(filename=f"{prefix}_{j:07d}.png", path=f"/synthetic/{prefix}_{j:07d}.png",
+                         visual_hash=filler[j])
+            for j in range(s, min(filler.shape[0], s + step))
+        ])
+    check(eng._sem_store.n == n_rows, f"store did not reach {n_rows:,} rows")
+
+
+def phase_int4_engine(fs, scan, smi, tmp, ckpt):
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.engine import Engine
+    from pixelbox_tpu_torch.ops import int4
+    from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
+    from pixelbox_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(SEED + 6)
+    folder = os.path.join(tmp, "photos_int4")
+    os.makedirs(folder)
+    paths = write_images(folder, 32, rng, prefix="i4")
+    kw = dict(embedder="efficientnet", dim=DIM, semantic_precision="int4", device="cuda",
+              embedder_kwargs={"checkpoint_path": ckpt, "input_size": 224})
+    fs.reset_launch_counts()  # the int4 path starts here
+    eng = Engine.new(os.path.join(tmp, "int4.db"), **kw)
+    eng.add_tracked_folder(folder)
+    eng.start_indexing()
+    check(eng.wait_for_indexing(timeout=600), "int4 library: indexing did not finish")
+    check(eng._sem_store.kind == "semantic4" and eng._sem_store.device_index.data.shape[1] == DIM // 2,
+          "the int4 library's store is not packed")
+    eng.query_by_image_hash_from_file(paths[5])
+    res = eng.get_query_results()
+    check(res[0].path == paths[5] and res[0].distance_from_query == 0.0, "int4: self-match not first at 0.0")
+    t0 = time.perf_counter()
+    grow_semantic(eng, rng, N_ROWS, "syn4")
+    index = eng._sem_store.device_index
+    log(f"[6] int4 library: 32 images, grown to {eng._sem_store.n:,} rows ({index.data.numel() / 2**20:.0f} MiB "
+        f"of packed nibbles on the card, capacity {index.capacity:,}) in {time.perf_counter() - t0:.1f}s")
+
+    # similar under auto with the exact-u8 rerank
+    eng.query_by_image_hash_from_file(paths[9])  # warm-up: builds the cached meta/sample
+    timing.reset_stats()
+    lat = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.query_by_image_hash_from_file(paths[9])
+        lat.append(time.perf_counter() - t)
+    spans = {n: round(v["mean_ms"], 3) for n, v in sorted(timing.get_stats().items())}
+    rerank_res = [(r.id, r.distance_from_query) for r in eng.get_query_results()]
+    h = eng.get_query_results()[0].visual_hash
+    eng.int4_rerank = False
+    eng.query_by_image_hash_from_file(paths[9])
+    raw_res = [(r.id, r.distance_from_query) for r in eng.get_query_results()]
+    eng.int4_rerank = True
+
+    # duplicates by semantic over the cut library
+    dup = Engine.new(os.path.join(tmp, "int4_dup.db"), **{**kw, "embedder": "none"})
+    grow_semantic(dup, rng, INT4_DUP_ROWS, "dup4")
+    timing.reset_stats()
+    t = time.perf_counter()
+    pairs = dup.find_duplicate_pairs(max_distance=0.05, by="semantic")
+    dup_s = time.perf_counter() - t
+    dstats = timing.get_stats()
+    counts = fs.launch_counts()  # the int4 path ends here; the checks below launch on their own
+    log(f"[6] kernel launches on the int4 path: {json.dumps(counts)}")
+    for n in ("cosine4_threshold_collect", "cosine4_chunk_topk", "lex_topk_segments"):
+        check(counts[n] > 0, f"kernel {n} was not launched on the int4 path")
+
+    check(rerank_res[0][1] == 0.0 and eng.catalog.get_image(rerank_res[0][0])["path"] == paths[9],
+          "int4 rerank: self-match not first at 0.0")
+    log(f"[6] similar (auto, int4 + exact-u8 rerank) on {N_ROWS:,} rows: end-to-end median "
+        f"{statistics.median(lat) * 1e3:.2f} ms; {smi}")
+    log(f"[6] similar spans, mean ms over the 5 timed queries: {json.dumps(spans)}")
+
+    # Scan alone and rerank alone (direct calls, synchronized)
+    c = int4.default_rerank_candidates(K)
+    scan_lat, rr_lat = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cd, ci = eng.similarity_scan(h, c, int4.UNBOUNDED_DISTANCE)
+        torch.cuda.synchronize()
+        scan_lat.append(time.perf_counter() - t)
+        ci = ci.cpu().numpy()
+        t = time.perf_counter()
+        fd, fi = int4.rerank_candidates_u8(h, ci, eng._sem_store._host_rows, k=K, max_distance=1e3)
+        rr_lat.append(time.perf_counter() - t)
+    log(f"[6] similar int4 scan alone (k={c}, direct call, synchronized) median "
+        f"{statistics.median(scan_lat) * 1e3:.3f} ms; host rerank alone (rerank_candidates_u8, "
+        f"{c} candidates) median {statistics.median(rr_lat) * 1e3:.3f} ms; {smi}")
+
+    # Against the plain (CPU) path, the u8 exact scan and the oracle
+    cpu_index = int4.PackedSemantic4Index(*(x.cpu() for x in index))
+    pd, pi = int4.cosine4_scan_topk_auto(torch.as_tensor(h), cpu_index, k=c,
+                                         max_distance=int4.UNBOUNDED_DISTANCE)
+    check(torch.equal(torch.as_tensor(cd).cpu(), pd) and np.array_equal(ci, pi.numpy()),
+          "int4 engine scan differs from the plain (CPU) path")
+    ids = eng._sem_image_ids
+    want = [(ids[int(r)], float(x)) for x, r in zip(fd, fi) if r >= 0]
+    check(rerank_res == want, "int4 similar (rerank) differs from the plain path + host rerank")
+    host = eng._sem_store._host_rows[: eng._sem_store.n]
+    od, oi = int4.cosine4a_scan_topk_np(h, host, k=K, max_distance=1e3)
+    check(raw_res == [(ids[int(r)], float(x)) for x, r in zip(od[0], oi[0]) if r >= 0],
+          "int4 similar (rerank off) differs from the numpy oracle")
+    # recall@10 of the reranked results against the u8 exact scan, over
+    # 256 perturbed stored rows and the query above
+    qs = perturb(rng, host[rng.integers(0, len(host), MAIN_Q)])
+    qs[0] = h
+    u8 = PackedSemanticIndex(*(torch.from_numpy(x).cuda() for x in (*semantic_rows_from_u8(host),
+                                                                    np.ones(len(host), bool))))
+    _, ui = scan.cosine_scan_topk(torch.from_numpy(qs).cuda(), u8, k=10)
+    _, ri = int4.scan_with_u8_rerank(
+        lambda cc, md: tuple(x.cpu().numpy() for x in int4.cosine4_scan_topk_auto(
+            torch.from_numpy(qs).cuda(), index, k=cc, max_distance=md,
+            sample=eng._get_scan_sample(), meta=eng._get_row_meta())),
+        qs, eng._sem_store._host_rows, k=10)
+    _, ai = int4.cosine4_scan_topk_auto(torch.from_numpy(qs).cuda(), index, k=10,
+                                        sample=eng._get_scan_sample(), meta=eng._get_row_meta())
+    ui, ai = ui.cpu().numpy(), ai.cpu().numpy()
+    recall = np.mean([len(set(ri[j]) & set(ui[j])) / 10 for j in range(MAIN_Q)])
+    recall_raw = np.mean([len(set(ai[j]) & set(ui[j])) / 10 for j in range(MAIN_Q)])
+    log(f"[6] int4 similar (rerank) = plain (CPU) path + host rerank; rerank off = numpy oracle "
+        f"(self-distance {raw_res[0][1]:.6f}); recall@10 vs the u8 exact scan over {MAIN_Q} queries: "
+        f"reranked {recall:.4f}, int4 alone {recall_raw:.4f}; top-3 {rerank_res[:3]}")
+    del u8, cpu_index
+
+    span = {n: dstats.get(n, {}).get("total_s", float("nan"))
+            for n in ("engine.duplicate_scan", "engine.int4_scan", "engine.int4_scan_rerank")}
+    log(f"[6] find_duplicate_pairs(by=semantic, max_distance=0.05) over {INT4_DUP_ROWS:,} int4 rows "
+        f"(cut from 1M): {len(pairs):,} pairs in {dup_s:.2f}s ({INT4_DUP_ROWS / dup_s:,.0f} rows/s); "
+        f"int4 scan {span['engine.int4_scan']:.2f}s, host rerank "
+        f"{span['engine.int4_scan_rerank'] - span['engine.int4_scan']:.2f}s, pair loop "
+        f"{span['engine.duplicate_scan'] - span['engine.int4_scan_rerank']:.2f}s; {smi}")
+    check(len(pairs) >= INT4_DUP_ROWS // 1000, "int4 duplicates missed the planted near-dups")
+    dindex = dup._sem_store.device_index
+    rows = np.arange(dup._sem_store.n)
+    for s in (0, len(rows) // 2, len(rows) - 256):
+        qb = torch.from_numpy(dup._sem_store.get_rows(rows[s : s + 256])).cuda()
+        d1, i1 = int4.cosine4_scan_topk_auto(qb, dindex, k=c, max_distance=int4.UNBOUNDED_DISTANCE,
+                                             sample=dup._get_scan_sample(), meta=dup._get_row_meta())
+        d2, i2 = int4.cosine4a_scan_topk(qb, dindex, k=c, max_distance=int4.UNBOUNDED_DISTANCE)
+        check(torch.equal(d1, d2) and torch.equal(i1, i2),
+              f"int4 duplicates: batch at row {s} differs from the plain exact scan")
+    log("[6] int4 duplicates: 3 sampled candidate batches = plain exact scan")
+    dup.close()
+    eng.close()
+    return counts
+
+
+def phase_time(tag: str, t0: float) -> float:
+    now = time.perf_counter()
+    log(f"[{tag}] phase wall time {now - t0:.1f}s")
+    return now
+
+
 def main() -> int:
     import torch
 
@@ -932,16 +1254,26 @@ def main() -> int:
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
     err = {n: 0.0 for n in Recorder.NAMES}
+    t0 = time.perf_counter()
     stats, db = phase_kernels(fs, scan, smi, err)
+    t0 = phase_time("3", t0)
     stats.update(phase_hamming(fs, scan, hg, smi, err))
+    t0 = phase_time("3b", t0)
     phase_big_batch(fs, scan, smi, err, db)
+    t0 = phase_time("3c", t0)
+    stats.update(phase_int4_kernels(fs, scan, smi, err, db))
+    t0 = phase_time("3d", t0)
     del db
 
-    # [4] engine, [5] phash engine and duplicates
+    # [4] engine, [5] phash engine and duplicates, [6] int4 engine
     with tempfile.TemporaryDirectory(prefix="pixelbox_smoke_") as tmp:
         counts4, sem_eng, ckpt = phase_engine(fs, scan, smi, tmp)
+        t0 = phase_time("4", t0)
         counts5 = phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt)
         sem_eng.close()
+        t0 = phase_time("5", t0)
+        counts6 = phase_int4_engine(fs, scan, smi, tmp, ckpt)
+        phase_time("6", t0)
 
     check("jax" not in sys.modules, "jax was imported")
     replaces = {
@@ -950,6 +1282,8 @@ def main() -> int:
         "lex_topk_segments": "pixelbox_tpu/ops/pallas_scan.py:192",
         "hamming_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:1012",
         "hamming_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:192",
+        "cosine4_threshold_collect": "pixelbox_tpu/ops/int4.py:376",
+        "cosine4_chunk_topk": "pixelbox_tpu/ops/int4.py:376",
     }
     kernels = []
     for n in Recorder.NAMES:
@@ -959,7 +1293,7 @@ def main() -> int:
             "route": "cuda",
             "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
             "replaces": replaces[n],
-            "launches": counts4[n] + counts5[n],
+            "launches": counts4[n] + counts5[n] + counts6[n],
             "max_abs_err": err[n],
             **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **({"dot_only_ms": st["dot_only_ms"]} if "dot_only_ms" in st else {}),

@@ -15,8 +15,10 @@ Subcommands (the JAX CLI's names and flags):
     stats <db>                     — index statistics
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.  Scan
-modes ``auto``/``exact``/``fast``/``pallas`` are ported; ``ivf`` and
-``--precision int4`` exit with a "not yet ported" error.
+modes ``auto``/``exact``/``fast``/``pallas`` are ported; ``ivf`` exits with
+a "not yet ported" error.  ``--precision int4`` packs the semantic index
+two 4-bit codes a byte and rescores its candidates with the exact u8
+metric (``--no-int4-rerank`` turns the rescore off).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ def _open_engine(args, create=False):
         kwargs["embedder_kwargs"] = {"checkpoint_path": args.model}
     if args.precision:
         kwargs["semantic_precision"] = args.precision
+    if args.no_int4_rerank:
+        kwargs["int4_rerank"] = False
     eng = Engine(args.db, create=create, **kwargs)
     if args.scan_mode:
         eng.scan_mode = args.scan_mode
@@ -140,7 +144,17 @@ def _parser() -> argparse.ArgumentParser:
         )
         sp.add_argument(
             "--precision", default=None, choices=("int8", "int4"),
-            help="semantic index precision (int4 is not yet ported)",
+            help="semantic index precision: int4 packs 2x rows per card "
+            "(the catalog keeps full u8 hashes). Queries retrieve top-C "
+            "candidates from the int4 index and rescore them with the "
+            "EXACT u8 metric from the host mirror, so reported distances "
+            "are true u8 values. Persisted in the library; later commands "
+            "inherit it.",
+        )
+        sp.add_argument(
+            "--no-int4-rerank", action="store_true",
+            help="skip the exact-u8 rescoring of int4 candidates "
+            "(raw asymmetric int4-metric results)",
         )
         return sp
 

@@ -11,6 +11,9 @@
 //   - the Hamming main pass
 //     (pallas_hamming_threshold_scan_topk(_v2))          -> K2a + K1c
 //   - the exact Hamming scan and repair                  -> K2b + K1c
+//   - the int4 main pass (ops/int4.py:pallas_threshold4_scan_topk,
+//     kinds cosine4a / cosine4)                          -> K4a + K1c
+//   - the exact int4 scan and repair                     -> K4b + K1c
 //
 // The Hamming kernels read the packed u8 phash rows (32 bytes for the
 // published 16x16 hash) and count differing bits with xor + __popc; the
@@ -23,6 +26,15 @@
 // The TPU kernel's lane-class extraction chain, 128-lane counts and
 // round-bound poisoning exist because a TPU vreg has 128 lanes and Mosaic
 // has no sort; a GPU block sorts in shared memory instead.
+//
+// K4a/K4b are K1a/K1b instantiated for the packed int4 rows (two 4-bit
+// codes a byte, column-blocked: byte c holds dim c in its low nibble and
+// dim c + D/2 in its high one, ops/int4.py).  They read D/2 bytes a row
+// instead of D and unpack each 32-bit word into two __dp4a operands with
+// one mask and one shift+mask; only the row dot and the integer affine
+// fix differ from the u8 kind.  Like K1a they are integer-ALU bound at
+// Q >= 32 (the same D/4 __dp4a per query and row, plus the unpack),
+// HBM-read bound below; halving the row bytes matters only there.
 //
 // Distances follow the canonical spec v2 (ops/distances.py) op for op,
 // every f32 op correctly rounded (explicit __fmul_rn / __fdiv_rn, and the
@@ -45,6 +57,13 @@ constexpr int kThreads = 256;
 constexpr int kCollectQueries = 32;  // K1a: queries per block
 constexpr int kChunkQueries = 4;     // K1b: queries per block
 constexpr unsigned long long kNoKey = ~0ull;
+
+// Row layouts / metrics of the cosine kernels (K1a/K1b and K4a/K4b).
+enum : int {
+  kU8 = 0,        // int8 rows [N, D] (u8 - 128), queries the same
+  kInt4Asym = 1,  // packed int4 rows [N, D/2], u8 - 128 queries (cosine4a)
+  kInt4Sym = 2,   // packed int4 rows [N, D/2], 4-bit queries (cosine4)
+};
 
 // Exact int8 dot of one index row against QT staged queries.  The row is
 // read once (16-byte loads where the width allows) and multiplied into
@@ -88,15 +107,100 @@ __device__ __forceinline__ void row_dot(const int8_t* __restrict__ row,
   }
 }
 
-// Canonical spec v2 epilogue, exactly _kind_dist_tile (kind="cosine"):
-//   dot_c = 4*dot8 + 2*(q_sum + row_sum) + D          (exact int32)
+// Exact dot of one packed int4 row (D/2 bytes) against QT staged int8
+// queries [QT, D].  A 32-bit word of the row holds dims c..c+3 in its low
+// nibbles and c+D/2..c+D/2+3 in its high ones: w & 0x0F0F0F0F and
+// (w >> 4) & 0x0F0F0F0F are four non-negative int8 codes each, and two
+// __dp4a against the matching query words add them in.  16-byte row loads
+// where D/2 % 16 == 0, words where D/2 % 4 == 0, else bytes.
+template <int QT>
+__device__ __forceinline__ void row_dot4(const uint8_t* __restrict__ row,
+                                         const int8_t* q_sh, int D,
+                                         int (&acc)[QT]) {
+  constexpr unsigned kLo = 0x0F0F0F0Fu;
+  const int H = D >> 1;
+#pragma unroll
+  for (int j = 0; j < QT; ++j) acc[j] = 0;
+  if ((H & 15) == 0) {
+    for (int c = 0; c < H; c += 16) {
+      const uint4 r = *reinterpret_cast<const uint4*>(row + c);
+      const int l0 = r.x & kLo, l1 = r.y & kLo, l2 = r.z & kLo, l3 = r.w & kLo;
+      const int h0 = (r.x >> 4) & kLo, h1 = (r.y >> 4) & kLo;
+      const int h2 = (r.z >> 4) & kLo, h3 = (r.w >> 4) & kLo;
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const int4 qa = *reinterpret_cast<const int4*>(q_sh + j * D + c);
+        const int4 qb = *reinterpret_cast<const int4*>(q_sh + j * D + c + H);
+        int a = acc[j];
+        a = __dp4a(l0, qa.x, a);
+        a = __dp4a(l1, qa.y, a);
+        a = __dp4a(l2, qa.z, a);
+        a = __dp4a(l3, qa.w, a);
+        a = __dp4a(h0, qb.x, a);
+        a = __dp4a(h1, qb.y, a);
+        a = __dp4a(h2, qb.z, a);
+        a = __dp4a(h3, qb.w, a);
+        acc[j] = a;
+      }
+    }
+  } else if ((H & 3) == 0) {
+    for (int c = 0; c < H; c += 4) {
+      const unsigned w = *reinterpret_cast<const unsigned*>(row + c);
+      const int lo = w & kLo, hi = (w >> 4) & kLo;
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const int* q = reinterpret_cast<const int*>(q_sh + j * D);
+        acc[j] = __dp4a(hi, q[(c + H) >> 2], __dp4a(lo, q[c >> 2], acc[j]));
+      }
+    }
+  } else {
+    for (int c = 0; c < H; ++c) {
+      const int b = row[c];
+#pragma unroll
+      for (int j = 0; j < QT; ++j)
+        acc[j] += (b & 15) * static_cast<int>(q_sh[j * D + c]) +
+                  (b >> 4) * static_cast<int>(q_sh[j * D + c + H]);
+    }
+  }
+}
+
+// The row dot of a kind: `data` is the int8 [N, D] or packed [N, D/2] index.
+template <int KIND, int QT>
+__device__ __forceinline__ void kind_row_dot(const int8_t* __restrict__ data,
+                                             int row, const int8_t* q_sh,
+                                             int D, int (&acc)[QT]) {
+  if constexpr (KIND == kU8) {
+    row_dot<QT>(data + static_cast<size_t>(row) * D, q_sh, D, acc);
+  } else {
+    row_dot4<QT>(reinterpret_cast<const uint8_t*>(data) +
+                     static_cast<size_t>(row) * (D >> 1),
+                 q_sh, D, acc);
+  }
+}
+
+// The exact centered dot Σ(a_c · b_c) from the code dot and the sums, the
+// affine fix of _kind_dist_tile (exact int32 for D <= 2048):
+//   u8:    centered 2u-255 both sides      4*dot8 + 2*(q_sum + row_sum) + D
+//   asym:  2u-255 query, 34*v4-255 rows    68*dot8 + 34*row_sum - 510*q_sum - 255*D
+//   sym:   34*v4-255 both sides            1156*dot8 - 8670*(q_sum + row_sum) + 65025*D
+template <int KIND>
+__device__ __forceinline__ int centered_dot(int dot8, int q_sum, int row_sum,
+                                            int D) {
+  if constexpr (KIND == kU8) {
+    return 4 * dot8 + 2 * (q_sum + row_sum) + D;
+  } else if constexpr (KIND == kInt4Asym) {
+    return 68 * dot8 + 34 * row_sum - 510 * q_sum - 255 * D;
+  } else {
+    return 1156 * dot8 - 8670 * (q_sum + row_sum) + 65025 * D;
+  }
+}
+
+// Canonical spec v2 epilogue, exactly _kind_dist_tile's, from dot_c:
 //   cos   = fl(dot_c * fl(qr * rr))
 //   dist  = fl(fl(1 / max(cos, 1e-6)) - 1), clamped to >= 0
 //   identical vectors (dot == m2q == m2r on the f32 copies) pinned to 0.
-__device__ __forceinline__ float spec_dist(int dot8, int q_sum, int row_sum,
-                                           int D, float qr, float rr,
+__device__ __forceinline__ float spec_dist(int dot_c, float qr, float rr,
                                            float q_mag2f, float row_mag2f) {
-  const int dot_c = 4 * dot8 + 2 * (q_sum + row_sum) + D;
   const float dot_f = __int2float_rn(dot_c);
   const float cosv = __fmul_rn(dot_f, __fmul_rn(qr, rr));
   float dist = __fsub_rn(__fdiv_rn(1.0f, fmaxf(cosv, 1e-6f)), 1.0f);
@@ -203,11 +307,11 @@ __device__ void bitonic_sort_segments(unsigned long long* keys, int total,
   }
 }
 
-// K1a: append every valid row with dist < theta[q] to query q's buffer.
-// count[q] is exact whether or not the buffer overflows (the slot is
-// claimed before the capacity check), so the wrapper's proof
-// count <= cap && (count >= k || unbound) is sound.
-template <int QT>
+// K1a (KIND kU8) / K4a (kInt4Asym, kInt4Sym): append every valid row with
+// dist < theta[q] to query q's buffer.  count[q] is exact whether or not
+// the buffer overflows (the slot is claimed before the capacity check), so
+// the wrapper's proof count <= cap && (count >= k || unbound) is sound.
+template <int QT, int KIND>
 __global__ void __launch_bounds__(kThreads)
 threshold_collect_kernel(const int8_t* __restrict__ q_codes,
                          const int* __restrict__ q_sum,
@@ -228,7 +332,7 @@ threshold_collect_kernel(const int8_t* __restrict__ q_codes,
   const int row_mag2 = meta[N + row];
   if (row_mag2 <= 0) return;  // padding / tombstone
   int acc[QT];
-  row_dot<QT>(data + static_cast<size_t>(row) * D, q_sh, D, acc);
+  kind_row_dot<KIND, QT>(data, row, q_sh, D, acc);
   const int row_sum = meta[row];
   const float rr = __int_as_float(meta[2 * N + row]);
   const float row_mag2f = __int2float_rn(row_mag2);
@@ -237,7 +341,8 @@ threshold_collect_kernel(const int8_t* __restrict__ q_codes,
     if (j < nq) {
       const int q = q0 + j;
       const float dist =
-          spec_dist(acc[j], q_sum[q], row_sum, D, qr[q], rr, q_mag2f[q], row_mag2f);
+          spec_dist(centered_dot<KIND>(acc[j], q_sum[q], row_sum, D), qr[q], rr,
+                    q_mag2f[q], row_mag2f);
       if (dist < theta[q]) {
         const int slot = atomicAdd(count + q, 1);
         if (slot < cap) {
@@ -249,11 +354,12 @@ threshold_collect_kernel(const int8_t* __restrict__ q_codes,
   }
 }
 
-// K1b: per (row chunk, query tile), the chunk's exact top-k of
-// {valid rows with dist < max_distance} by (dist, row id).  Distances go
-// to shared memory as keys, a bitonic sort orders each query's chunk, and
-// the first k land in the [Q, n_chunks, k] partial (finished by K1c).
-template <int QB>
+// K1b (KIND kU8) / K4b (kInt4Asym, kInt4Sym): per (row chunk, query
+// tile), the chunk's exact top-k of {valid rows with dist < max_distance}
+// by (dist, row id).  Distances go to shared memory as keys, a bitonic
+// sort orders each query's chunk, and the first k land in the
+// [Q, n_chunks, k] partial (finished by K1c).
+template <int QB, int KIND>
 __global__ void __launch_bounds__(kThreads)
 chunk_topk_kernel(const int8_t* __restrict__ q_codes,
                   const int* __restrict__ q_sum,
@@ -280,7 +386,7 @@ chunk_topk_kernel(const int8_t* __restrict__ q_codes,
       const int row_mag2 = meta[N + row];
       ok = row_mag2 > 0;
       if (ok) {
-        row_dot<QB>(data + static_cast<size_t>(row) * D, q_sh, D, acc);
+        kind_row_dot<KIND, QB>(data, row, q_sh, D, acc);
         row_sum = meta[row];
         rr = __int_as_float(meta[2 * N + row]);
         row_mag2f = __int2float_rn(row_mag2);
@@ -291,8 +397,9 @@ chunk_topk_kernel(const int8_t* __restrict__ q_codes,
       unsigned long long key = kNoKey;
       if (ok && j < nq) {
         const int q = q0 + j;
-        const float dist = spec_dist(acc[j], q_sum[q], row_sum, D, qr[q], rr,
-                                     q_mag2f[q], row_mag2f);
+        const float dist =
+            spec_dist(centered_dot<KIND>(acc[j], q_sum[q], row_sum, D), qr[q],
+                      rr, q_mag2f[q], row_mag2f);
         if (dist < max_distance) key = make_key(dist, row);
       }
       keys[j * R + r] = key;
@@ -434,18 +541,15 @@ lex_topk_segments_kernel(const float* __restrict__ in_d,
   }
 }
 
-}  // namespace
-
-PX_EXPORT int px_threshold_collect(const void* q_codes, const void* q_sum,
-                                   const void* q_mag2f, const void* qr,
-                                   const void* theta, const void* data,
-                                   const void* meta, int Q, int N, int D,
-                                   int cap, void* count, void* cand_d,
-                                   void* cand_i, void* stream) {
+template <int KIND>
+int launch_collect(const void* q_codes, const void* q_sum, const void* q_mag2f,
+                   const void* qr, const void* theta, const void* data,
+                   const void* meta, int Q, int N, int D, int cap, void* count,
+                   void* cand_d, void* cand_i, void* stream) {
   const dim3 grid((N + kThreads - 1) / kThreads,
                   (Q + kCollectQueries - 1) / kCollectQueries);
   const size_t smem = static_cast<size_t>(kCollectQueries) * D;
-  threshold_collect_kernel<kCollectQueries>
+  threshold_collect_kernel<kCollectQueries, KIND>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(q_codes), static_cast<const int*>(q_sum),
           static_cast<const float*>(q_mag2f), static_cast<const float*>(qr),
@@ -456,16 +560,16 @@ PX_EXPORT int px_threshold_collect(const void* q_codes, const void* q_sum,
   return static_cast<int>(cudaGetLastError());
 }
 
-PX_EXPORT int px_chunk_topk(const void* q_codes, const void* q_sum,
-                            const void* q_mag2f, const void* qr,
-                            float max_distance, const void* data,
-                            const void* meta, int Q, int N, int D, int R,
-                            int k, int n_chunks, void* out_d, void* out_i,
-                            void* stream) {
+template <int KIND>
+int launch_chunk_topk(const void* q_codes, const void* q_sum,
+                      const void* q_mag2f, const void* qr, float max_distance,
+                      const void* data, const void* meta, int Q, int N, int D,
+                      int R, int k, int n_chunks, void* out_d, void* out_i,
+                      void* stream) {
   const dim3 grid(n_chunks, (Q + kChunkQueries - 1) / kChunkQueries);
   const size_t smem = static_cast<size_t>(kChunkQueries) * R * 8 +
                       static_cast<size_t>(kChunkQueries) * D;
-  chunk_topk_kernel<kChunkQueries>
+  chunk_topk_kernel<kChunkQueries, KIND>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(q_codes), static_cast<const int*>(q_sum),
           static_cast<const float*>(q_mag2f), static_cast<const float*>(qr),
@@ -473,6 +577,61 @@ PX_EXPORT int px_chunk_topk(const void* q_codes, const void* q_sum,
           static_cast<const int*>(meta), Q, N, D, R, k, n_chunks,
           static_cast<float*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+PX_EXPORT int px_threshold_collect(const void* q_codes, const void* q_sum,
+                                   const void* q_mag2f, const void* qr,
+                                   const void* theta, const void* data,
+                                   const void* meta, int Q, int N, int D,
+                                   int cap, void* count, void* cand_d,
+                                   void* cand_i, void* stream) {
+  return launch_collect<kU8>(q_codes, q_sum, q_mag2f, qr, theta, data, meta,
+                             Q, N, D, cap, count, cand_d, cand_i, stream);
+}
+
+PX_EXPORT int px_chunk_topk(const void* q_codes, const void* q_sum,
+                            const void* q_mag2f, const void* qr,
+                            float max_distance, const void* data,
+                            const void* meta, int Q, int N, int D, int R,
+                            int k, int n_chunks, void* out_d, void* out_i,
+                            void* stream) {
+  return launch_chunk_topk<kU8>(q_codes, q_sum, q_mag2f, qr, max_distance,
+                                data, meta, Q, N, D, R, k, n_chunks, out_d,
+                                out_i, stream);
+}
+
+// K4a over packed int4 rows [N, D/2]; sym selects the symmetric metric
+// (4-bit queries) over the asymmetric one (u8 queries).
+PX_EXPORT int px_cosine4_collect(const void* q_codes, const void* q_sum,
+                                 const void* q_mag2f, const void* qr,
+                                 const void* theta, const void* data,
+                                 const void* meta, int Q, int N, int D,
+                                 int sym, int cap, void* count, void* cand_d,
+                                 void* cand_i, void* stream) {
+  return sym ? launch_collect<kInt4Sym>(q_codes, q_sum, q_mag2f, qr, theta,
+                                        data, meta, Q, N, D, cap, count,
+                                        cand_d, cand_i, stream)
+             : launch_collect<kInt4Asym>(q_codes, q_sum, q_mag2f, qr, theta,
+                                         data, meta, Q, N, D, cap, count,
+                                         cand_d, cand_i, stream);
+}
+
+// K4b over packed int4 rows [N, D/2].
+PX_EXPORT int px_cosine4_chunk_topk(const void* q_codes, const void* q_sum,
+                                    const void* q_mag2f, const void* qr,
+                                    float max_distance, const void* data,
+                                    const void* meta, int Q, int N, int D,
+                                    int sym, int R, int k, int n_chunks,
+                                    void* out_d, void* out_i, void* stream) {
+  return sym ? launch_chunk_topk<kInt4Sym>(q_codes, q_sum, q_mag2f, qr,
+                                           max_distance, data, meta, Q, N, D,
+                                           R, k, n_chunks, out_d, out_i, stream)
+             : launch_chunk_topk<kInt4Asym>(q_codes, q_sum, q_mag2f, qr,
+                                            max_distance, data, meta, Q, N, D,
+                                            R, k, n_chunks, out_d, out_i,
+                                            stream);
 }
 
 PX_EXPORT int px_lex_topk_segments(const void* in_d, const void* in_i,

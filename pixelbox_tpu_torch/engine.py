@@ -18,10 +18,10 @@ Semantics kept from the reference (as in the JAX package):
 - image-hash queries apply strict ``dist < max_distance_from_query``
   (engine.rs:375-383); results cached until the next query.
 
-Ported so far, on one device: the semantic modality, perceptual-hash
-search (``query_by_phash``) and whole-index duplicate finding.  The BLIP,
-face, IVF and watch mixins, int4 precision and mesh serving wait
-(ROADMAP.md).
+Ported so far, on one device: the semantic modality at either index
+precision (u8, or int4 with the exact-u8 rerank), perceptual-hash search
+(``query_by_phash``) and whole-index duplicate finding.  The BLIP, face,
+IVF and watch mixins and mesh serving wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from pixelbox_tpu_torch.ingest.thumbnail import make_thumbnail, qoi_encode
 from pixelbox_tpu_torch.models import get_embedder
 from pixelbox_tpu_torch.ops import phash as phash_ops
 from pixelbox_tpu_torch.ops.distances import cosine_distance
+from pixelbox_tpu_torch.ops.int4 import cosine4a_distance_np, cosine4a_scan_topk, rerank_candidates_u8
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk
 from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
@@ -70,8 +71,13 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
         dim: Optional[int] = None,
         phash_compat: Optional[bool] = None,
         semantic_precision: Optional[str] = None,
+        int4_rerank: bool = True,
         device="cuda",
     ):
+        if semantic_precision not in (None, "int8", "int4"):
+            raise ValueError(
+                f"semantic_precision must be 'int8' or 'int4', got {semantic_precision!r}"
+            )
         self.device = resolve_device(device)
         self.catalog = Catalog(db_path, create=create)
         self.db_path = db_path
@@ -83,14 +89,32 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
         else:
             self.catalog.set_setting("phash_compat", "1" if phash_compat else "0")
         self.phash_compat = bool(phash_compat)
+        #: "int8" (default, reference-exact distances) or "int4": the
+        #: device index packs two 4-bit codes per byte (ops/int4.py) — 2×
+        #: rows per card at coarser distances; the catalog keeps the full
+        #: u8 hashes either way.  Persisted: None keeps the library's
+        #: setting, an explicit value overrides and re-persists it.
         if semantic_precision is None:
             semantic_precision = self.catalog.get_setting("semantic_precision") or "int8"
-        if semantic_precision != "int8":
-            raise NotImplementedError(
-                f"semantic_precision={semantic_precision!r} is not yet ported to "
-                "pixelbox_tpu_torch (int8 only)"
-            )
+        else:
+            self.catalog.set_setting("semantic_precision", semantic_precision)
         self.semantic_precision = semantic_precision
+        #: int4 queries rescore the scan's top-C candidates with the EXACT
+        #: u8 metric from the store's host mirror (ops/int4.py,
+        #: rerank_candidates_u8): returned distances are true u8
+        #: reciprocal-cosine values (comparable with int8 mode;
+        #: `max_distance_from_query` keeps its u8 meaning; stored-hash
+        #: self-matches score exactly 0).  Off → raw int4-metric results.
+        self.int4_rerank = bool(int4_rerank)
+        if not self.int4_rerank and self.semantic_precision == "int4":
+            print(
+                "WARNING: int4 library with int4_rerank disabled — "
+                "results are raw int4-metric (measured recall@10 vs the "
+                "u8 ground truth ~0.5 on the structured bench, vs 1.0 "
+                "with the default exact-u8 rerank); distances are NOT "
+                "comparable with int8 libraries.  See PERF.md 'int4'.",
+                file=sys.stderr,
+            )
         #: Guards row↔image-id mappings and in-place device appends: query
         #: flows hold the read side across scan→assemble; appends, deletes
         #: and compaction take the write side (utils/rwlock.py).
@@ -190,7 +214,13 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
         return cls(db_path, create=False, **kwargs)
 
     def _new_sem_store(self, dim: int) -> VectorStore:
-        return VectorStore(dim=dim, kind="semantic", device=self.device)
+        if self.semantic_precision == "int4" and dim % 2 != 0:
+            raise ValueError(
+                f"semantic_precision='int4' packs two dims per byte and "
+                f"needs an even embedding dim, got {dim}"
+            )
+        kind = "semantic4" if self.semantic_precision == "int4" else "semantic"
+        return VectorStore(dim=dim, kind=kind, device=self.device)
 
     def _load_stores(self) -> None:
         sem = list(self.catalog.iter_hashes("semantic_hashes"))
@@ -484,26 +514,50 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
         if sim is not None and sim.visual_hash is not None and len(rows):
             # Order by cosine distance to the cached image over the matched
             # subset; NO distance threshold on this path (engine.rs:294-315).
+            int4 = self.semantic_precision == "int4"
+            q_u8 = np.asarray(sim.visual_hash, dtype=np.uint8)
             with timed("engine.text_query_scan"):
                 if len(rows) > 16384:
                     # Broad filter: one exact device scan with the filter
-                    # folded into the validity mask.
+                    # folded into the validity mask (int4: candidates in
+                    # the asymmetric int4 metric, then — rerank on — the
+                    # exact-u8 rescore, so a pair scores the same with or
+                    # without a filter).
                     base = self._sem_store.device_index
                     mask = torch.zeros(base.capacity, dtype=torch.bool, device=base.device)
                     mask[torch.from_numpy(rows).to(base.device)] = True
                     masked = base._replace(valid=base.valid & mask)
-                    q = torch.as_tensor(np.asarray(sim.visual_hash, dtype=np.uint8))
-                    dists, idxs = cosine_scan_topk(q, masked, k=k, max_distance=np.inf)
-                    dists = dists.cpu().numpy()
-                    idxs = idxs.cpu().numpy()
+                    q = torch.as_tensor(q_u8)
+                    scan = cosine4a_scan_topk if int4 else cosine_scan_topk
+
+                    def masked_scan(c, md):
+                        return scan(q, masked, k=c, max_distance=md)
+
+                    if int4 and self.int4_rerank:
+                        dists, idxs = self._int4_scan_rerank(masked_scan, q_u8, k, np.inf)
+                    else:
+                        dists, idxs = (x.cpu().numpy() for x in masked_scan(k, np.inf))
                     keep = idxs >= 0
                     sel, sel_dists = idxs[keep], dists[keep]
+                elif int4 and self.int4_rerank:
+                    # The candidate set IS the filtered subset: score it in
+                    # the exact u8 metric from the host mirror, ordered by
+                    # (dist, row id) like the unfiltered reranked path.
+                    d_k, i_k = rerank_candidates_u8(
+                        q_u8, rows, self._sem_store._host_rows, k=k, max_distance=np.inf
+                    )
+                    keep = i_k >= 0
+                    sel, sel_dists = i_k[keep], d_k[keep]
                 else:
                     db_rows = self._sem_store.get_rows(rows)
-                    dists = cosine_distance(
-                        torch.as_tensor(np.asarray(sim.visual_hash, dtype=np.uint8))[None, :],
-                        torch.from_numpy(db_rows),
-                    ).numpy()
+                    if int4:
+                        # Rerank off: the device index's asymmetric metric,
+                        # so filtered and unfiltered orderings agree.
+                        dists = cosine4a_distance_np(q_u8[None, :], db_rows)
+                    else:
+                        dists = cosine_distance(
+                            torch.as_tensor(q_u8)[None, :], torch.from_numpy(db_rows)
+                        ).numpy()
                     order = np.argsort(dists, kind="stable")[:k]
                     sel, sel_dists = rows[order], dists[order]
         else:

@@ -1,5 +1,6 @@
 """Device-resident vector stores with streaming append (torch port of
-``index/store.py``, kinds ``"semantic"`` and ``"hamming"``).
+``index/store.py``, kinds ``"semantic"``, ``"semantic4"`` and
+``"hamming"``).
 
 Vectors live packed on the device (see ``ops.packed``); the host keeps a
 uint8 mirror for re-packing and result assembly.  Capacity grows by
@@ -13,8 +14,7 @@ donation required.  The validity mask gates padded/deleted rows out of
 every scan.
 
 Deletes are tombstones (valid=False), compacted away by
-:meth:`VectorStore.compact`.  The ``semantic4`` (int4) kind waits
-(ROADMAP.md).
+:meth:`VectorStore.compact`.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pixelbox_tpu_torch.ops.int4 import PackedSemantic4Index, semantic4_rows_from_u8
 from pixelbox_tpu_torch.ops.packed import (
     PackedHammingIndex,
     PackedSemanticIndex,
@@ -40,8 +41,10 @@ class VectorStore:
     ----------
     dim: vector width in bytes (embedding dim for semantic, hash bytes for
         phash; the reference treats hash width as opaque, engine.rs:48).
-    kind: "semantic" (int8 cosine scan) or "hamming" (xor-popcount; rows
-        stay packed u8 on the device).
+    kind: "semantic" (int8 cosine scan), "semantic4" (two 4-bit codes a
+        byte on the device, ops/int4.py — 2× rows per device byte; the
+        host mirror stays u8) or "hamming" (xor-popcount; rows stay packed
+        u8 on the device).
     device: where the packed tensors live ("cuda", "cpu", a torch.device).
     """
 
@@ -52,10 +55,8 @@ class VectorStore:
         block_rows: int = DEFAULT_BLOCK_ROWS,
         device="cuda",
     ):
-        if kind not in ("semantic", "hamming"):
-            raise NotImplementedError(
-                f"VectorStore kind {kind!r} is not yet ported to pixelbox_tpu_torch"
-            )
+        if kind not in ("semantic", "semantic4", "hamming"):
+            raise ValueError(f"unknown VectorStore kind {kind!r}")
         self.dim = int(dim)
         self.kind = kind
         self.block_rows = int(block_rows)
@@ -74,7 +75,7 @@ class VectorStore:
         self._host_rows = np.zeros((0, self.dim), dtype=np.uint8)
         self._host_valid = np.zeros((0,), dtype=bool)
         self._capacity = 0
-        self._device_arrays = None  # PackedSemanticIndex | PackedHammingIndex
+        self._device_arrays = None  # Packed{Semantic,Semantic4,Hamming}Index
 
     # ------------------------------------------------------------------ #
     # Capacity management
@@ -98,6 +99,11 @@ class VectorStore:
         if self.kind == "semantic":
             data, row_sum, row_mag2 = semantic_rows_from_u8(rows)
             self._device_arrays = PackedSemanticIndex(
+                self._put(data), self._put(row_sum), self._put(row_mag2), self._put(valid)
+            )
+        elif self.kind == "semantic4":
+            data, row_sum, row_mag2 = semantic4_rows_from_u8(rows)
+            self._device_arrays = PackedSemantic4Index(
                 self._put(data), self._put(row_sum), self._put(row_mag2), self._put(valid)
             )
         else:
@@ -148,8 +154,9 @@ class VectorStore:
         """In-place write of appended rows (caller holds the write lock)."""
         end = start + rows_u8.shape[0]
         a = self._device_arrays
-        if self.kind == "semantic":
-            data, row_sum, row_mag2 = semantic_rows_from_u8(rows_u8)
+        if self.kind in ("semantic", "semantic4"):
+            pack = semantic_rows_from_u8 if self.kind == "semantic" else semantic4_rows_from_u8
+            data, row_sum, row_mag2 = pack(rows_u8)
             a.data[start:end] = self._put(data)
             a.row_sum[start:end] = self._put(row_sum)
             a.row_mag2[start:end] = self._put(row_mag2)

@@ -1,10 +1,10 @@
 """Fused threshold scans with guaranteed-exact top-k — the counterpart of
 ``pixelbox_tpu/ops/pallas_scan.py``.
 
-Five hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
+Seven hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
 JAX package's one Pallas TPU kernel family
-(``pallas_scan.py:_threshold_kernel``; kinds "cosine" and "hamming",
-selects "carry" and "buffer"):
+(``pallas_scan.py:_threshold_kernel``; kinds "cosine", "cosine4a",
+"cosine4" and "hamming", selects "carry" and "buffer"):
 
 - **K1a** :func:`cosine_threshold_collect` — exact int8 dot + spec-v2
   epilogue + strict ``dist < θ_q`` filter; passing rows are appended to a
@@ -21,24 +21,35 @@ selects "carry" and "buffer"):
   popcount over the first ``byte_limit`` bytes of the packed u8 phash
   rows, the optional u8 wrap of the reference (engine.rs:603), one f32
   multiply by ``f32(1 / (8 * byte_limit))``.  K1c finishes both.
+- **K4a** :func:`cosine4_threshold_collect` and **K4b**
+  :func:`cosine4_chunk_topk` — K1a and K1b over the packed int4 rows
+  (``ops/int4.py``: two 4-bit codes a byte, column-blocked), unpacked in
+  registers (mask, shift + mask) into two ``__dp4a`` operands per word;
+  the affine fix of the asymmetric (u8 query, kind "cosine4a") or the
+  symmetric (4-bit query, kind "cosine4") metric, then K1a's epilogue.
+  K1c finishes both.
 
 Uses, exactly where the JAX package launched its kernel.  One code path
-serves both kinds; a kind object (:class:`CosineQueries`,
-:class:`HammingQueries`) picks the distance and the collect and chunk
-kernels:
+serves every kind; a kind object (:class:`CosineQueries`,
+:class:`Int4Queries`, :class:`HammingQueries`) picks the distance and the
+collect and chunk kernels:
 
 - θ estimate (:func:`sample_theta`, was ``_pallas_sample_theta``): stage 1
-  plain torch over a 1/16 mini-sample, stage 2 K1a/K2a + K1c over the
+  plain torch over a 1/16 mini-sample, stage 2 K1a/K4a/K2a + K1c over the
   sample;
 - main pass (:func:`fused_threshold_scan_topk`, was
-  ``pallas_threshold_scan_topk(_v2)``; :func:`fused_hamming_threshold_scan_topk`,
-  was ``pallas_hamming_threshold_scan_topk(_v2)``): K1a/K2a + K1c at every
-  batch size, proof ``count <= cap ∧ (count >= k ∨ θ unbound)`` (the JAX
-  buffer contract);
+  ``pallas_threshold_scan_topk(_v2)``; :func:`fused_threshold4_scan_topk`,
+  was ``int4.py:pallas_threshold4_scan_topk``;
+  :func:`fused_hamming_threshold_scan_topk`, was
+  ``pallas_hamming_threshold_scan_topk(_v2)``): K1a/K4a/K2a + K1c at
+  every batch size, proof ``count <= cap ∧ (count >= k ∨ θ unbound)``
+  (the JAX buffer contract);
 - exact scan (:func:`fused_cosine_scan_topk`, was
-  ``pallas_cosine_scan_topk``; :func:`fused_hamming_scan_topk`):
-  K1b/K2b + K1c, unconditionally exact — the auto paths' repair,
-  ``--scan-mode pallas``, and the mixed-width phash and duplicate scans.
+  ``pallas_cosine_scan_topk``; :func:`fused_cosine4_scan_topk`, where the
+  JAX package ran its XLA ``cosine4(a)_scan_topk``;
+  :func:`fused_hamming_scan_topk`): K1b/K4b/K2b + K1c, unconditionally
+  exact — the auto paths' repair, ``--scan-mode pallas``, and the
+  mixed-width phash and duplicate scans.
 
 Dispatch is by device and nothing else: a CUDA tensor goes to the kernel
 (or the wrapper raises), a CPU tensor goes to the kernel's plain PyTorch
@@ -50,7 +61,9 @@ package, and ``chip_smoke.py`` holds the kernels bit-identical to them.
 What bounds the kernels on the card: K1a/K1b read the int8 index once
 per query tile (32 / 4 queries) and spend ~D/4 ``__dp4a`` per (query,
 row) plus one correctly-rounded divide — integer-ALU and divide bound at
-Q >= 32, HBM-read bound below.  K2a/K2b spend byte_limit/4 ``__popc``
+Q >= 32, HBM-read bound below; K4a/K4b read half the bytes and spend
+the same ``__dp4a`` plus one mask and one shift + mask per packed word.
+K2a/K2b spend byte_limit/4 ``__popc``
 per (query, row) — popcount-throughput bound at Q >= 32.  The design
 keeps distances out of device memory (only θ-passing rows or each
 chunk's top-k are written); tensor-core versions (an int8 ``wgmma`` dot,
@@ -78,6 +91,7 @@ from pixelbox_tpu_torch.ops.distances import _f32, rsqrt_spec
 from pixelbox_tpu_torch.ops.packed import (
     PackedHammingIndex,
     PackedSemanticIndex,
+    query4_moments_from_u8,
     query_moments_from_u8,
 )
 
@@ -177,6 +191,10 @@ def _build_and_load() -> _Kernels:
     lib.px_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
     lib.px_hamming_chunk_topk.restype = ci
     lib.px_hamming_chunk_topk.argtypes = [vp, cf, vp, vp] + [ci] * 5 + [cf] + [ci] * 3 + [vp] * 3
+    lib.px_cosine4_collect.restype = ci
+    lib.px_cosine4_collect.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 4
+    lib.px_cosine4_chunk_topk.restype = ci
+    lib.px_cosine4_chunk_topk.argtypes = [vp] * 4 + [cf, vp, vp] + [ci] * 7 + [vp] * 3
     return _Kernels(lib, str(so), time.perf_counter() - t0, ptxas)
 
 
@@ -204,7 +222,9 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta):
+def _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=False):
+    """Checks the cosine kernels' inputs; ``packed``: int4 rows, uint8
+    [N, D/2], against int8 queries [Q, D]."""
     dev = data.device
     qn, d = q_codes.shape
     n = data.shape[0]
@@ -212,7 +232,12 @@ def _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta):
     _require(q_sum, "q_sum", torch.int32, (qn,), dev)
     _require(q_mag2, "q_mag2", torch.int32, (qn,), dev)
     _require(qr, "qr", torch.float32, (qn,), dev)
-    _require(data, "data", torch.int8, (n, d), dev)
+    if packed:
+        if d % 2:
+            raise ValueError(f"int4 rows pack two dims a byte; query width {d} is odd")
+        _require(data, "data", torch.uint8, (n, d // 2), dev)
+    else:
+        _require(data, "data", torch.int8, (n, d), dev)
     _require(meta, "meta", torch.int32, (4, n), dev)
     if data.data_ptr() % 16:
         raise ValueError("data must be 16-byte aligned")
@@ -228,6 +253,8 @@ LAUNCHES = {
     "lex_topk_segments": 0,
     "hamming_threshold_collect": 0,
     "hamming_chunk_topk": 0,
+    "cosine4_threshold_collect": 0,
+    "cosine4_chunk_topk": 0,
 }
 
 
@@ -242,13 +269,16 @@ def launch_counts() -> dict:
 
 # --------------------------------------------------------------------- #
 # Row meta: [4, N] int32 = [row_sum, mag2 (0 = invalid), bitcast f32
-# rsqrt_spec(mag2), pad] — the JAX package's layout (pallas_scan.py:94).
+# rsqrt_spec(mag2), pad] — the JAX package's layout (pallas_scan.py:94),
+# for the u8 and the int4 index alike (build_semantic4_meta).
 
 
-def build_row_meta(index: PackedSemanticIndex) -> torch.Tensor:
-    """[4, N] int32 kernel meta: row 0 = centered row sums; row 1 = row
-    mag2 with 0 marking invalid rows (real rows always have mag2 >= D > 0);
-    row 2 = per-row ``rsqrt_spec(mag2)`` f32 bits; row 3 = padding."""
+def build_row_meta(index) -> torch.Tensor:
+    """[4, N] int32 kernel meta of a PackedSemanticIndex or a
+    PackedSemantic4Index: row 0 = row sums (centered u8 codes, or the
+    4-bit codes); row 1 = row mag2 with 0 marking invalid rows (real rows
+    always have mag2 >= D > 0); row 2 = per-row ``rsqrt_spec(mag2)`` f32
+    bits; row 3 = padding."""
     mag2 = torch.where(index.valid, index.row_mag2, torch.zeros_like(index.row_mag2))
     rr = rsqrt_spec(mag2.to(torch.float32)).view(torch.int32)
     return torch.stack(
@@ -256,16 +286,51 @@ def build_row_meta(index: PackedSemanticIndex) -> torch.Tensor:
     ).to(torch.int32).contiguous()
 
 
+def _dot8(q_codes, rows_i8):
+    """Exact [Q, B] int32 code dot: a float64 matmul of int8 codes is exact
+    (|dot| < 2^53 for any realistic D)."""
+    return torch.matmul(q_codes.to(torch.float64), rows_i8.to(torch.float64).T).to(torch.int32)
+
+
+def unpack_u4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed int4 rows [..., D/2] uint8 → 4-bit codes [..., D] int8 (low
+    nibbles are dims 0..D/2-1, high nibbles D/2..D-1: ``ops/int4.py``'s
+    column-blocked layout)."""
+    return torch.cat([packed & 0xF, packed >> 4], dim=-1).to(torch.int8)
+
+
+def affine4(dot8, q_sum, row_sum, d: int, sym: bool):
+    """Exact int32 centered dot of the int4 metrics from the code dot
+    (``_kind_dist_tile``): symmetric (34·v4 − 255 both sides)
+    ``1156·dot8 − 8670·(q_sum + row_sum) + 65025·D``; asymmetric (u8
+    query 2u − 255, codes u − 128) ``68·dot8 + 34·row_sum − 510·q_sum −
+    255·D``.  [Q, B] from dot8 [Q, B], q_sum [Q], row_sum [B]."""
+    if sym:
+        return 1156 * dot8 - 8670 * (q_sum[:, None] + row_sum[None, :]) + 65025 * d
+    return 68 * dot8 + 34 * row_sum[None, :] - 510 * q_sum[:, None] - 255 * d
+
+
 def _tile_dist(q_codes, q_sum, q_mag2, qr, data, meta):
     """Plain [Q, B] spec-v2 distances + [1, B] validity of a row block —
     op for op the kernels' ``spec_dist`` (and ``_kind_dist_tile``)."""
-    dot8 = torch.matmul(
-        q_codes.to(torch.float64), data.to(torch.float64).T
-    ).to(torch.int32)                                   # exact: |dot| < 2^53
-    d = data.shape[1]
-    row_sum, row_mag2 = meta[0], meta[1]
+    dot8 = _dot8(q_codes, data)
+    dot_c = 4 * dot8 + 2 * (q_sum[:, None] + meta[0][None, :]) + data.shape[1]
+    return _spec_dist(dot_c, q_mag2, qr, meta)
+
+
+def _tile_dist4(q_codes, q_sum, q_mag2, qr, data, meta, sym: bool):
+    """:func:`_tile_dist` over packed int4 rows [B, D/2] (kinds cosine4 /
+    cosine4a): unpack, exact code dot, the int4 affine fix, the same
+    epilogue."""
+    dot8 = _dot8(q_codes, unpack_u4(data))
+    return _spec_dist(affine4(dot8, q_sum, meta[0], 2 * data.shape[1], sym), q_mag2, qr, meta)
+
+
+def _spec_dist(dot_c, q_mag2, qr, meta):
+    """The spec-v2 epilogue of [Q, B] exact centered dots: distances and
+    the [1, B] validity (row mag2 > 0)."""
+    row_mag2 = meta[1]
     rr = meta[2].contiguous().view(torch.float32)
-    dot_c = 4 * dot8 + 2 * (q_sum[:, None] + row_sum[None, :]) + d
     dot_f = dot_c.to(torch.float32)
     cos = dot_f * (qr[:, None] * rr[None, :])
     g = torch.maximum(cos, _f32(1e-6, cos))
@@ -389,8 +454,15 @@ def cosine_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, k: i
 
 def cosine_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, k):
     """Plain PyTorch version of K1b."""
-    dev = data.device
-    qn, n = q_codes.shape[0], data.shape[0]
+    return _chunk_topk_plain(
+        lambda lo, hi: _tile_dist(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi]),
+        q_codes.shape[0], data.shape[0], max_distance, k, data.device,
+    )
+
+
+def _chunk_topk_plain(tile, qn, n, max_distance, k, dev):
+    """The per-chunk top-k shared by the plain K1b and K4b: ``tile(lo, hi)``
+    gives a row block's [Q, B] distances and [1, B] validity."""
     n_chunks = -(-n // CHUNK_ROWS)
     kk = min(k, CHUNK_ROWS)
     out_d = torch.full((qn, n_chunks, k), float("inf"), dtype=torch.float32, device=dev)
@@ -399,9 +471,7 @@ def cosine_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta
     block = _PLAIN_BLOCK // CHUNK_ROWS * CHUNK_ROWS
     for start in range(0, n, block):
         end = min(n, start + block)
-        dist, valid = _tile_dist(
-            q_codes, q_sum, q_mag2, qr, data[start:end], meta[:, start:end]
-        )
+        dist, valid = tile(start, end)
         dist = torch.where(valid & (dist < md), dist, torch.full_like(dist, float("inf")))
         nc = -(-(end - start) // CHUNK_ROWS)
         pad = nc * CHUNK_ROWS - (end - start)
@@ -418,6 +488,99 @@ def cosine_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta
             torch.isfinite(d_s), rows, torch.full_like(rows, -1)
         ).to(torch.int32)
     return out_d, out_i
+
+
+# --------------------------------------------------------------------- #
+# K4a / K4b: K1a / K1b over packed int4 rows
+
+
+def cosine4_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, sym: bool, cap: int):
+    """K4a: :func:`cosine_threshold_collect` over packed int4 rows
+    ``data`` [N, D/2] uint8 against int8 queries [Q, D] — u8 − 128 codes
+    with u8 moments (``sym=False``, kind "cosine4a") or 4-bit codes with
+    int4 moments (``sym=True``, kind "cosine4").  Same outputs and
+    contract: exact count; slot order unspecified on the card, ascending
+    row id in the plain version.
+
+    Replaces ``pallas_scan.py:_threshold_kernel`` for the int4 kinds, as
+    ``int4.py:pallas_threshold4_scan_topk`` launched it (θ stage and main
+    pass).  On the card: K1a's dot over half the row bytes, each packed
+    word unpacked in registers into two ``__dp4a`` operands — the same
+    integer-ALU bound as K1a at Q >= 32, half its HBM reads below.
+    """
+    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
+    _require(theta, "theta", torch.float32, (qn,), dev)
+    if dev.type != "cuda":
+        return cosine4_threshold_collect_plain(
+            q_codes, q_sum, q_mag2, qr, theta, data, meta, sym, cap
+        )
+    if _COLLECT_Q * d > 48 * 1024:
+        raise ValueError(f"dim {d} too wide for cosine4_threshold_collect")
+    kern = load_kernels()
+    count = torch.zeros(qn, dtype=torch.int32, device=dev)
+    cand_d = torch.empty((qn, cap), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
+    q_mag2f = q_mag2.to(torch.float32)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_cosine4_collect(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), _ptr(theta),
+            _ptr(data), _ptr(meta), qn, n, d, int(sym), cap,
+            _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
+        )
+    _check(rc, "cosine4_threshold_collect")
+    LAUNCHES["cosine4_threshold_collect"] += 1
+    return count, cand_d, cand_i
+
+
+def cosine4_threshold_collect_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, sym, cap):
+    """Plain PyTorch version of K4a (collects in ascending row order)."""
+    return _collect_plain(
+        lambda lo, hi: _tile_dist4(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi], sym),
+        q_codes.shape[0], data.shape[0], theta, cap, _PLAIN_BLOCK,
+    )
+
+
+def cosine4_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym: bool, k: int):
+    """K4b: :func:`cosine_chunk_topk` over packed int4 rows (arguments as
+    :func:`cosine4_threshold_collect`): per row chunk of
+    :data:`CHUNK_ROWS`, the exact top-k by (dist, id) of {valid rows with
+    dist < max_distance}; ([Q, n_chunks, k] f32, [Q, n_chunks, k] i32),
+    missing entries +inf / -1.
+
+    The exact int4 scan behind the repair, the small-index gate and the
+    duplicate scans, where the JAX package ran its XLA
+    ``cosine4(a)_scan_topk``.  Bound on the card like K1b: the dot, and
+    the shared-memory bitonic sort of each 1024-row chunk (4 queries a
+    block).
+    """
+    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
+    md = float(np.float32(max_distance))
+    if dev.type != "cuda":
+        return cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, md, data, meta, sym, k)
+    if k > MAX_K:
+        raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
+    kern = load_kernels()
+    n_chunks = -(-n // CHUNK_ROWS)
+    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
+    q_mag2f = q_mag2.to(torch.float32)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_cosine4_chunk_topk(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), md,
+            _ptr(data), _ptr(meta), qn, n, d, int(sym), CHUNK_ROWS, k, n_chunks,
+            _ptr(out_d), _ptr(out_i), _stream(dev),
+        )
+    _check(rc, "cosine4_chunk_topk")
+    LAUNCHES["cosine4_chunk_topk"] += 1
+    return out_d, out_i
+
+
+def cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym, k):
+    """Plain PyTorch version of K4b."""
+    return _chunk_topk_plain(
+        lambda lo, hi: _tile_dist4(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi], sym),
+        q_codes.shape[0], data.shape[0], max_distance, k, data.device,
+    )
 
 
 # --------------------------------------------------------------------- #
@@ -453,10 +616,10 @@ def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
     _require(idx, "idx", torch.int32, (qn, m), dev)
     if lens is not None:
         _require(lens, "lens", torch.int32, (qn,), dev)
+    if k > segment // 2:  # each pass must shrink the pool (lex_topk's loop)
+        raise ValueError(f"k={k} exceeds half the segment ({segment})")
     if dev.type != "cuda":
         return lex_topk_segments_plain(dist, idx, k, lens, segment)
-    if k > segment // 2:
-        raise ValueError(f"k={k} exceeds half the segment ({segment})")
     kern = load_kernels()
     n_seg = -(-m // segment)
     out_d = torch.empty((qn, n_seg, k), dtype=torch.float32, device=dev)
@@ -678,13 +841,13 @@ def hamming_chunk_topk_plain(q, max_distance, data, meta, byte_limit, wrap_u8, k
 
 
 # --------------------------------------------------------------------- #
-# The two kinds: what the shared θ estimate, main pass and exact scan
-# need from each (a distance tile for the mini-sample, the collect and
-# chunk kernels, the θ widening).
+# The kinds: what the shared θ estimate, main pass and exact scan need
+# from each (a distance tile for the mini-sample, the collect and chunk
+# kernels, the θ widening).
 
 
-def _prep(query_u8: torch.Tensor):
-    q_codes, q_sum, q_mag2 = query_moments_from_u8(query_u8)
+def _prep(query_u8: torch.Tensor, moments=query_moments_from_u8):
+    q_codes, q_sum, q_mag2 = moments(query_u8)
     qr = rsqrt_spec(q_mag2.to(torch.float32))
     return q_codes.contiguous(), q_sum.contiguous(), q_mag2.contiguous(), qr
 
@@ -716,6 +879,51 @@ class CosineQueries(NamedTuple):
 
     def widen(self, theta):
         return theta
+
+
+class Int4Queries(NamedTuple):
+    """u8 queries prepared for the int4 kernels K4a/K4b (the JAX
+    ``_prep_cosine`` / ``_prep_cosine4``): ``mode="asym"`` keeps the u8
+    codes and moments against the 4-bit rows (kind "cosine4a"),
+    ``mode="sym"`` quantizes the queries to 4 bits too (kind "cosine4")."""
+
+    q_codes: torch.Tensor
+    q_sum: torch.Tensor
+    q_mag2: torch.Tensor
+    qr: torch.Tensor
+    mode: str
+
+    @classmethod
+    def from_u8(cls, query_u8: torch.Tensor, mode: str = "asym") -> "Int4Queries":
+        if mode not in ("asym", "sym"):
+            raise ValueError(f"int4 query_mode must be 'asym' or 'sym', got {mode!r}")
+        moments = query4_moments_from_u8 if mode == "sym" else query_moments_from_u8
+        return cls(*_prep(query_u8, moments), mode)
+
+    @property
+    def sym(self) -> bool:
+        return self.mode == "sym"
+
+    def dist(self, data, meta):
+        return _tile_dist4(self.q_codes, self.q_sum, self.q_mag2, self.qr, data, meta, self.sym)
+
+    def collect(self, theta, data, meta, cap):
+        return cosine4_threshold_collect(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta, self.sym, cap
+        )
+
+    def chunk_topk(self, max_distance, data, meta, k):
+        return cosine4_chunk_topk(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, max_distance, data, meta, self.sym, k
+        )
+
+    def widen(self, theta):
+        """One ulp up: ``dist < θ'`` ⟺ ``dist <= θ``.  The 4-bit grid makes
+        tie plateaus likely (both sides 4-bit under "sym"); a strict θ on
+        the sample's j-th value would leave that whole plateau out and the
+        proof fail.  Sound for any θ' ≥ θ: the proof reads the exact count
+        of rows under the θ actually used."""
+        return torch.nextafter(theta, torch.full_like(theta, float("inf")))
 
 
 class HammingQueries(NamedTuple):
@@ -754,7 +962,7 @@ class HammingQueries(NamedTuple):
 
 
 # --------------------------------------------------------------------- #
-# θ estimate, the main pass and the exact scan (one code path, both kinds)
+# θ estimate, the main pass and the exact scan (one code path, every kind)
 
 
 def sample_theta(qk, smp, max_distance, j: int):
@@ -764,9 +972,10 @@ def sample_theta(qk, smp, max_distance, j: int):
 
     1. θ0 from a 1/16 mini-subsample in plain torch (~4j mini rows' worth,
        floor 8);
-    2. K1a/K2a + K1c over the FULL sample: the exact top-j of {dist < θ0}.
+    2. K1a/K4a/K2a + K1c over the FULL sample: the exact top-j of {dist < θ0}.
 
-    ``qk`` is a :class:`CosineQueries` or :class:`HammingQueries`;
+    ``qk`` is a :class:`CosineQueries`, :class:`Int4Queries` or
+    :class:`HammingQueries`;
     ``smp`` an ``ops.scan.ScanSample`` (contiguous ``data`` and its
     kernel ``meta``, the index's layouts).
 
@@ -808,8 +1017,8 @@ def _as_queries(query_u8, device) -> Tuple[torch.Tensor, bool]:
 
 
 def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap):
-    """The main pass shared by both kinds: θ from the sample (widened by
-    the kind), K1a/K2a over every row, K1c over the buffer, and the proof.
+    """The main pass shared by every kind: θ from the sample (widened by
+    the kind), K1a/K4a/K2a over every row, K1c over the buffer, and the proof.
     Returns (dist [Q,k], idx [Q,k], exact [Q])."""
     n_pad = data.shape[0]
     md = _f32(max_distance, data)
@@ -829,7 +1038,7 @@ def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap):
 
 
 def _exact_scan(qk, qn, data, meta, k, max_distance):
-    """K1b/K2b + K1c: the exact top-k of ``WHERE dist < max_distance``."""
+    """K1b/K4b/K2b + K1c: the exact top-k of ``WHERE dist < max_distance``."""
     part_d, part_i = qk.chunk_topk(max_distance, data, meta, k)
     return lex_topk(part_d.reshape(qn, -1), part_i.reshape(qn, -1), k)
 
@@ -883,6 +1092,53 @@ def fused_cosine_scan_topk(
     out = _exact_scan(
         CosineQueries.from_u8(q), q.shape[0], index.data, row_meta, k, max_distance
     )
+    return _squeezed(out, squeeze)
+
+
+def _int4_queries(query_u8, index, query_mode):
+    q, squeeze = _as_queries(query_u8, index.device)
+    if q.shape[1] != index.dim:
+        raise ValueError(f"query width {q.shape[1]} != index dim {index.dim}")
+    return Int4Queries.from_u8(q, query_mode), squeeze
+
+
+def fused_threshold4_scan_topk(
+    query_u8,
+    index,
+    row_meta: torch.Tensor,
+    smp,
+    k: int = 100,
+    max_distance: float = 1e3,
+    target_count: Optional[int] = None,
+    cap: Optional[int] = None,
+    query_mode: str = "asym",
+):
+    """Batched guaranteed-verifiable int4 threshold scan over a
+    ``PackedSemantic4Index`` — the port of
+    ``int4.py:pallas_threshold4_scan_topk``: K4a + K1c at every batch size,
+    with the cosine scan's θ estimate (over the packed ``smp``) and proof.
+    ``row_meta`` is ``build_semantic4_meta``.  ``query_mode="asym"`` (u8
+    queries, kind "cosine4a") or ``"sym"`` (4-bit queries, kind
+    "cosine4").  Returns (dist [Q,k], idx [Q,k], exact [Q]); repair the
+    unproven queries with :func:`fused_cosine4_scan_topk`."""
+    qk, squeeze = _int4_queries(query_u8, index, query_mode)
+    out = _threshold_scan(qk, index.data, row_meta, smp, k, max_distance, target_count, cap)
+    return _squeezed(out, squeeze)
+
+
+def fused_cosine4_scan_topk(
+    query_u8,
+    index,
+    row_meta: torch.Tensor,
+    k: int = 100,
+    max_distance: float = 1e3,
+    query_mode: str = "asym",
+):
+    """Exact int4 top-k of ``WHERE dist < max_distance`` (K4b + K1c) — the
+    int4 auto path's repair and small-index scan, equal to
+    ``ops.int4.cosine4a_scan_topk`` (asym) / ``cosine4_scan_topk`` (sym)."""
+    qk, squeeze = _int4_queries(query_u8, index, query_mode)
+    out = _exact_scan(qk, qk.q_codes.shape[0], index.data, row_meta, k, max_distance)
     return _squeezed(out, squeeze)
 
 

@@ -84,3 +84,13 @@ def query_moments_from_u8(q_u8: torch.Tensor):
     centered = 2 * q - 255
     q_mag2 = torch.sum(centered * centered, dim=-1, dtype=torch.int32)
     return q_i8, q_sum, q_mag2
+
+
+def query4_moments_from_u8(q_u8: torch.Tensor):
+    """The int4 twin (``ops/int4.py``'s symmetric metric): u8 [Q, D] →
+    (4-bit codes v4 = round(15·q/255) as int8, Σ v4, Σ (34·v4 − 255)²)."""
+    v = (torch.as_tensor(q_u8).to(torch.int32) * 15 + 127) // 255
+    q_sum = torch.sum(v, dim=-1, dtype=torch.int32)
+    c = 34 * v - 255
+    q_mag2 = torch.sum(c * c, dim=-1, dtype=torch.int32)
+    return v.to(torch.int8), q_sum, q_mag2

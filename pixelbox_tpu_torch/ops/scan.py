@@ -103,18 +103,17 @@ def cosine_scan_topk(
 class ScanSample(NamedTuple):
     """Strided row subsample of a packed index (θ estimation): a
     contiguous copy of its rows (the kernels read them densely) and their
-    kernel meta — for a PackedSemanticIndex the [4, S] int32 layout of
+    kernel meta — for a PackedSemanticIndex or an ops.int4
+    PackedSemantic4Index (rows stay packed) the [4, S] int32 layout of
     fused_scan.build_row_meta (row sums, and mag2 = 0 for invalid rows);
     for a PackedHammingIndex the uint8 [S] row mask of
     fused_scan.build_hamming_meta."""
 
-    data: torch.Tensor      # int8 [S, D] | uint8 [S, H]
+    data: torch.Tensor      # int8 [S, D] | uint8 [S, D/2] | uint8 [S, H]
     meta: torch.Tensor      # int32 [4, S] | uint8 [S]
 
 
-def build_scan_sample(
-    index: PackedSemanticIndex, sample_rows: Optional[int] = None
-) -> ScanSample:
+def build_scan_sample(index, sample_rows: Optional[int] = None) -> ScanSample:
     """Derive the strided sample (cache it alongside the index; engines
     key it on the store's mutation counter).  ``sample_rows`` defaults to
     65536 (PIXELBOX_SCAN_SAMPLE_ROWS overrides); θ only gates candidate
@@ -125,7 +124,7 @@ def build_scan_sample(
     stride = 1
     while stride * 2 <= max(1, cap // sample_rows) and cap % (stride * 2) == 0:
         stride *= 2
-    sub = PackedSemanticIndex(*(x[::stride].contiguous() for x in index))
+    sub = type(index)(*(x[::stride].contiguous() for x in index))
     return ScanSample(sub.data, build_row_meta(sub))
 
 

@@ -6,8 +6,10 @@ affordance is manual per-image "find similar", search.rs:100): unique
 near pairs under a strict distance cutoff, plus transitive groups.
 ``by="phash"`` runs the guaranteed-exact Hamming scan (uniform widths) or
 the exact per-width-group scan (compat libraries); ``by="semantic"`` the
-guaranteed-exact cosine scan.  int4 precision and mesh serving are not
-yet ported.  Mixed into :class:`pixelbox_tpu_torch.engine.Engine`.
+guaranteed-exact cosine scan — on an int4 library the int4 scan, its
+candidates rescored with the exact u8 metric when ``int4_rerank`` is on.
+Mesh serving is not yet ported.  Mixed into
+:class:`pixelbox_tpu_torch.engine.Engine`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import List
 import numpy as np
 import torch
 
+from pixelbox_tpu_torch.ops.int4 import cosine4_scan_topk_auto
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.timing import timed
@@ -37,7 +40,8 @@ class DuplicateFinding:
         ``by="phash"``: normalized Hamming over perceptual hashes with
         strict ``dist < max_distance`` (default 0.1 ≈ under 26 of 256
         bits differing).  ``by="semantic"``: reciprocal-cosine over the
-        semantic index (guaranteed-exact auto scan).
+        semantic index (guaranteed-exact auto scan; honors the
+        library's int4 precision).
 
         Returns unique ``(id_a, id_b, dist)`` with ``id_a < id_b``,
         sorted by (dist, id_a, id_b).  Each image contributes at most
@@ -95,11 +99,29 @@ class DuplicateFinding:
                         return d.cpu().numpy(), i.cpu().numpy()
 
                     groups.append((rows, scan))
-        else:
-            if self.semantic_precision != "int8":
-                raise NotImplementedError(
-                    "int4 duplicate scans are not yet ported to pixelbox_tpu_torch"
+        elif self.semantic_precision == "int4":
+            index = store.device_index
+
+            def base_scan(qb, c, md):
+                return cosine4_scan_topk_auto(
+                    torch.from_numpy(qb), index, k=c, max_distance=md,
+                    sample=self._get_scan_sample(), meta=self._get_row_meta(),
                 )
+
+            if self.int4_rerank:
+                # Candidates in the int4 metric (unbounded), pair distances
+                # in the exact u8 metric — the distances int8 mode reports.
+                def scan(qb):
+                    return self._int4_scan_rerank(
+                        lambda c, md: base_scan(qb, c, md), qb, k, max_distance
+                    )
+            else:
+                def scan(qb):
+                    d, i = base_scan(qb, k, max_distance)
+                    return d.cpu().numpy(), i.cpu().numpy()
+
+            groups.append((live_rows, scan))
+        else:
             index = store.device_index
 
             def scan(qb):

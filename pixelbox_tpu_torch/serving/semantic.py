@@ -10,10 +10,18 @@ Scan-mode dispatch (reference engine.rs:352-396):
 - ``exact``: the blocked exact scan (plain PyTorch);
 - ``pallas``: the fused exact kernel scan (``fused_cosine_scan_topk``) —
   the flag keeps its name;
-- ``ivf``, int4 precision and mesh serving raise NotImplementedError.
+- ``ivf`` and mesh serving raise NotImplementedError.
 
-Caches the row meta and the θ sample per store version, as the JAX
-package does.  Mixed into :class:`pixelbox_tpu_torch.engine.Engine`;
+An int4 library (``semantic_precision="int4"``, the ``semantic4`` store)
+scans in the asymmetric int4 metric: ``exact`` → the plain
+``ops.int4.cosine4a_scan_topk``; ``auto``/``fast``/``pallas`` →
+``ops.int4.cosine4_scan_topk_auto`` (kernels K4a/K4b + K1c).  With
+``int4_rerank`` on (the default) the scan retrieves the top
+``default_rerank_candidates(k)`` unbounded and ``scan_with_u8_rerank``
+rescores them with the exact u8 metric from the store's host mirror.
+
+Caches the row meta and the θ sample per store kind and version, as the
+JAX package does per version.  Mixed into :class:`pixelbox_tpu_torch.engine.Engine`;
 state lives on the engine.
 """
 
@@ -26,6 +34,11 @@ import numpy as np
 import torch
 
 from pixelbox_tpu_torch.ops.fused_scan import build_row_meta, fused_cosine_scan_topk
+from pixelbox_tpu_torch.ops.int4 import (
+    cosine4_scan_topk_auto,
+    cosine4a_scan_topk,
+    scan_with_u8_rerank,
+)
 from pixelbox_tpu_torch.ops.scan import (
     DEFAULT_BLOCK_ROWS,
     build_scan_sample,
@@ -40,11 +53,16 @@ SCAN_MODES = ("auto", "exact", "fast", "pallas")
 
 
 class SemanticServing:
+    def _sem_cache_key(self):
+        """What the cached meta and sample are valid for: the store's kind
+        (its row layout) and its mutation counter."""
+        return (self._sem_store.kind, self._sem_store.version)
+
     def _get_row_meta(self) -> torch.Tensor:
         """Cached [4, N] row meta for the scan kernels."""
-        if self._row_meta is None or self._row_meta_at_ver != self._sem_store.version:
+        if self._row_meta is None or self._row_meta_at_ver != self._sem_cache_key():
             self._row_meta = build_row_meta(self._sem_store.device_index)
-            self._row_meta_at_ver = self._sem_store.version
+            self._row_meta_at_ver = self._sem_cache_key()
         return self._row_meta
 
     def _get_scan_sample(self):
@@ -53,9 +71,9 @@ class SemanticServing:
         index = self._sem_store.device_index
         if index.capacity <= 4 * DEFAULT_BLOCK_ROWS:
             return None
-        if self._scan_sample is None or self._scan_sample_at_ver != self._sem_store.version:
+        if self._scan_sample is None or self._scan_sample_at_ver != self._sem_cache_key():
             self._scan_sample = build_scan_sample(index)
-            self._scan_sample_at_ver = self._sem_store.version
+            self._scan_sample_at_ver = self._sem_cache_key()
         return self._scan_sample
 
     # ------------------------------------------------------------------ #
@@ -101,14 +119,26 @@ class SemanticServing:
 
     def similarity_scan(self, visual_hash, k: int, max_distance: float):
         """One query hash → (dist [k] f32, idx [k] i32) tensors under the
-        engine's scan mode."""
+        engine's scan mode, in the index's own metric (an int4 library:
+        the asymmetric int4 metric, before any rerank)."""
         if self.scan_mode not in SCAN_MODES:
             raise NotImplementedError(
                 f"scan mode {self.scan_mode!r} is not yet ported to "
                 f"pixelbox_tpu_torch (ported: {', '.join(SCAN_MODES)})"
             )
+        if self.scan_mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded semantic scans are not yet ported to pixelbox_tpu_torch"
+            )
         index = self._sem_store.device_index
         q = torch.as_tensor(np.asarray(visual_hash, dtype=np.uint8)).to(index.device)
+        if self.semantic_precision == "int4":
+            if self.scan_mode == "exact":
+                return cosine4a_scan_topk(q, index, k=k, max_distance=max_distance)
+            return cosine4_scan_topk_auto(
+                q, index, k=k, max_distance=max_distance,
+                sample=self._get_scan_sample(), meta=self._get_row_meta(),
+            )
         if self.scan_mode == "exact":
             return cosine_scan_topk(q, index, k=k, max_distance=max_distance)
         if self.scan_mode == "pallas":
@@ -131,14 +161,37 @@ class SemanticServing:
             return
         t0 = time.perf_counter()
         k = int(self.max_search_results)
+        md = float(self.max_distance_from_query)
         with timed("engine.similarity_scan"):
-            dist, idx = self.similarity_scan(
-                record.visual_hash, k, float(self.max_distance_from_query)
-            )
-            dist = dist.cpu().numpy()
-            idx = idx.cpu().numpy()
+            if self.semantic_precision == "int4" and self.int4_rerank:
+                dist, idx = self._int4_scan_rerank(
+                    lambda c, cmd: self.similarity_scan(record.visual_hash, c, cmd),
+                    record.visual_hash, k, md,
+                )
+            else:
+                dist, idx = self.similarity_scan(record.visual_hash, k, md)
+                dist = dist.cpu().numpy()
+                idx = idx.cpu().numpy()
         keep = idx >= 0
         with timed("engine.build_results"):
             self._cached_search_results = self._build_results(idx[keep], dist[keep])
         n = len(self._cached_search_results)
         print(f"Time to search DB: {time.perf_counter()-t0:.3f}s  Results: {n}", file=sys.stderr)
+
+    def _int4_scan_rerank(self, scan, query_u8, k: int, max_distance: float):
+        """int4 candidates, then the exact-u8 rescore (``ops.int4.
+        scan_with_u8_rerank``): ``scan(c, md)`` gives the int4 scan's
+        (dist, idx) tensors.  Spans: ``engine.int4_scan`` covers the
+        candidate scan, ``engine.int4_scan_rerank`` the scan and the host
+        rescore together.  Returns host (dist [.., k] f32, idx int64)."""
+
+        def candidates(c, cmd):
+            with timed("engine.int4_scan"):
+                d, i = scan(c, cmd)
+                return d.cpu().numpy(), i.cpu().numpy()
+
+        with timed("engine.int4_scan_rerank"):
+            return scan_with_u8_rerank(
+                candidates, np.asarray(query_u8, dtype=np.uint8),
+                self._sem_store._host_rows, k=k, max_distance=max_distance,
+            )

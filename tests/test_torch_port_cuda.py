@@ -14,6 +14,7 @@ import torch
 
 from pixelbox_tpu_torch.ops import fused_scan as fs
 from pixelbox_tpu_torch.ops import hamming_gemm as hg
+from pixelbox_tpu_torch.ops import int4
 from pixelbox_tpu_torch.ops import scan as tscan
 from pixelbox_tpu_torch.ops.oracle import quantize_embedding_np
 from pixelbox_tpu_torch.ops.packed import (
@@ -142,3 +143,56 @@ def test_hamming_main_path_goes_through_the_kernels():
     exact = hg.hamming_gemm_scan_topk(q, idx, k=100)
     assert fs.launch_counts()["hamming_chunk_topk"] > 0
     assert torch.equal(exact[0].cpu(), want[0]) and torch.equal(exact[1].cpu(), want[1])
+
+
+def _int4_index(n, d, seed, dev):
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((64, d)).astype(np.float32)
+    x = c[rng.integers(0, 64, n)] + 0.35 * rng.standard_normal((n, d)).astype(np.float32)
+    db = quantize_embedding_np(np.tanh(x))
+    idx = int4.build_semantic4_index(db, block_rows=1024, device=dev)
+    valid = torch.from_numpy(rng.uniform(size=idx.capacity) > 0.01).to(dev) & idx.valid
+    q = db[rng.integers(0, n, 40)]
+    q[3] = db[11]
+    return idx._replace(valid=valid), torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+@pytest.mark.parametrize("dim", [36, 40, 128], ids=["d36_bytes", "d40_words", "d128_vec16"])
+def test_int4_kernels_match_plain(dim, mode):
+    dev = _card()
+    idx, q = _int4_index(65536, dim, seed=dim, dev=dev)
+    meta = int4.build_semantic4_meta(idx)
+    qk = fs.Int4Queries.from_u8(q, mode)
+    args = (qk.q_codes, qk.q_sum, qk.q_mag2, qk.qr)
+    for k in (50, 400):
+        got = fs.cosine4_chunk_topk(*args, 1e3, idx.data, meta, qk.sym, k)
+        want = fs.cosine4_chunk_topk_plain(*args, 1e3, idx.data, meta, qk.sym, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    theta = torch.full((40,), 0.2, device=dev)
+    c1, d1, i1 = fs.cosine4_threshold_collect(*args, theta, idx.data, meta, qk.sym, 4096)
+    c2, d2, i2 = fs.cosine4_threshold_collect_plain(*args, theta, idx.data, meta, qk.sym, 4096)
+    assert torch.equal(c1, c2)
+    lens = torch.clamp(c1, max=4096)
+    s1 = fs.lex_topk_segments_plain(d1, i1, 4096, lens, segment=4096)
+    s2 = fs.lex_topk_segments_plain(d2, i2, 4096, lens, segment=4096)
+    ok = c1 <= 4096
+    assert torch.equal(s1[0][ok], s2[0][ok]) and torch.equal(s1[1][ok], s2[1][ok])
+
+
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+def test_int4_main_path_goes_through_the_kernels(mode):
+    dev = _card()
+    idx, q = _int4_index(262144, 128, seed=5, dev=dev)
+    fs.reset_launch_counts()
+    got = int4.cosine4_scan_topk_auto(q, idx, k=400, max_distance=int4.UNBOUNDED_DISTANCE, query_mode=mode)
+    counts = fs.launch_counts()
+    assert counts["cosine4_threshold_collect"] > 0 and counts["lex_topk_segments"] > 0
+    cpu = int4.PackedSemantic4Index(*(t.cpu() for t in idx))
+    exact = int4.cosine4a_scan_topk if mode == "asym" else int4.cosine4_scan_topk
+    want = exact(q.cpu(), cpu, k=400, max_distance=int4.UNBOUNDED_DISTANCE)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    fused = fs.fused_cosine4_scan_topk(q, idx, int4.build_semantic4_meta(idx), k=100, query_mode=mode)
+    assert fs.launch_counts()["cosine4_chunk_topk"] > 0
+    want = exact(q.cpu(), cpu, k=100)
+    assert torch.equal(fused[0].cpu(), want[0]) and torch.equal(fused[1].cpu(), want[1])
