@@ -35,7 +35,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    tombstones, and a tie flood that must be repaired.  Every launch is
    replayed bit-identical through its plain version; end results must
    equal the plain exact scan, and the numpy oracle on one query per case
-   and mode; the proof rate is printed per Q.
+   and mode; the proof rate is printed per Q.  At k = 400, Q ∈ {1, 8,
+   256} the cos-key pass (K4d + K1e) runs too, with the same checks; K4d
+   is timed against K4a in turns, and the whole auto scan (asym, k = 400)
+   with ``epilogue="dist"`` against ``"cos"`` at the batching service's
+   buckets 1/8/32/128/256.
+3e. The cos-key kernels (K1d, K1e) inside phase 3's loop: in every case
+   with a threshold pass, ``cosine_scan_topk_auto(epilogue="cos")`` at
+   Q ∈ {1, 8, 256}, every launch replayed bit-identical, the results equal
+   to ``epilogue="dist"``, the exact scan and the oracle; the proof rate
+   per Q; K1d timed against K1a in turns, and K1e; the whole auto scan
+   with ``epilogue="dist"`` against ``"cos"`` at the batching service's
+   buckets 1/8/32/128/256, in turns.
 4. Engine: indexes 32 seeded images with EfficientNet-B0 at 224²/dim 128
    from a seeded checkpoint (then 64 more, warm), checks the exact-0.0
    self-match, grows the store to 1,048,576 rows with seeded hash-only
@@ -59,6 +70,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    with the rerank off against the numpy oracle; ``duplicates`` by
    semantic over a 65,536-row int4 library (a cut of the 1M library)
    with its scan and rerank timed apart — counting launches from zero.
+7. Serving: phase 4's 1M-row engine behind the port's HTTP server
+   (``serve.make_server`` on 127.0.0.1:0, its batching service warmed at
+   every bucket) and phase 5's 1M-row phash library behind its own:
+   one concurrent burst of 64 ``GET /api/similar?id=``, 16 ``POST
+   /api/similar`` and 16 ``POST /api/phash-similar``, every response
+   equal to the engine's direct call; then ``/api/tag`` → ``search
+   tag:``, ``/api/remove`` of a top hit and an append of 1,024 seeded rows,
+   which a second burst must see; a full bucket (256 concurrent submits,
+   the batches the cos key serves) straight into the service against its
+   dist-path scan; then a burst and a full bucket on phase 6's int4 engine
+   (rerank on) — counting launches from zero around each burst.
 
 The last lines are the card's nvidia-smi line, the kernels' JSON summary
 (time, plain time, bound, library time per kernel) and
@@ -82,6 +104,7 @@ K = 100
 QS = (1, 8, 256)
 PH_QS = (1, 8, 256, 2048)
 MAIN_Q = 256   # the main pass's timed batch
+SERVICE_BUCKETS = (1, 8, 32, 128, 256)  # serving/service.py's batch shapes
 REPAIR_Q = 8   # a repair bucket
 BIG_Q = 2048   # past the JAX package's carry kernels (buffer select)
 FLOOD = (123456, 600000, 8192)  # tie flood: source row, first copy, copies
@@ -93,6 +116,7 @@ INT8_OPS = 1979e12
 F32_OPS = 67e12
 INT4_KS = (100, 400)   # k = 100, and C = 400 candidates of the exact-u8 rerank
 INT4_DUP_ROWS = 1 << 16  # the int4 duplicates library: a cut of the 1M one
+APPEND_ROWS = 1024       # phase 7's append between its two bursts
 
 
 def log(msg: str) -> None:
@@ -175,13 +199,14 @@ def oracle_topk(q, db, valid, k, md):
 
 
 class Recorder:
-    """Wraps the seven kernel wrappers of ops.fused_scan; records inputs
-    and outputs so each call can be replayed through its plain version."""
+    """Wraps the kernel wrappers of ops.fused_scan; records inputs and
+    outputs so each call can be replayed through its plain version."""
 
     NAMES = (
         "cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments",
         "hamming_threshold_collect", "hamming_chunk_topk",
         "cosine4_threshold_collect", "cosine4_chunk_topk",
+        "cosine_coskey_collect", "cosine4_coskey_collect", "coskey_rescore",
     )
 
     def __init__(self, fs):
@@ -213,7 +238,11 @@ def replay(fs, call):
     import torch
 
     name, args, kwargs, out = call
-    if name.endswith("threshold_collect"):
+    if name == "coskey_rescore":
+        d2 = fs.coskey_rescore_plain(*args)
+        check(torch.equal(out, d2), "coskey_rescore differs from plain")
+        a, b = out, d2
+    elif name.endswith("collect"):
         cap = args[-1]
         c2, d2, i2 = getattr(fs, name + "_plain")(*args)
         c1, d1, i1 = out
@@ -256,6 +285,53 @@ def median_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def interleaved_ms(fns, reps=10):
+    """Medians of CUDA-event times of each function, run in turns (one of
+    each per round) so that clock and neighbour drift hit them alike."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for j, f in enumerate(fns):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            f()
+            e.record()
+            torch.cuda.synchronize()
+            times[j].append(s.elapsed_time(e))
+    return [statistics.median(t) for t in times]
+
+
+def ab_collect(fs, a_call, b_call, smi, tag, reps=20):
+    """K1a/K4a (``a_call``) against K1d/K4d (``b_call``) on the same
+    queries and rows, in turns; logs and returns (a_ms, b_ms)."""
+    fa, fb = getattr(fs, a_call[0]), getattr(fs, b_call[0])
+    a_ms, b_ms = interleaved_ms([lambda: fa(*a_call[1]), lambda: fb(*b_call[1])], reps)
+    qn = a_call[1][0].shape[0]
+    log(f"{tag} A/B in turns, Q={qn}: {a_call[0]} {a_ms:.4f} ms, {b_call[0]} {b_ms:.4f} ms "
+        f"({b_ms / a_ms:.3f}x; median of {reps} each, CUDA events; {smi})")
+    return a_ms, b_ms
+
+
+def ab_auto_buckets(auto, queries, smi, tag, reps=30):
+    """The guaranteed-exact auto scan with ``epilogue="dist"`` against
+    ``"cos"`` at each of the batching service's buckets, in turns: CUDA
+    events around the whole call (launches, host syncs and any repair
+    included).  Returns {Q: (dist_ms, cos_ms)}."""
+    out = {}
+    for qn in SERVICE_BUCKETS:
+        q = queries[:qn]
+        out[qn] = interleaved_ms([lambda: auto(q, "dist"), lambda: auto(q, "cos")], reps)
+        d_ms, c_ms = out[qn]
+        log(f"{tag} auto dist vs cos in turns, Q={qn}: {d_ms:.4f} / {c_ms:.4f} ms "
+            f"({c_ms / d_ms:.3f}x; median of {reps} each; {smi})")
+    return out
+
+
 def phase_kernels(fs, scan, smi, err):
     import numpy as np
     import torch
@@ -288,6 +364,7 @@ def phase_kernels(fs, scan, smi, err):
     cases.append(("tie_flood", db_flood, valid_all, flood_q, 1e3, "both"))
 
     timed_calls = {}
+    proof_cos = {}
     for name, rows, valid, queries, md, which in cases:
         data, rsum, rmag2 = semantic_rows_from_u8(rows)
         idx = PackedSemanticIndex(*(torch.from_numpy(x).to(dev) for x in (data, rsum, rmag2, valid)))
@@ -307,6 +384,16 @@ def phase_kernels(fs, scan, smi, err):
                     results.append(("auto", *scan.cosine_scan_topk_auto(
                         q, idx, k=K, max_distance=md, sample=smp, row_meta=meta)))
                     n_exact = int(exact.sum())
+                    # [3e] the cos-key pass (K1d + K1e) on the same inputs
+                    cd, ci, cex = fs.fused_threshold_scan_topk(
+                        q, idx, meta, smp, k=K, max_distance=md, epilogue="cos")
+                    check(torch.equal(cd[cex], ex_d[cex]) and torch.equal(ci[cex], ex_i[cex]),
+                          f"{name}: a query the cos-key pass flagged exact differs from the exact scan")
+                    results.append(("auto_cos", *scan.cosine_scan_topk_auto(
+                        q, idx, k=K, max_distance=md, sample=smp, row_meta=meta, epilogue="cos")))
+                    n_cos = int(cex.sum())
+                    if name != "tie_flood":
+                        proof_cos.setdefault(qn, []).append(n_cos)
                 if which in ("fused", "both"):
                     results.append(("fused", *fs.fused_cosine_scan_topk(q, idx, meta, k=K, max_distance=md)))
                 torch.cuda.synchronize()
@@ -324,14 +411,19 @@ def phase_kernels(fs, scan, smi, err):
                         check(np.array_equal(d[qrow].cpu().numpy(), od[r])
                               and np.array_equal(i[qrow].cpu().numpy(), oi[r]),
                               f"{name}/{label}: differs from the numpy oracle (query {qrow})")
-            extra = f", proven {n_exact}/{qn}" if which in ("auto", "both") else ""
+            extra = (f", proven {n_exact}/{qn} (cos key {n_cos}/{qn})"
+                     if which in ("auto", "both") else "")
             log(f"[3] {name} Q={qn}: {len(rec.calls)} kernel calls replayed bit-identical; "
                 f"= exact scan and oracle{extra}")
             if name == "tie_flood" and qn >= 1:
                 fi = i[0].cpu().numpy()
                 flood_ids = np.concatenate([[flood_row], np.arange(flood_at, flood_at + K - 1)])
                 check(np.array_equal(fi, flood_ids), "tie flood: ids not ascending within the tie")
-                check(not bool(exact[0]), "tie flood: the proof was not defeated")
+                check(not bool(exact[0]) and not bool(cex[0]), "tie flood: the proof was not defeated")
+        if name == "theta_from_sample":
+            qall = torch.from_numpy(queries).to(dev)
+            ab_auto_buckets(lambda q, e: scan.cosine_scan_topk_auto(
+                q, idx, k=K, max_distance=md, sample=smp, row_meta=meta, epilogue=e), qall, smi, "[3e] u8")
         del idx, meta, smp
         torch.cuda.empty_cache()
 
@@ -345,9 +437,16 @@ def phase_kernels(fs, scan, smi, err):
 
     stats = {}
     for n, qn in (("cosine_threshold_collect", MAIN_Q), ("cosine_chunk_topk", REPAIR_Q),
-                  ("lex_topk_segments", MAIN_Q)):
+                  ("lex_topk_segments", MAIN_Q), ("cosine_coskey_collect", MAIN_Q),
+                  ("coskey_rescore", MAIN_Q)):
         call = next(c for c in timed_calls[(n, qn)] if main_pass(c))
-        stats[n] = time_kernel(fs, call, smi, "[3]")
+        stats[n] = time_kernel(fs, call, smi, "[3e]" if "coskey" in n else "[3]")
+    ab_collect(fs, next(c for c in timed_calls[("cosine_threshold_collect", MAIN_Q)] if main_pass(c)),
+               next(c for c in timed_calls[("cosine_coskey_collect", MAIN_Q)] if main_pass(c)),
+               smi, "[3e] K1a vs K1d")
+    for qn, runs in sorted(proof_cos.items()):
+        log(f"[3e] cos-key proof rate Q={qn} (cases but the tie flood): {sum(runs)}/{qn * len(runs)} "
+            f"= {sum(runs) / (qn * len(runs)):.4f}")
     return stats, db
 
 
@@ -593,6 +692,13 @@ def phase_int4_kernels(fs, scan, smi, err, db):
                             n_exact = int(exact.sum())
                             proof.setdefault((qn, name == "tie_flood"), []).append((n_exact, qn))
                             extra = f"; proven {n_exact}/{qn}, repaired {qn - n_exact}"
+                            if k == kmax and qn in QS:  # the cos-key pass: K4d + K1e
+                                _, _, cex = fs.fused_threshold4_scan_topk(
+                                    q, idx, meta, smp, k=k, max_distance=md, query_mode=mode, epilogue="cos")
+                                results.append(("auto_cos", *int4.cosine4_scan_topk_auto(
+                                    q, idx, k=k, max_distance=md, sample=smp, meta=meta,
+                                    query_mode=mode, epilogue="cos")))
+                                extra += f" (cos key proven {int(cex.sum())}/{qn})"
                         if which in ("fused", "both") and qn <= MAIN_Q:
                             results.append(("fused", *fs.fused_cosine4_scan_topk(
                                 q, idx, meta, k=k, max_distance=md, query_mode=mode)))
@@ -621,6 +727,10 @@ def phase_int4_kernels(fs, scan, smi, err, db):
                         if mode == "sym":
                             check(float(d[0, 0]) == 0.0, "int4 sym: a stored row's self-distance is not 0")
             del ex_d, ex_i
+            if name == "theta_from_sample" and mode == "asym":
+                ab_auto_buckets(lambda q, e: int4.cosine4_scan_topk_auto(
+                    q, idx, k=kmax, max_distance=md, sample=smp, meta=meta, epilogue=e),
+                    qall, smi, f"[3d] int4 asym k={kmax}")
         del idx, meta, smp, qall
         torch.cuda.empty_cache()
     for (qn, flood), runs in sorted(proof.items()):
@@ -632,12 +742,16 @@ def phase_int4_kernels(fs, scan, smi, err, db):
     # repair bucket; asym (the default) in the kernels line, sym logged.
     stats = {}
     for n, qn in (("cosine4_threshold_collect", MAIN_Q), ("cosine4_chunk_topk", REPAIR_Q),
-                  ("cosine4_threshold_collect", BIG_Q)):
+                  ("cosine4_threshold_collect", BIG_Q), ("cosine4_coskey_collect", MAIN_Q)):
         for mode in ("asym", "sym"):
             call = next(c for c in timed_calls[(n, mode, kmax, qn)] if c[1][5].shape[0] == N_ROWS)
             st = time_kernel(fs, call, smi, f"[3d] {mode} k={kmax}", reps=10 if qn <= MAIN_Q else 3)
             if mode == "asym":
                 stats.setdefault(n, st)
+    for mode in ("asym", "sym"):
+        ab_collect(fs, *(next(c for c in timed_calls[(n, mode, kmax, MAIN_Q)] if c[1][5].shape[0] == N_ROWS)
+                         for n in ("cosine4_threshold_collect", "cosine4_coskey_collect")),
+                   smi, f"[3d] {mode} k={kmax} K4a vs K4d")
     return stats
 
 
@@ -663,6 +777,14 @@ def work_of(name, args, out):
     comparison per meaningful candidate at the f32 scalar rate."""
     import torch
 
+    if name == "coskey_rescore":
+        q, data, lens, cand_i = args[0], args[5], args[8], args[9]
+        qn, d = q.shape
+        used = int(lens.sum())
+        # per used slot: its id, the row and 12 B of its meta; per query:
+        # codes, sums, moments, θ, lens; the [Q, cap] f32 output
+        nbytes = used * (4 + data.shape[1] + 12) + qn * (d + 20) + cand_i.numel() * 4
+        return nbytes, 2 * used * d, INT8_OPS
     if name == "lex_topk_segments":
         dist, k = args[0], args[2]
         lens = args[3] if len(args) > 3 else None
@@ -740,7 +862,7 @@ def time_kernel(fs, call, smi, tag, reps=10):
         keys = fs._keys(dist, idx, lens)
         st["library_ms"] = median_ms(lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), reps)
         extra = f", library torch.topk on the (dist, id) keys {st['library_ms']:.4f} ms"
-    else:
+    elif name != "coskey_rescore":  # no one library call gathers and dots per slot
         st["dot_only_ms"] = median_ms(dot_only(name, args), reps)
         of = " over an unpacked int8 copy" if name.startswith("cosine4") else ""
         extra = f", dot only (torch._int_mm{of}, not the same function) {st['dot_only_ms']:.4f} ms"
@@ -891,7 +1013,7 @@ def phase_engine(fs, scan, smi, tmp):
     check(torch.equal(d.cpu(), pd) and torch.equal(i.cpu(), pi), "engine scan differs from the plain path")
     log(f"[4] auto and pallas results = exact scan = plain (CPU) path; top-3 "
         f"{[(os.path.basename(p), round(x, 6)) for p, x in exact[:3]]}")
-    return counts, eng, ckpt
+    return counts, eng, ckpt, paths
 
 
 # --------------------------------------------------------------------- #
@@ -1048,8 +1170,7 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
             f"{len(rows) / dt:,.0f} rows/s); 3 sampled batches = plain exact scan; {smi}")
         if by == "phash":
             check(len(pairs) >= len(filler) // 1000, "duplicates by phash missed the planted near-dups")
-    eng.close()
-    return counts
+    return counts, eng, paths
 
 
 # --------------------------------------------------------------------- #
@@ -1211,7 +1332,223 @@ def phase_int4_engine(fs, scan, smi, tmp, ckpt):
               f"int4 duplicates: batch at row {s} differs from the plain exact scan")
     log("[6] int4 duplicates: 3 sampled candidate batches = plain exact scan")
     dup.close()
-    eng.close()
+    return counts, eng
+
+
+# --------------------------------------------------------------------- #
+# Phase 7: the web server and its batching service on the card
+
+
+def http_burst(reqs):
+    """Fire ``reqs`` — (endpoint, url, body or None) — all at once, one
+    thread each; returns ([(endpoint, status, JSON, start, end)], wall s).
+    Any HTTP error raises."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(r):
+        label, url, body = r
+        req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out = json.loads(resp.read())
+            status = resp.status
+        return label, status, out, t, time.perf_counter()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as ex:
+        res = list(ex.map(one, reqs))
+    return res, time.perf_counter() - t0
+
+
+def log_burst(tag, res, wall, smi):
+    """Requests/s, p50 and p99 per endpoint (host clock, client side)."""
+    import numpy as np
+
+    log(f"{tag} {len(res)} requests in {wall * 1e3:.1f} ms = {len(res) / wall:.1f} requests/s; {smi}")
+    for label in sorted({r[0] for r in res}):
+        mine = [r for r in res if r[0] == label]
+        lat = np.array([(r[4] - r[3]) * 1e3 for r in mine])
+        span = max(r[4] for r in mine) - min(r[3] for r in mine)
+        log(f"{tag}   {label}: {len(mine)} requests, {len(mine) / span:.1f}/s, "
+            f"p50 {np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms")
+
+
+def service_burst(svc, queries):
+    """``svc.submit`` from one thread a query, all released at once;
+    returns the per-query (dist, rows)."""
+    import threading
+
+    out = [None] * len(queries)
+    start = threading.Barrier(len(queries))
+
+    def one(j):
+        start.wait(timeout=60)
+        out[j] = svc.submit(queries[j], timeout=300)
+
+    threads = [threading.Thread(target=one, args=(j,)) for j in range(len(queries))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(all(r is not None for r in out), "service burst: a submit did not return")
+    return out
+
+
+def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from pixelbox_tpu_torch.records import IndexedImage
+    from pixelbox_tpu_torch.serve import _serialize_results, build_scan_service, make_server
+    from pixelbox_tpu_torch.serving.service import _COSKEY_MIN_BUCKET
+
+    rng = np.random.default_rng(SEED + 7)
+    counts = {n: 0 for n in fs.LAUNCHES}
+    servers = []
+
+    def counted(fn):
+        """Run ``fn`` with every launch count set to 0 first and add the
+        counts just after: the serving path's launches, none of the
+        direct calls that check it."""
+        fs.reset_launch_counts()
+        out = fn()
+        for n, c in fs.launch_counts().items():
+            counts[n] += c
+        return out
+
+    def start(eng):
+        svc = build_scan_service(eng)
+        srv = make_server(eng, "127.0.0.1", 0, svc)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append((srv, svc))
+        return svc, f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def direct_id(eng, image_id):
+        eng.query_by_image_hash_from_id(image_id)
+        return _serialize_results(eng.get_query_results())
+
+    def same(got, want, what):
+        check(got == json.loads(json.dumps(want)), f"{what}: the server's JSON differs from the engine's direct call")
+
+    def post(url, path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    for eng in (sem_eng, ph_eng, i4_eng):
+        eng.scan_mode = "auto"
+    t0 = time.perf_counter()
+    svc, url = counted(lambda: start(sem_eng))
+    ph_svc, ph_url = counted(lambda: start(ph_eng))
+    log(f"[7] two servers up (services warmed at every bucket) in {time.perf_counter() - t0:.2f}s")
+
+    ids = list(sem_eng._sem_image_ids[:8]) + [  # indexed photos, then hash-only rows
+        int(x) for x in rng.choice(sem_eng._sem_image_ids[8:], 56, replace=False)]
+    up = [open(p, "rb").read() for p in sem_paths[:16]]
+    ph_up = [open(p, "rb").read() for p in ph_paths[:16]]
+
+    def burst_reqs():
+        return ([("GET /api/similar?id=", f"{url}/api/similar?id={i}", None) for i in ids]
+                + [("POST /api/similar", f"{url}/api/similar", b) for b in up]
+                + [("POST /api/phash-similar", f"{ph_url}/api/phash-similar", b) for b in ph_up])
+
+    res, wall = counted(lambda: http_burst(burst_reqs()))
+    log_burst("[7] burst 1:", res, wall, smi)
+    for (label, _, out, _, _), i in zip(res[:64], ids):
+        same(out, direct_id(sem_eng, i), f"{label}{i}")
+        check(out[0]["id"] == i and out[0]["distance"] == 0.0, f"similar?id={i}: not first at 0.0")
+    for (label, _, out, _, _), b in zip(res[64:80], up):
+        sem_eng.query_by_image_hash_from_image(sem_eng.load_image_from_memory(b, "upload", ""))
+        same(out, _serialize_results(sem_eng.get_query_results()), label)
+    for (label, _, out, _, _), b in zip(res[80:], ph_up):
+        ph_eng.query_by_phash(ph_eng.load_image_from_memory(b, "upload", "").phash)
+        same(out, _serialize_results(ph_eng.get_query_results()), label)
+    for name, s, n_req in (("u8", svc, 80), ("phash", ph_svc, 16)):
+        check(s.batches_run < n_req, f"{name} service: {s.batches_run} batches for {n_req} requests")
+        log(f"[7] {name} service: {s.queries_served} queries in {s.batches_run} batches "
+            f"(mean batch {s.queries_served / s.batches_run:.1f}, warm-up excluded)")
+    log("[7] burst 1: all 96 responses = the engine's direct calls")
+
+    # Mutations the next burst must see: a tag, a tombstone of a top hit,
+    # and an append of seeded rows holding exact copies of the queries.
+    tagged = ids[3]
+    check(post(url, "/api/tag", {"id": tagged, "name": "smoke", "value": "servedtag"})["tags"]
+          .get("smoke") == "servedtag", "/api/tag")
+    with urllib.request.urlopen(f"{url}/api/search?q=tag:servedtag", timeout=300) as r:
+        check([x["id"] for x in json.loads(r.read())] == [tagged], "search tag: does not see the new tag")
+    victim = next(x["id"] for x in res[0][2][1:] if x["id"] not in ids)  # a top hit, not a query
+    check(post(url, "/api/remove", {"id": victim}) == {"removed": victim}, "/api/remove")
+    copies = np.stack([sem_eng._sem_store.get_rows([sem_eng._sem_row_by_image[i]])[0] for i in ids])
+    fresh = np.concatenate([copies, clustered_hashes(rng, APPEND_ROWS - len(ids), DIM)])
+    new_ids = sem_eng.insert_records_batch([
+        IndexedImage(filename=f"app_{j:04d}.png", path=f"/synthetic/app_{j:04d}.png", visual_hash=fresh[j])
+        for j in range(APPEND_ROWS)])
+    log(f"[7] mutated: tagged {tagged}, removed {victim}, appended {APPEND_ROWS} rows "
+        f"(store {sem_eng._sem_store.n:,} rows, capacity {sem_eng._sem_store.device_index.capacity:,})")
+
+    res2, wall2 = counted(lambda: http_burst(burst_reqs()[:80]))
+    log_burst("[7] burst 2:", res2, wall2, smi)
+    for (label, _, out, _, _), i, copy_id in zip(res2[:64], ids, new_ids):
+        same(out, direct_id(sem_eng, i), f"after the mutations, {label}{i}")
+        got = [x["id"] for x in out]
+        check(got[:2] == [i, copy_id] and out[1]["distance"] == 0.0,
+              f"similar?id={i}: the appended copy is not second at 0.0")
+        check(victim not in got, f"similar?id={i}: the removed image {victim} came back")
+        if i == tagged:
+            check(out[0]["tags"].get("smoke") == "servedtag", "the tag is missing from the results")
+    for (label, _, out, _, _), b in zip(res2[64:80], up):
+        sem_eng.query_by_image_hash_from_image(sem_eng.load_image_from_memory(b, "upload", ""))
+        same(out, _serialize_results(sem_eng.get_query_results()), f"after the mutations, {label}")
+    log("[7] burst 2: all 80 responses = direct calls; every appended copy found, the removed image gone")
+
+    def full_bucket(s, eng, tag):
+        """A full bucket straight into a service — the batches the cos key
+        serves (K1d/K4d + K1e) — against the same service's dist-path scan
+        of the queries in two half buckets."""
+        rows = eng._sem_store.get_rows(rng.choice(eng._sem_store.n, _COSKEY_MIN_BUCKET, replace=False))
+        full_q = perturb(rng, rows)
+        batches0, before = s.batches_run, dict(counts)
+        t0 = time.perf_counter()
+        got = counted(lambda: service_burst(s, full_q))
+        wall = time.perf_counter() - t0
+        half = _COSKEY_MIN_BUCKET // 2
+        want = [tuple(np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                      for x in s._semantic_scan(full_q[h:h + half], n_real=half))
+                for h in (0, half)]
+        for j, (d, i) in enumerate(got):
+            wd, wi = want[j // half]
+            check(np.array_equal(i, wi[j % half]) and np.array_equal(d, wd[j % half]),
+                  f"{tag} full-bucket burst: query {j} differs from the dist-path scan")
+        delta = {n: counts[n] - before[n] for n in counts if counts[n] != before[n]}
+        log(f"{tag} full-bucket burst: {len(full_q)} submits in {wall * 1e3:.1f} ms, "
+            f"{s.batches_run - batches0} batches, launches {json.dumps(delta)}; "
+            f"every result = the dist-path scan; {smi}")
+
+    full_bucket(svc, sem_eng, "[7] u8")
+
+    # The int4 engine (exact-u8 rerank on): K4d on a serving path.
+    i4_svc, i4_url = counted(lambda: start(i4_eng))
+    i4_ids = [int(x) for x in rng.choice(i4_eng._sem_image_ids, 32, replace=False)]
+    res3, wall3 = counted(lambda: http_burst(
+        [("GET /api/similar?id= (int4)", f"{i4_url}/api/similar?id={i}", None) for i in i4_ids]))
+    log_burst("[7] int4 burst:", res3, wall3, smi)
+    for (label, _, out, _, _), i in zip(res3, i4_ids):
+        same(out, direct_id(i4_eng, i), f"{label}{i}")
+    check(i4_svc.batches_run < len(i4_ids), "int4 service: no coalescing")
+    log(f"[7] int4 burst: 32 responses = direct calls; {i4_svc.queries_served} queries in "
+        f"{i4_svc.batches_run} batches")
+    full_bucket(i4_svc, i4_eng, "[7] int4")
+
+    for srv, s in servers:
+        srv.shutdown()
+        srv.server_close()
+        s.close()
+    log(f"[7] kernel launches on the serving path: {json.dumps(counts)}")
+    for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "cosine_coskey_collect",
+              "coskey_rescore", "cosine4_coskey_collect", "hamming_threshold_collect", "lex_topk_segments"):
+        check(counts[n] > 0, f"kernel {n} was not launched on the serving path")
     return counts
 
 
@@ -1267,13 +1604,16 @@ def main() -> int:
 
     # [4] engine, [5] phash engine and duplicates, [6] int4 engine
     with tempfile.TemporaryDirectory(prefix="pixelbox_smoke_") as tmp:
-        counts4, sem_eng, ckpt = phase_engine(fs, scan, smi, tmp)
+        counts4, sem_eng, ckpt, sem_paths = phase_engine(fs, scan, smi, tmp)
         t0 = phase_time("4", t0)
-        counts5 = phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt)
-        sem_eng.close()
+        counts5, ph_eng, ph_paths = phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt)
         t0 = phase_time("5", t0)
-        counts6 = phase_int4_engine(fs, scan, smi, tmp, ckpt)
-        phase_time("6", t0)
+        counts6, i4_eng = phase_int4_engine(fs, scan, smi, tmp, ckpt)
+        t0 = phase_time("6", t0)
+        counts7 = phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng)
+        phase_time("7", t0)
+        for eng in (sem_eng, ph_eng, i4_eng):
+            eng.close()
 
     check("jax" not in sys.modules, "jax was imported")
     replaces = {
@@ -1284,6 +1624,9 @@ def main() -> int:
         "hamming_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:192",
         "cosine4_threshold_collect": "pixelbox_tpu/ops/int4.py:376",
         "cosine4_chunk_topk": "pixelbox_tpu/ops/int4.py:376",
+        "cosine_coskey_collect": "pixelbox_tpu/ops/pallas_scan.py:171",
+        "cosine4_coskey_collect": "pixelbox_tpu/ops/pallas_scan.py:171",
+        "coskey_rescore": "pixelbox_tpu/ops/pallas_scan.py:747",
     }
     kernels = []
     for n in Recorder.NAMES:
@@ -1293,7 +1636,7 @@ def main() -> int:
             "route": "cuda",
             "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
             "replaces": replaces[n],
-            "launches": counts4[n] + counts5[n] + counts6[n],
+            "launches": counts4[n] + counts5[n] + counts6[n] + counts7[n],
             "max_abs_err": err[n],
             **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **({"dot_only_ms": st["dot_only_ms"]} if "dot_only_ms" in st else {}),

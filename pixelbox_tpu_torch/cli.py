@@ -6,19 +6,29 @@ Subcommands (the JAX CLI's names and flags):
 
     init <db>                      — create a library
     add-folder <db> <folder>       — track a folder
+    remove-folder <db> <folder>    — stop tracking it (--purge: and remove its images)
+    folders <db>                   — list tracked folders
     index <db>                     — crawl tracked folders, index new images
+    watch <db>                     — index, then keep indexing new files
+    remove-image <db> <id>         — remove one image from the index
+    compact <db>                   — drop tombstoned rows from the device stores
+    tag <db> <id> <name> [value]   — set a user tag
+    untag <db> <id> <name>         — remove a tag
     search <db> <query...>         — text query (similar:/tag:/exif:/all:/...)
     similar <db> <image>           — find images similar to a file
+    similar-id <db> <id>           — find images similar to an indexed image
     phash-similar <db> <image>     — near-duplicate search by perceptual hash
     duplicates <db>                — whole-index near-duplicate pairs/groups
     show <db> <id>                 — one indexed image's metadata
     stats <db>                     — index statistics
+    serve <db>                     — the web UI + JSON API (micro-batched scans)
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.  Scan
 modes ``auto``/``exact``/``fast``/``pallas`` are ported; ``ivf`` exits with
 a "not yet ported" error.  ``--precision int4`` packs the semantic index
 two 4-bit codes a byte and rescores its candidates with the exact u8
-metric (``--no-int4-rerank`` turns the rescore off).
+metric (``--no-int4-rerank`` turns the rescore off).  Not yet ported:
+``face-similar``, ``faces``, ``index-faces``, ``train`` and ``finalize``.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 
 def _open_engine(args, create=False):
@@ -161,14 +172,44 @@ def _parser() -> argparse.ArgumentParser:
     add_db_cmd("init", help="create a new library database")
     sp = add_db_cmd("add-folder", help="track a folder for indexing")
     sp.add_argument("folder")
+    sp = add_db_cmd("remove-folder", help="stop tracking a folder")
+    sp.add_argument("folder")
+    sp.add_argument("--purge", action="store_true",
+                    help="also remove every indexed image under the folder")
+    sp = add_db_cmd("remove-image", help="remove one image from the index")
+    sp.add_argument("id", type=int)
+    add_db_cmd("compact", help="drop tombstoned rows from the device stores after removals")
+    add_db_cmd("folders", help="list tracked folders")
     sp = add_db_cmd("index", help="crawl tracked folders and index new images")
     sp.add_argument("--workers", type=int, default=None)
+    sp = add_db_cmd(
+        "watch",
+        help="index once, then keep watching tracked folders for new images "
+        "until interrupted",
+    )
+    sp.add_argument("--workers", type=int, default=None)
+    sp.add_argument("--interval", type=float, default=30.0, help="poll interval in seconds")
+    sp = add_db_cmd("tag", help="set a user tag on an indexed image")
+    sp.add_argument("id", type=int)
+    sp.add_argument("name")
+    sp.add_argument("value", nargs="?", default="")
+    sp = add_db_cmd("untag", help="remove a tag from an indexed image")
+    sp.add_argument("id", type=int)
+    sp.add_argument("name")
     sp = add_db_cmd("search", help="text query (similar:/tag:/exif:/all:/filename:/ocr:)")
     sp.add_argument("query", nargs="+")
     sp.add_argument("--json", action="store_true")
     sp.add_argument("--limit", type=int, default=100)
     sp = add_db_cmd("similar", help="find images similar to a file")
     sp.add_argument("image")
+    sp.add_argument("--json", action="store_true")
+    sp.add_argument("--limit", type=int, default=100)
+    sp.add_argument("--max-distance", type=float, default=1e3)
+    sp = add_db_cmd(
+        "similar-id",
+        help="find images similar to an INDEXED image (its stored hash, no re-decode)",
+    )
+    sp.add_argument("id", type=int)
     sp.add_argument("--json", action="store_true")
     sp.add_argument("--limit", type=int, default=100)
     sp.add_argument("--max-distance", type=float, default=1e3)
@@ -195,6 +236,11 @@ def _parser() -> argparse.ArgumentParser:
     sp = add_db_cmd("show", help="show one indexed image's metadata")
     sp.add_argument("id", type=int)
     add_db_cmd("stats", help="index statistics")
+    sp = add_db_cmd("serve", help="serve the web UI and JSON API")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8333)
+    sp.add_argument("--no-batching", action="store_true",
+                    help="disable micro-batched query coalescing")
     return p
 
 
@@ -211,10 +257,52 @@ def main(argv=None) -> int:
         elif args.cmd == "add-folder":
             engine.add_tracked_folder(args.folder)
             print(f"Tracking {args.folder}")
+        elif args.cmd == "remove-folder":
+            if args.purge:
+                n = engine.remove_tracked_folder_and_images(args.folder)
+                print(f"Stopped tracking {args.folder}; removed {n} images")
+            else:
+                engine.remove_tracked_folder(args.folder)
+                print(f"Stopped tracking {args.folder}")
+        elif args.cmd == "remove-image":
+            if not engine.remove_image(args.id):
+                print(f"No image with id {args.id}", file=sys.stderr)
+                return 1
+            print(f"Removed image {args.id}")
+        elif args.cmd == "compact":
+            engine.compact()
+            print("Compacted device stores")
+        elif args.cmd == "folders":
+            for f in engine.get_tracked_folders():
+                print(f)
         elif args.cmd == "index":
             engine.start_indexing(num_workers=args.workers)
             engine.wait_for_indexing()
             print(f"Indexed images: {engine.get_num_indexed_images()}")
+        elif args.cmd == "watch":
+            engine.start_indexing(num_workers=args.workers)
+            engine.wait_for_indexing()
+            print(f"Indexed images: {engine.get_num_indexed_images()}")
+            engine.watch(interval_s=args.interval, num_workers=args.workers)
+            print(
+                f"Watching {len(engine.get_tracked_folders())} folder(s) "
+                f"every {args.interval:g}s — Ctrl-C to stop."
+            )
+            try:
+                while engine.is_watching():
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
+        elif args.cmd == "tag":
+            if not engine.set_tag(args.id, args.name, args.value):
+                print(f"No image with id {args.id}", file=sys.stderr)
+                return 1
+            print(f"Tagged {args.id}: {args.name}={args.value!r}")
+        elif args.cmd == "untag":
+            if not engine.remove_tag(args.id, args.name):
+                print(f"No tag {args.name!r} on image {args.id}", file=sys.stderr)
+                return 1
+            print(f"Untagged {args.id}: {args.name}")
         elif args.cmd == "search":
             from pixelbox_tpu_torch.query import QueryTokenizeError
 
@@ -232,6 +320,18 @@ def main(argv=None) -> int:
             engine.max_distance_from_query = args.max_distance
             try:
                 engine.query_by_image_hash_from_file(args.image)
+            except NotImplementedError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+            if engine.last_query_error:
+                print(f"error: {engine.last_query_error}", file=sys.stderr)
+                return 1
+            _print_results(engine, as_json=args.json)
+        elif args.cmd == "similar-id":
+            engine.max_search_results = args.limit
+            engine.max_distance_from_query = args.max_distance
+            try:
+                engine.query_by_image_hash_from_id(args.id)
             except NotImplementedError as e:
                 print(f"error: {e}", file=sys.stderr)
                 return 1
@@ -286,6 +386,10 @@ def main(argv=None) -> int:
                     indent=2,
                 )
             )
+        elif args.cmd == "serve":
+            from pixelbox_tpu_torch.serve import serve
+
+            serve(engine, host=args.host, port=args.port, batching=not args.no_batching)
     finally:
         engine.close()
     return 0

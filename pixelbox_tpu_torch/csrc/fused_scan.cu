@@ -14,6 +14,11 @@
 //   - the int4 main pass (ops/int4.py:pallas_threshold4_scan_topk,
 //     kinds cosine4a / cosine4)                          -> K4a + K1c
 //   - the exact int4 scan and repair                     -> K4b + K1c
+//   - the cos-key main pass (epilogue="cos": _kind_dist_tile
+//     :171-174 and _cos_key_threshold, kinds cosine /
+//     cosine4a / cosine4)                                -> K1d/K4d
+//   - its exact finish (_exact_dist_gathered,
+//     _coskey_candidate_postpass)                        -> K1e + K1c
 //
 // The Hamming kernels read the packed u8 phash rows (32 bytes for the
 // published 16x16 hash) and count differing bits with xor + __popc; the
@@ -195,6 +200,11 @@ __device__ __forceinline__ int centered_dot(int dot8, int q_sum, int row_sum,
   }
 }
 
+// The spec v2 cosine of an exact centered dot: fl(dot_c * fl(qr * rr)).
+__device__ __forceinline__ float spec_cos(int dot_c, float qr, float rr) {
+  return __fmul_rn(__int2float_rn(dot_c), __fmul_rn(qr, rr));
+}
+
 // Canonical spec v2 epilogue, exactly _kind_dist_tile's, from dot_c:
 //   cos   = fl(dot_c * fl(qr * rr))
 //   dist  = fl(fl(1 / max(cos, 1e-6)) - 1), clamped to >= 0
@@ -202,7 +212,7 @@ __device__ __forceinline__ int centered_dot(int dot8, int q_sum, int row_sum,
 __device__ __forceinline__ float spec_dist(int dot_c, float qr, float rr,
                                            float q_mag2f, float row_mag2f) {
   const float dot_f = __int2float_rn(dot_c);
-  const float cosv = __fmul_rn(dot_f, __fmul_rn(qr, rr));
+  const float cosv = spec_cos(dot_c, qr, rr);
   float dist = __fsub_rn(__fdiv_rn(1.0f, fmaxf(cosv, 1e-6f)), 1.0f);
   dist = fmaxf(dist, 0.0f);
   if (dot_f == q_mag2f && q_mag2f == row_mag2f) dist = 0.0f;
@@ -307,11 +317,23 @@ __device__ void bitonic_sort_segments(unsigned long long* keys, int total,
   }
 }
 
-// K1a (KIND kU8) / K4a (kInt4Asym, kInt4Sym): append every valid row with
-// dist < theta[q] to query q's buffer.  count[q] is exact whether or not
-// the buffer overflows (the slot is claimed before the capacity check), so
-// the wrapper's proof count <= cap && (count >= k || unbound) is sound.
-template <int QT, int KIND>
+// What a collect kernel selects on (its epilogue).
+enum : int {
+  kEpiDist = 0,    // K1a/K4a: the spec distance, filter dist < theta[q]
+  kEpiCosKey = 1,  // K1d/K4d: the key -cos, filter -cos < theta[q]
+};
+
+// K1a / K1d (KIND kU8) and K4a / K4d (kInt4Asym, kInt4Sym): append every
+// valid row that passes query q's filter to its buffer.  count[q] is
+// exact whether or not the buffer overflows (the slot is claimed before
+// the capacity check), so the wrapper's proof is sound.
+//
+// EPI kEpiDist stores the spec distance and filters dist < theta[q].
+// EPI kEpiCosKey (K1d/K4d, the JAX epilogue="cos") stores the key -cos and
+// filters -cos < theta[q], theta the wrapper's key threshold: it skips the
+// divide, the clamp and the identical-vector pin on every (query, row);
+// K1e recomputes the exact distance for the collected rows only.
+template <int QT, int KIND, int EPI>
 __global__ void __launch_bounds__(kThreads)
 threshold_collect_kernel(const int8_t* __restrict__ q_codes,
                          const int* __restrict__ q_sum,
@@ -340,18 +362,63 @@ threshold_collect_kernel(const int8_t* __restrict__ q_codes,
   for (int j = 0; j < QT; ++j) {
     if (j < nq) {
       const int q = q0 + j;
-      const float dist =
-          spec_dist(centered_dot<KIND>(acc[j], q_sum[q], row_sum, D), qr[q], rr,
-                    q_mag2f[q], row_mag2f);
-      if (dist < theta[q]) {
+      const int dot_c = centered_dot<KIND>(acc[j], q_sum[q], row_sum, D);
+      const float v = EPI == kEpiCosKey
+                          ? -spec_cos(dot_c, qr[q], rr)
+                          : spec_dist(dot_c, qr[q], rr, q_mag2f[q], row_mag2f);
+      if (v < theta[q]) {
         const int slot = atomicAdd(count + q, 1);
         if (slot < cap) {
-          cand_d[static_cast<size_t>(q) * cap + slot] = dist;
+          cand_d[static_cast<size_t>(q) * cap + slot] = v;
           cand_i[static_cast<size_t>(q) * cap + slot] = row;
         }
       }
     }
   }
+}
+
+// K1e: the exact finish of a cos-key collect.  One thread per (query q,
+// buffer slot); block (x, q) stages query q's codes.  Slots below lens[q]
+// gather their row, take the same row dot, centered_dot and spec_dist as
+// K1a (so the distance is bit-identical to K1a's) and keep it if it is
+// < theta[q], the strict distance threshold; every other slot, and every
+// slot at or past lens[q], reads +inf — K1c sorts those last and emits
+// them as (+inf, -1).  Bound by the gathered rows (D or D/2 bytes and 12
+// of meta per collected candidate) and the [Q, cap] output.
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+coskey_rescore_kernel(const int8_t* __restrict__ q_codes,
+                      const int* __restrict__ q_sum,
+                      const float* __restrict__ q_mag2f,
+                      const float* __restrict__ qr,
+                      const float* __restrict__ theta,
+                      const int8_t* __restrict__ data,
+                      const int* __restrict__ meta, int N, int D, int cap,
+                      const int* __restrict__ lens,
+                      const int* __restrict__ cand_i,
+                      float* __restrict__ out_d) {
+  extern __shared__ __align__(16) int8_t q_sh[];
+  const int q = blockIdx.y;
+  const int len = min(lens[q], cap);
+  const int s0 = blockIdx.x * blockDim.x;
+  if (s0 < len) {  // uniform over the block
+    stage_queries<1, int8_t>(q_codes, q, 1, D, q_sh);
+    __syncthreads();
+  }
+  const int slot = s0 + threadIdx.x;
+  if (slot >= cap) return;
+  float out = __int_as_float(0x7f800000);
+  if (slot < len) {
+    const int row = cand_i[static_cast<size_t>(q) * cap + slot];
+    int acc[1];
+    kind_row_dot<KIND, 1>(data, row, q_sh, D, acc);
+    const float dist =
+        spec_dist(centered_dot<KIND>(acc[0], q_sum[q], meta[row], D), qr[q],
+                  __int_as_float(meta[2 * N + row]), q_mag2f[q],
+                  __int2float_rn(meta[N + row]));
+    if (dist < theta[q]) out = dist;
+  }
+  out_d[static_cast<size_t>(q) * cap + slot] = out;
 }
 
 // K1b (KIND kU8) / K4b (kInt4Asym, kInt4Sym): per (row chunk, query
@@ -541,7 +608,7 @@ lex_topk_segments_kernel(const float* __restrict__ in_d,
   }
 }
 
-template <int KIND>
+template <int KIND, int EPI = kEpiDist>
 int launch_collect(const void* q_codes, const void* q_sum, const void* q_mag2f,
                    const void* qr, const void* theta, const void* data,
                    const void* meta, int Q, int N, int D, int cap, void* count,
@@ -549,7 +616,7 @@ int launch_collect(const void* q_codes, const void* q_sum, const void* q_mag2f,
   const dim3 grid((N + kThreads - 1) / kThreads,
                   (Q + kCollectQueries - 1) / kCollectQueries);
   const size_t smem = static_cast<size_t>(kCollectQueries) * D;
-  threshold_collect_kernel<kCollectQueries, KIND>
+  threshold_collect_kernel<kCollectQueries, KIND, EPI>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(q_codes), static_cast<const int*>(q_sum),
           static_cast<const float*>(q_mag2f), static_cast<const float*>(qr),
@@ -576,6 +643,24 @@ int launch_chunk_topk(const void* q_codes, const void* q_sum,
           max_distance, static_cast<const int8_t*>(data),
           static_cast<const int*>(meta), Q, N, D, R, k, n_chunks,
           static_cast<float*>(out_d), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND>
+int launch_rescore(const void* q_codes, const void* q_sum, const void* q_mag2f,
+                   const void* qr, const void* theta, const void* data,
+                   const void* meta, int Q, int N, int D, int cap,
+                   const void* lens, const void* cand_i, void* out_d,
+                   void* stream) {
+  const dim3 grid((cap + kThreads - 1) / kThreads, Q);
+  coskey_rescore_kernel<KIND>
+      <<<grid, kThreads, static_cast<size_t>(D), static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(q_codes), static_cast<const int*>(q_sum),
+          static_cast<const float*>(q_mag2f), static_cast<const float*>(qr),
+          static_cast<const float*>(theta), static_cast<const int8_t*>(data),
+          static_cast<const int*>(meta), N, D, cap,
+          static_cast<const int*>(lens), static_cast<const int*>(cand_i),
+          static_cast<float*>(out_d));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,6 +717,59 @@ PX_EXPORT int px_cosine4_chunk_topk(const void* q_codes, const void* q_sum,
                                             max_distance, data, meta, Q, N, D,
                                             R, k, n_chunks, out_d, out_i,
                                             stream);
+}
+
+// K1d: K1a selecting on the key -cos < key_theta[q] (u8 rows).
+PX_EXPORT int px_coskey_collect(const void* q_codes, const void* q_sum,
+                                const void* q_mag2f, const void* qr,
+                                const void* key_theta, const void* data,
+                                const void* meta, int Q, int N, int D, int cap,
+                                void* count, void* cand_key, void* cand_i,
+                                void* stream) {
+  return launch_collect<kU8, kEpiCosKey>(q_codes, q_sum, q_mag2f, qr,
+                                         key_theta, data, meta, Q, N, D, cap,
+                                         count, cand_key, cand_i, stream);
+}
+
+// K4d: K1d over packed int4 rows [N, D/2] (sym as in px_cosine4_collect).
+PX_EXPORT int px_cosine4_coskey_collect(const void* q_codes, const void* q_sum,
+                                        const void* q_mag2f, const void* qr,
+                                        const void* key_theta, const void* data,
+                                        const void* meta, int Q, int N, int D,
+                                        int sym, int cap, void* count,
+                                        void* cand_key, void* cand_i,
+                                        void* stream) {
+  return sym ? launch_collect<kInt4Sym, kEpiCosKey>(
+                   q_codes, q_sum, q_mag2f, qr, key_theta, data, meta, Q, N, D,
+                   cap, count, cand_key, cand_i, stream)
+             : launch_collect<kInt4Asym, kEpiCosKey>(
+                   q_codes, q_sum, q_mag2f, qr, key_theta, data, meta, Q, N, D,
+                   cap, count, cand_key, cand_i, stream);
+}
+
+// K1e for kind 0 (u8 rows), 1 (int4 asym) or 2 (int4 sym).
+PX_EXPORT int px_coskey_rescore(const void* q_codes, const void* q_sum,
+                                const void* q_mag2f, const void* qr,
+                                const void* theta, const void* data,
+                                const void* meta, int Q, int N, int D,
+                                int kind, int cap, const void* lens,
+                                const void* cand_i, void* out_d, void* stream) {
+  switch (kind) {
+    case kU8:
+      return launch_rescore<kU8>(q_codes, q_sum, q_mag2f, qr, theta, data,
+                                 meta, Q, N, D, cap, lens, cand_i, out_d,
+                                 stream);
+    case kInt4Asym:
+      return launch_rescore<kInt4Asym>(q_codes, q_sum, q_mag2f, qr, theta,
+                                       data, meta, Q, N, D, cap, lens, cand_i,
+                                       out_d, stream);
+    case kInt4Sym:
+      return launch_rescore<kInt4Sym>(q_codes, q_sum, q_mag2f, qr, theta,
+                                      data, meta, Q, N, D, cap, lens, cand_i,
+                                      out_d, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 PX_EXPORT int px_lex_topk_segments(const void* in_d, const void* in_i,

@@ -20,13 +20,17 @@ Semantics kept from the reference (as in the JAX package):
 
 Ported so far, on one device: the semantic modality at either index
 precision (u8, or int4 with the exact-u8 rerank), perceptual-hash search
-(``query_by_phash``) and whole-index duplicate finding.  The BLIP, face,
-IVF and watch mixins and mesh serving wait (ROADMAP.md).
+(``query_by_phash``), whole-index duplicate finding, watched folders, the
+removal and tag surface, and :meth:`Engine.attach_scan_service` for the
+web server's batching service (``serve.py``).  The BLIP, face and IVF
+mixins and mesh serving wait (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import sys
+import threading
 import time
 from typing import List, Optional
 
@@ -35,7 +39,7 @@ import torch
 
 from pixelbox_tpu_torch.index.catalog import Catalog
 from pixelbox_tpu_torch.index.store import VectorStore
-from pixelbox_tpu_torch.ingest.decode import DecodedImage, decode_image_file
+from pixelbox_tpu_torch.ingest.decode import DecodedImage, decode_image_bytes, decode_image_file
 from pixelbox_tpu_torch.ingest.thumbnail import make_thumbnail, qoi_encode
 from pixelbox_tpu_torch.models import get_embedder
 from pixelbox_tpu_torch.ops import phash as phash_ops
@@ -44,7 +48,7 @@ from pixelbox_tpu_torch.ops.int4 import cosine4a_distance_np, cosine4a_scan_topk
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk
 from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
-from pixelbox_tpu_torch.serving import DuplicateFinding, PhashServing, SemanticServing
+from pixelbox_tpu_torch.serving import DuplicateFinding, PhashServing, SemanticServing, WatchMixin
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.device import resolve_device
 from pixelbox_tpu_torch.utils.rwlock import RWLock
@@ -52,9 +56,10 @@ from pixelbox_tpu_torch.utils.timing import timed
 
 DEFAULT_MAX_QUERY_DISTANCE = 1e3  # engine.rs:23
 DEFAULT_MAX_SEARCH_RESULTS = 100  # engine.rs:24
+RECENT_IMAGES_TO_SHOW = 10  # engine.rs:25
 
 
-class Engine(SemanticServing, PhashServing, DuplicateFinding):
+class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
     """Index + query engine over a catalog DB and a device vector store.
 
     ``device`` ("cuda" by default, "cpu", or a torch.device) holds the
@@ -163,6 +168,7 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
             if stored_dim:
                 kw["dim"] = int(stored_dim)
         self._embedder = None  # lazy, like the reference's lazy_static MODEL
+        self._embedder_lock = threading.Lock()
 
         # Searching and filtering (public fields, engine.rs:91-92).
         self.max_search_results: int = DEFAULT_MAX_SEARCH_RESULTS
@@ -195,6 +201,11 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
         self._ph_gemm_at_ver = -1
         #: Mesh serving is not yet ported: the scans raise unless None.
         self.scan_mesh = None
+        self._watcher: Optional[threading.Thread] = None
+        self._watch_stop: Optional[threading.Event] = None
+        self._cached_index_size: Optional[int] = None
+        self._recently_indexed: List[str] = []
+        self._recent_lock = threading.Lock()
         self._load_stores()
 
         self._pipeline = None
@@ -253,17 +264,26 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
         mode (``embedder="none"``)."""
         if self._embedder_name in (None, "none"):
             return None
-        if self._embedder is None:
-            self._embedder = get_embedder(
-                self._embedder_name, device=self.device, **self._embedder_kwargs
-            )
+        with self._embedder_lock:  # concurrent first uploads build one model
+            if self._embedder is None:
+                self._embedder = get_embedder(
+                    self._embedder_name, device=self.device, **self._embedder_kwargs
+                )
         return self._embedder
 
     # ------------------------------------------------------------------ #
     # Index size (engine.rs:157-171)
 
+    def try_get_num_indexed_images(self) -> Optional[int]:
+        return self._cached_index_size
+
     def get_num_indexed_images(self) -> int:
-        return self.catalog.num_images()
+        self._cached_index_size = self.catalog.num_images()
+        return self._cached_index_size
+
+    def get_last_added(self) -> List[str]:
+        with self._recent_lock:
+            return list(self._recently_indexed)
 
     # ------------------------------------------------------------------ #
     # Ingest (engine.rs:173-259)
@@ -297,6 +317,11 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
             self.last_pipeline = self._pipeline
             self._pipeline = None
         return done
+
+    def insert_image_from_memory(self, record: IndexedImage) -> Optional[int]:
+        """Insert one fully-hashed record; None if its path is already
+        indexed (the one-record case of :meth:`insert_records_batch`)."""
+        return self.insert_records_batch([record])[0]
 
     def insert_records_batch(self, records) -> List[Optional[int]]:
         """Insert many fully-hashed records in one catalog transaction and
@@ -354,6 +379,10 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
                     self._ph_image_ids.append(img_id)
                     self._ph_widths.append(len(h))
                     self._ph_row_by_image[img_id] = int(row)
+            with self._recent_lock:
+                self._recently_indexed.extend(r.path for _, r in new)
+                del self._recently_indexed[:-RECENT_IMAGES_TO_SHOW]
+        self._cached_index_size = None
         return ids
 
     # ------------------------------------------------------------------ #
@@ -362,6 +391,15 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
     def load_image(self, path: str) -> Optional[IndexedImage]:
         """Decode + hash one image file into an IndexedImage record."""
         decoded = decode_image_file(path)
+        if decoded is None:
+            return None
+        return self._record_from_decoded(decoded)
+
+    def load_image_from_memory(
+        self, data: bytes, filename: str = "", path: str = ""
+    ) -> Optional[IndexedImage]:
+        """Decode + hash an image held in memory (an upload)."""
+        decoded = decode_image_bytes(data, filename, path)
         if decoded is None:
             return None
         return self._record_from_decoded(decoded)
@@ -429,6 +467,107 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
             phash=ph,
             visual_hash=vh,
         )
+
+    # ------------------------------------------------------------------ #
+    # Removal (the reference stages it as a TODO, engine.rs:414)
+
+    def remove_image(self, image_id: int) -> bool:
+        """Remove an image from the catalog and the device stores.  Its
+        rows are tombstoned in place (ids stay stable), under the index
+        write lock: a query scanning the store must not see the flip."""
+        with self.index_rwlock.write_locked():
+            return self._remove_image_locked(image_id)
+
+    def _remove_image_locked(self, image_id: int) -> bool:
+        if self.catalog.get_image(image_id) is None:
+            return False
+        self.catalog.remove_image(image_id)
+        for store, row_by_image in (
+            (self._sem_store, self._sem_row_by_image),
+            (self._ph_store, self._ph_row_by_image),
+        ):
+            row = row_by_image.pop(image_id, None)
+            if store is not None and row is not None:
+                store.delete([row])
+        self._cached_index_size = None
+        return True
+
+    def compact(self) -> None:
+        """Drop tombstoned rows from the device stores (semantic, semantic4
+        and hamming) and renumber the row↔image mappings.  Takes the index
+        write lock: renumbering must not interleave with a query mapping
+        scan rows back to image ids (the watcher compacts from its own
+        thread while serving continues)."""
+        with self.index_rwlock.write_locked():
+            self._compact_locked()
+
+    def _compact_locked(self) -> None:
+        def compact_store(store, image_ids, row_by_image):
+            if store is None or store.n_deleted == 0:
+                return image_ids, row_by_image
+            mapping = store.compact()
+            new_ids = [0] * store.n
+            new_rows = {}
+            for old_row, img_id in enumerate(image_ids):
+                new_row = mapping[old_row] if old_row < len(mapping) else -1
+                if new_row >= 0:
+                    new_ids[int(new_row)] = img_id
+                    new_rows[img_id] = int(new_row)
+            return new_ids, new_rows
+
+        self._sem_image_ids, self._sem_row_by_image = compact_store(
+            self._sem_store, self._sem_image_ids, self._sem_row_by_image
+        )
+        if self._ph_store is not None and self._ph_store.n_deleted > 0:
+            width_by_image = dict(zip(self._ph_image_ids, self._ph_widths))
+            self._ph_image_ids, self._ph_row_by_image = compact_store(
+                self._ph_store, self._ph_image_ids, self._ph_row_by_image
+            )
+            self._ph_widths = [width_by_image[img] for img in self._ph_image_ids]
+
+    def remove_tracked_folder_and_images(self, folder_glob: str) -> int:
+        """Remove a folder AND everything indexed under it.
+
+        Only paths strictly INSIDE the directory match (``prefix/…``):
+        removing ``/photos/vacay`` must not touch ``/photos/vacation``.
+        LIKE wildcards in the folder path are escaped so ``%``/``_`` in
+        directory names cannot widen the match.
+        """
+        self.remove_tracked_folder(folder_glob)
+        # Strip the glob tail the crawler appends (crawler.rs:36-40 adds
+        # /**/*.* itself), then the trailing separator, leaving a bare dir.
+        prefix = folder_glob
+        while prefix.endswith(("/*.*", "/**", "/*")):
+            prefix = prefix[: prefix.rindex("/")]
+        prefix = prefix.rstrip(os.sep + "/")
+        if not prefix:
+            return 0
+        escaped = prefix.replace("!", "!!").replace("%", "!%").replace("_", "!_")
+        conn = self.catalog._connect()
+        ids = [
+            r[0]
+            for r in conn.execute(
+                "SELECT id FROM images WHERE path LIKE ? ESCAPE '!'",
+                (escaped + os.sep + "%",),
+            )
+        ]
+        for i in ids:
+            self.remove_image(i)
+        return len(ids)
+
+    # ------------------------------------------------------------------ #
+    # Editable tags (reference roadmap README.md "Editable tags";
+    # searchable immediately via the tag:/all: operators)
+
+    def set_tag(self, image_id: int, name: str, value: str = "") -> bool:
+        """Set/overwrite a user tag on an indexed image."""
+        if self.catalog.get_image(image_id) is None:
+            return False
+        self.catalog.set_tag(image_id, name, value)
+        return True
+
+    def remove_tag(self, image_id: int, name: str) -> bool:
+        return self.catalog.remove_tag(image_id, name)
 
     # ------------------------------------------------------------------ #
     # Tracked folders (engine.rs:404-439)
@@ -573,6 +712,19 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
     def get_query_results(self) -> Optional[List[IndexedImage]]:
         return self._cached_search_results
 
+    def clear_query_results(self) -> None:
+        self._cached_search_results = None
+
+    def attach_scan_service(self, service) -> None:
+        """Register this engine's batched phash scan on a
+        BatchingScanService (``serve.build_scan_service`` calls this), so
+        concurrent phash queries coalesce into device batches beside the
+        semantic ones.  BLIP ``text:``, faces and IVF are not ported."""
+        if self._ph_store is not None:
+            service.register_kind(
+                "phash", lambda q, k, md: self.phash_scan_batched(q, k, md)
+            )
+
     def _build_results(self, rows, dists) -> List[IndexedImage]:
         ids = [self._sem_image_ids[int(row)] for row in rows]
         infos = self.catalog.get_images_with_tags(ids)
@@ -613,5 +765,6 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding):
     # ------------------------------------------------------------------ #
 
     def close(self) -> None:
+        self.stop_watching()
         self.stop_indexing()
         self.catalog.close()

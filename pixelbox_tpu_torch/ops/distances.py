@@ -32,8 +32,11 @@ _COSINE_FLOOR = 1e-6
 def _f32(value, like: torch.Tensor) -> torch.Tensor:
     """A 0-dim f32 tensor on ``like``'s device holding ``np.float32(value)``
     — constants enter the arithmetic already rounded to f32, exactly as
-    the JAX package's ``np.float32`` / ``jnp.float32`` literals do."""
-    return torch.tensor(np.float32(value), dtype=torch.float32, device=like.device)
+    the JAX package's ``np.float32`` / ``jnp.float32`` literals do.  Made
+    by a fill on the device, not a copy from the host: a host-to-card copy
+    waits for the card's queue, which would stall the scan between its
+    stages."""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32, device=like.device)
 
 
 def rsqrt_spec(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Fused threshold scans with guaranteed-exact top-k — the counterpart of
 ``pixelbox_tpu/ops/pallas_scan.py``.
 
-Seven hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
+Ten hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
 JAX package's one Pallas TPU kernel family
 (``pallas_scan.py:_threshold_kernel``; kinds "cosine", "cosine4a",
 "cosine4" and "hamming", selects "carry" and "buffer"):
@@ -28,6 +28,15 @@ JAX package's one Pallas TPU kernel family
   the affine fix of the asymmetric (u8 query, kind "cosine4a") or the
   symmetric (4-bit query, kind "cosine4") metric, then K1a's epilogue.
   K1c finishes both.
+- **K1d** :func:`cosine_coskey_collect` and **K4d**
+  :func:`cosine4_coskey_collect` — K1a and K4a selecting on the key
+  ``-cos`` (the JAX ``epilogue="cos"``, ``_kind_dist_tile`` and
+  ``_cos_key_threshold``): no divide, clamp or identical-vector pin on
+  the hot (query, row) loop; they store the keys.
+- **K1e** :func:`coskey_rescore` — the exact finish of K1d/K4d (the JAX
+  ``_exact_dist_gathered`` + ``_coskey_candidate_postpass``): per
+  collected slot, gather the row, K1a's dot and ``spec_dist``, keep the
+  distance under the strict θ, +inf otherwise.  K1c then sorts.
 
 Uses, exactly where the JAX package launched its kernel.  One code path
 serves every kind; a kind object (:class:`CosineQueries`,
@@ -42,7 +51,8 @@ collect and chunk kernels:
   was ``int4.py:pallas_threshold4_scan_topk``;
   :func:`fused_hamming_threshold_scan_topk`, was
   ``pallas_hamming_threshold_scan_topk(_v2)``): K1a/K4a/K2a + K1c at
-  every batch size, proof ``count <= cap ∧ (count >= k ∨ θ unbound)``
+  every batch size, or with ``epilogue="cos"`` (cosine kinds only) K1d/K4d
+  + K1e + K1c; proof ``count <= cap ∧ (k-th distance finite ∨ θ unbound)``
   (the JAX buffer contract);
 - exact scan (:func:`fused_cosine_scan_topk`, was
   ``pallas_cosine_scan_topk``; :func:`fused_cosine4_scan_topk`, where the
@@ -62,8 +72,9 @@ What bounds the kernels on the card: K1a/K1b read the int8 index once
 per query tile (32 / 4 queries) and spend ~D/4 ``__dp4a`` per (query,
 row) plus one correctly-rounded divide — integer-ALU and divide bound at
 Q >= 32, HBM-read bound below; K4a/K4b read half the bytes and spend
-the same ``__dp4a`` plus one mask and one shift + mask per packed word.
-K2a/K2b spend byte_limit/4 ``__popc``
+the same ``__dp4a`` plus one mask and one shift + mask per packed word;
+K1d/K4d are K1a/K4a without the divide, clamp and pin; K1e is bound by
+its gathered rows.  K2a/K2b spend byte_limit/4 ``__popc``
 per (query, row) — popcount-throughput bound at Q >= 32.  The design
 keeps distances out of device memory (only θ-passing rows or each
 chunk's top-k are written); tensor-core versions (an int8 ``wgmma`` dot,
@@ -116,6 +127,10 @@ MAX_K = 1024
 _PLAIN_BLOCK = 65536
 #: Element budget of the plain Hamming versions' [Q, rows, bytes] xor.
 _PLAIN_XOR_ELEMS = 1 << 26
+#: Element budget of the plain K1e's [B, cap, D] row gather.
+_PLAIN_GATHER_ELEMS = 1 << 24
+#: The main pass's selection epilogues (the JAX ``epilogue`` argument).
+EPILOGUES = ("dist", "cos")
 
 
 # --------------------------------------------------------------------- #
@@ -195,6 +210,12 @@ def _build_and_load() -> _Kernels:
     lib.px_cosine4_collect.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 4
     lib.px_cosine4_chunk_topk.restype = ci
     lib.px_cosine4_chunk_topk.argtypes = [vp] * 4 + [cf, vp, vp] + [ci] * 7 + [vp] * 3
+    lib.px_coskey_collect.restype = ci
+    lib.px_coskey_collect.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 4
+    lib.px_cosine4_coskey_collect.restype = ci
+    lib.px_cosine4_coskey_collect.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 4
+    lib.px_coskey_rescore.restype = ci
+    lib.px_coskey_rescore.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 4
     return _Kernels(lib, str(so), time.perf_counter() - t0, ptxas)
 
 
@@ -255,6 +276,9 @@ LAUNCHES = {
     "hamming_chunk_topk": 0,
     "cosine4_threshold_collect": 0,
     "cosine4_chunk_topk": 0,
+    "cosine_coskey_collect": 0,
+    "cosine4_coskey_collect": 0,
+    "coskey_rescore": 0,
 }
 
 
@@ -299,22 +323,37 @@ def unpack_u4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([packed & 0xF, packed >> 4], dim=-1).to(torch.int8)
 
 
+#: The cosine kinds (the JAX package's names) and their codes in the
+#: kernels' C interface (``kU8``, ``kInt4Asym``, ``kInt4Sym``).
+_KIND_CODES = {"cosine": 0, "cosine4a": 1, "cosine4": 2}
+
+
+def _centered(kind: str, dot8, qs, rs, d: int):
+    """Exact int32 centered dot Σ(a_c · b_c) of a kind from the code dot
+    and the sums (``_kind_dist_tile``; the kernels' ``centered_dot``):
+    u8 (2u − 255 both sides) ``4·dot8 + 2·(q_sum + row_sum) + D``; int4
+    asymmetric (u8 query, codes u − 128, rows 34·v4 − 255) ``68·dot8 +
+    34·row_sum − 510·q_sum − 255·D``; symmetric (34·v4 − 255 both sides)
+    ``1156·dot8 − 8670·(q_sum + row_sum) + 65025·D``.  ``qs`` and ``rs``
+    broadcast against ``dot8``."""
+    if kind == "cosine":
+        return 4 * dot8 + 2 * (qs + rs) + d
+    if kind == "cosine4a":
+        return 68 * dot8 + 34 * rs - 510 * qs - 255 * d
+    return 1156 * dot8 - 8670 * (qs + rs) + 65025 * d
+
+
 def affine4(dot8, q_sum, row_sum, d: int, sym: bool):
-    """Exact int32 centered dot of the int4 metrics from the code dot
-    (``_kind_dist_tile``): symmetric (34·v4 − 255 both sides)
-    ``1156·dot8 − 8670·(q_sum + row_sum) + 65025·D``; asymmetric (u8
-    query 2u − 255, codes u − 128) ``68·dot8 + 34·row_sum − 510·q_sum −
-    255·D``.  [Q, B] from dot8 [Q, B], q_sum [Q], row_sum [B]."""
-    if sym:
-        return 1156 * dot8 - 8670 * (q_sum[:, None] + row_sum[None, :]) + 65025 * d
-    return 68 * dot8 + 34 * row_sum[None, :] - 510 * q_sum[:, None] - 255 * d
+    """Exact int32 centered dot of the int4 metrics (:func:`_centered`):
+    [Q, B] from dot8 [Q, B], q_sum [Q], row_sum [B]."""
+    return _centered("cosine4" if sym else "cosine4a", dot8, q_sum[:, None], row_sum[None, :], d)
 
 
 def _tile_dist(q_codes, q_sum, q_mag2, qr, data, meta):
     """Plain [Q, B] spec-v2 distances + [1, B] validity of a row block —
     op for op the kernels' ``spec_dist`` (and ``_kind_dist_tile``)."""
     dot8 = _dot8(q_codes, data)
-    dot_c = 4 * dot8 + 2 * (q_sum[:, None] + meta[0][None, :]) + data.shape[1]
+    dot_c = _centered("cosine", dot8, q_sum[:, None], meta[0][None, :], data.shape[1])
     return _spec_dist(dot_c, q_mag2, qr, meta)
 
 
@@ -326,20 +365,36 @@ def _tile_dist4(q_codes, q_sum, q_mag2, qr, data, meta, sym: bool):
     return _spec_dist(affine4(dot8, q_sum, meta[0], 2 * data.shape[1], sym), q_mag2, qr, meta)
 
 
+def _tile_key(kind: str, q_codes, q_sum, qr, data, meta):
+    """Plain [Q, B] cos keys ``-fl(dot_c · fl(qr · rr))`` + [1, B] validity
+    of a row block of a cosine kind — op for op K1d/K4d's key."""
+    dot8 = _dot8(q_codes, data if kind == "cosine" else unpack_u4(data))
+    dot_c = _centered(kind, dot8, q_sum[:, None], meta[0][None, :], q_codes.shape[1])
+    rr = meta[2].contiguous().view(torch.float32)
+    return -(dot_c.to(torch.float32) * (qr[:, None] * rr[None, :])), (meta[1] > 0)[None, :]
+
+
+def _spec_epilogue(dot_c, qr, rr, q_mag2, row_mag2):
+    """The spec-v2 distance of exact centered dots, op for op the
+    kernels' ``spec_dist``; the query columns ``qr``/``q_mag2`` broadcast
+    against the row tensors ``rr``/``row_mag2``."""
+    dot_f = dot_c.to(torch.float32)
+    cos = dot_f * (qr * rr)
+    g = torch.maximum(cos, _f32(1e-6, cos))
+    dist = torch.ones_like(g) / g - _f32(1.0, g)
+    dist = torch.maximum(dist, _f32(0.0, dist))
+    q_mag2_f = q_mag2.to(torch.float32)
+    row_mag2_f = row_mag2.to(torch.float32)
+    ident = (dot_f == q_mag2_f) & (q_mag2_f == row_mag2_f)
+    return torch.where(ident, _f32(0.0, dist), dist)
+
+
 def _spec_dist(dot_c, q_mag2, qr, meta):
     """The spec-v2 epilogue of [Q, B] exact centered dots: distances and
     the [1, B] validity (row mag2 > 0)."""
     row_mag2 = meta[1]
     rr = meta[2].contiguous().view(torch.float32)
-    dot_f = dot_c.to(torch.float32)
-    cos = dot_f * (qr[:, None] * rr[None, :])
-    g = torch.maximum(cos, _f32(1e-6, cos))
-    dist = torch.ones_like(g) / g - _f32(1.0, g)
-    dist = torch.maximum(dist, _f32(0.0, dist))
-    q_mag2_f = q_mag2.to(torch.float32)[:, None]
-    row_mag2_f = row_mag2.to(torch.float32)[None, :]
-    ident = (dot_f == q_mag2_f) & (q_mag2_f == row_mag2_f)
-    dist = torch.where(ident, _f32(0.0, dist), dist)
+    dist = _spec_epilogue(dot_c, qr[:, None], rr[None, :], q_mag2[:, None], row_mag2[None, :])
     return dist, (row_mag2 > 0)[None, :]
 
 
@@ -362,27 +417,39 @@ def cosine_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap:
     it writes only the θ-passing rows (~320 per query at the default
     target), so distances never reach device memory.
     """
-    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
+    dev, qn, _, _ = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
     _require(theta, "theta", torch.float32, (qn,), dev)
     if dev.type != "cuda":
         return cosine_threshold_collect_plain(
             q_codes, q_sum, q_mag2, qr, theta, data, meta, cap
         )
+    return _collect_on_card(
+        "cosine_threshold_collect", "px_threshold_collect",
+        q_codes, q_sum, q_mag2, qr, theta, data, meta, cap,
+    )
+
+
+def _collect_on_card(name, entry, q_codes, q_sum, q_mag2, qr, theta, data, meta, cap, *mode):
+    """Launch one of the cosine collect kernels (K1a/K4a/K1d/K4d) through
+    its C entry point; ``mode`` holds the int4 kernels' ``sym`` flag.
+    Returns (count, cand [Q, cap] f32, cand_i [Q, cap] i32)."""
+    dev = data.device
+    qn, d = q_codes.shape
     if _COLLECT_Q * d > 48 * 1024:
-        raise ValueError(f"dim {d} too wide for cosine_threshold_collect")
-    k = load_kernels()
+        raise ValueError(f"dim {d} too wide for {name}")
+    kern = load_kernels()
     count = torch.zeros(qn, dtype=torch.int32, device=dev)
     cand_d = torch.empty((qn, cap), dtype=torch.float32, device=dev)
     cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
     q_mag2f = q_mag2.to(torch.float32)
     with torch.cuda.device(dev):
-        rc = k.lib.px_threshold_collect(
+        rc = getattr(kern.lib, entry)(
             _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), _ptr(theta),
-            _ptr(data), _ptr(meta), qn, n, d, cap,
+            _ptr(data), _ptr(meta), qn, data.shape[0], d, *mode, cap,
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
-    _check(rc, "cosine_threshold_collect")
-    LAUNCHES["cosine_threshold_collect"] += 1
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return count, cand_d, cand_i
 
 
@@ -508,28 +575,16 @@ def cosine4_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, sym
     word unpacked in registers into two ``__dp4a`` operands — the same
     integer-ALU bound as K1a at Q >= 32, half its HBM reads below.
     """
-    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
+    dev, qn, _, _ = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
     _require(theta, "theta", torch.float32, (qn,), dev)
     if dev.type != "cuda":
         return cosine4_threshold_collect_plain(
             q_codes, q_sum, q_mag2, qr, theta, data, meta, sym, cap
         )
-    if _COLLECT_Q * d > 48 * 1024:
-        raise ValueError(f"dim {d} too wide for cosine4_threshold_collect")
-    kern = load_kernels()
-    count = torch.zeros(qn, dtype=torch.int32, device=dev)
-    cand_d = torch.empty((qn, cap), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
-    q_mag2f = q_mag2.to(torch.float32)
-    with torch.cuda.device(dev):
-        rc = kern.lib.px_cosine4_collect(
-            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), _ptr(theta),
-            _ptr(data), _ptr(meta), qn, n, d, int(sym), cap,
-            _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
-        )
-    _check(rc, "cosine4_threshold_collect")
-    LAUNCHES["cosine4_threshold_collect"] += 1
-    return count, cand_d, cand_i
+    return _collect_on_card(
+        "cosine4_threshold_collect", "px_cosine4_collect",
+        q_codes, q_sum, q_mag2, qr, theta, data, meta, cap, int(sym),
+    )
 
 
 def cosine4_threshold_collect_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, sym, cap):
@@ -581,6 +636,160 @@ def cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, met
         lambda lo, hi: _tile_dist4(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi], sym),
         q_codes.shape[0], data.shape[0], max_distance, k, data.device,
     )
+
+
+# --------------------------------------------------------------------- #
+# K1d / K4d: collect on the cos key; K1e: their exact finish
+#
+# The JAX package's epilogue="cos" (pallas_scan.py:_kind_dist_tile with
+# the key -cos, _cos_key_threshold, _coskey_candidate_postpass).  dist is
+# monotone non-increasing in cos, and ``dist < θ`` ⟺ ``cos > 1/(1 + θ)``
+# up to a few ulps of spec rounding; the key threshold's 1e-5 relative
+# margin (:func:`cos_key_threshold`) makes the key filter admit a STRICT
+# SUPERSET of the ``dist < θ`` rows — false positives only, which K1e
+# removes by applying the true, strict θ to the exact distance.  The
+# port's collect keeps every key-passing row under an exact count (not
+# the top G by key, as the TPU carry did), so the TPU's plateau check has
+# no counterpart: the proof is ``count <= cap`` (every key-passing row,
+# hence every θ-passing row, collected) and then the k-th rescored
+# distance finite or θ unbound.
+
+#: The distance every cos ≤ 1e-6 saturates to (spec v2,
+#: ``pallas_scan.py:_DIST_SATURATION``): a θ at or above it admits every
+#: valid row, so its key threshold is +inf.
+DIST_SATURATION = float(np.float32(1.0) / np.float32(1e-6) - np.float32(1.0))
+
+
+def cos_key_threshold(theta: torch.Tensor) -> torch.Tensor:
+    """[Q] f32 key threshold of the strict distance thresholds ``theta``
+    [Q] f32, op for op ``pallas_scan.py:_cos_key_threshold``: ``c =
+    fl(fl(1 / fl(1 + θ)) · f32(1 − 1e-5))``, key θ = −c, +inf where θ ≥
+    :data:`DIST_SATURATION`.  Computed with f32 tensor ops (IEEE divide)
+    on the thresholds' own device, for the kernels and their plain
+    versions alike."""
+    one = _f32(1.0, theta)
+    c = (one / (one + theta)) * _f32(1 - 1e-5, theta)
+    return torch.where(
+        theta >= _f32(DIST_SATURATION, theta), torch.full_like(theta, float("inf")), -c
+    ).contiguous()
+
+
+def cosine_coskey_collect(q_codes, q_sum, q_mag2, qr, key_theta, data, meta, cap: int):
+    """K1d: append every valid row with ``-cos < key_theta[q]`` to query
+    q's buffer.  Returns (count [Q] i32 — the EXACT number of passing
+    rows, cand_key [Q, cap] f32 — the keys −cos, cand_i [Q, cap] i32);
+    slot order as :func:`cosine_threshold_collect`.
+
+    Replaces ``pallas_scan.py:_threshold_kernel`` with ``epilogue="cos"``
+    (``_kind_dist_tile`` :171-174).  On the card: K1a's dot with no
+    divide, clamp or pin — still bound by the D/4 ``__dp4a`` per query
+    and row at Q >= 32."""
+    dev, qn, _, _ = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
+    _require(key_theta, "key_theta", torch.float32, (qn,), dev)
+    if dev.type != "cuda":
+        return cosine_coskey_collect_plain(q_codes, q_sum, q_mag2, qr, key_theta, data, meta, cap)
+    return _collect_on_card(
+        "cosine_coskey_collect", "px_coskey_collect",
+        q_codes, q_sum, q_mag2, qr, key_theta, data, meta, cap,
+    )
+
+
+def cosine_coskey_collect_plain(q_codes, q_sum, q_mag2, qr, key_theta, data, meta, cap):
+    """Plain PyTorch version of K1d (keys, ascending row order)."""
+    return _collect_plain(
+        lambda lo, hi: _tile_key("cosine", q_codes, q_sum, qr, data[lo:hi], meta[:, lo:hi]),
+        q_codes.shape[0], data.shape[0], key_theta, cap, _PLAIN_BLOCK,
+    )
+
+
+def cosine4_coskey_collect(q_codes, q_sum, q_mag2, qr, key_theta, data, meta, sym: bool, cap: int):
+    """K4d: :func:`cosine_coskey_collect` over packed int4 rows (arguments
+    as :func:`cosine4_threshold_collect`) — the int4 kinds' cos key."""
+    dev, qn, _, _ = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
+    _require(key_theta, "key_theta", torch.float32, (qn,), dev)
+    if dev.type != "cuda":
+        return cosine4_coskey_collect_plain(
+            q_codes, q_sum, q_mag2, qr, key_theta, data, meta, sym, cap
+        )
+    return _collect_on_card(
+        "cosine4_coskey_collect", "px_cosine4_coskey_collect",
+        q_codes, q_sum, q_mag2, qr, key_theta, data, meta, cap, int(sym),
+    )
+
+
+def cosine4_coskey_collect_plain(q_codes, q_sum, q_mag2, qr, key_theta, data, meta, sym, cap):
+    """Plain PyTorch version of K4d (keys, ascending row order)."""
+    kind = "cosine4" if sym else "cosine4a"
+    return _collect_plain(
+        lambda lo, hi: _tile_key(kind, q_codes, q_sum, qr, data[lo:hi], meta[:, lo:hi]),
+        q_codes.shape[0], data.shape[0], key_theta, cap, _PLAIN_BLOCK,
+    )
+
+
+def coskey_rescore(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind: str, lens, cand_i):
+    """K1e: the exact spec distance of every collected candidate, kept
+    where it is ``< theta[q]`` (the strict distance threshold) and +inf
+    otherwise; slots at or past ``lens[q]`` read +inf.  ``kind`` is
+    "cosine" (u8 rows [N, D]) or "cosine4a" / "cosine4" (packed int4 rows
+    [N, D/2], queries as :func:`cosine4_threshold_collect`); ``cand_i``
+    [Q, cap] i32 from K1d/K4d.  Returns a new [Q, cap] f32 tensor.
+
+    Replaces ``pallas_scan.py:_exact_dist_gathered`` and
+    ``_coskey_candidate_postpass`` (:747, the gather and the strict θ;
+    K1c does the sort).  The row dot, ``centered_dot`` and ``spec_dist``
+    are K1a's device functions, so the distances are bit-identical to
+    K1a's.  On the card: one thread per slot, bound by the gathered rows
+    (min(count, cap) per query) and the [Q, cap] output."""
+    if kind not in _KIND_CODES:
+        raise ValueError(f"no cos key for kind {kind!r} (cosine kinds: {sorted(_KIND_CODES)})")
+    dev, qn, n, d = _check_query_args(
+        q_codes, q_sum, q_mag2, qr, data, meta, packed=kind != "cosine"
+    )
+    _require(theta, "theta", torch.float32, (qn,), dev)
+    _require(lens, "lens", torch.int32, (qn,), dev)
+    _require(cand_i, "cand_i", torch.int32, (qn, cand_i.shape[-1]), dev)
+    cap = cand_i.shape[1]
+    if dev.type != "cuda":
+        return coskey_rescore_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind, lens, cand_i)
+    if d > 48 * 1024:
+        raise ValueError(f"dim {d} too wide for coskey_rescore")
+    kern = load_kernels()
+    out = torch.empty((qn, cap), dtype=torch.float32, device=dev)
+    q_mag2f = q_mag2.to(torch.float32)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_coskey_rescore(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), _ptr(theta),
+            _ptr(data), _ptr(meta), qn, n, d, _KIND_CODES[kind], cap,
+            _ptr(lens), _ptr(cand_i), _ptr(out), _stream(dev),
+        )
+    _check(rc, "coskey_rescore")
+    LAUNCHES["coskey_rescore"] += 1
+    return out
+
+
+def coskey_rescore_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind, lens, cand_i):
+    """Plain PyTorch version of K1e: gathered rows, an exact int32 code
+    dot, :func:`_centered` and :func:`_spec_epilogue` — in query blocks
+    that bound the [B, cap, D] gather."""
+    qn, cap = cand_i.shape
+    d = q_codes.shape[1]
+    live = torch.arange(cap, device=cand_i.device)[None, :] < lens[:, None]
+    rows = torch.where(live, cand_i, torch.zeros_like(cand_i)).long()
+    out = torch.full((qn, cap), float("inf"), dtype=torch.float32, device=cand_i.device)
+    step = max(1, _PLAIN_GATHER_ELEMS // max(1, cap * d))
+    for s in range(0, qn, step):
+        e = min(qn, s + step)
+        r = rows[s:e]
+        g = data[r] if kind == "cosine" else unpack_u4(data[r])
+        dot8 = (g.to(torch.int32) * q_codes[s:e, None, :].to(torch.int32)).sum(-1, dtype=torch.int32)
+        m = meta[:, r]
+        dot_c = _centered(kind, dot8, q_sum[s:e, None], m[0], d)
+        dist = _spec_epilogue(
+            dot_c, qr[s:e, None], m[2].contiguous().view(torch.float32), q_mag2[s:e, None], m[1]
+        )
+        keep = live[s:e] & (dist < theta[s:e, None])
+        out[s:e] = torch.where(keep, dist, torch.full_like(dist, float("inf")))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -877,6 +1086,17 @@ class CosineQueries(NamedTuple):
             self.q_codes, self.q_sum, self.q_mag2, self.qr, max_distance, data, meta, k
         )
 
+    def coskey_collect(self, key_theta, data, meta, cap):
+        return cosine_coskey_collect(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, key_theta, data, meta, cap
+        )
+
+    def rescore(self, theta, data, meta, lens, cand_i):
+        return coskey_rescore(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta,
+            "cosine", lens, cand_i,
+        )
+
     def widen(self, theta):
         return theta
 
@@ -915,6 +1135,17 @@ class Int4Queries(NamedTuple):
     def chunk_topk(self, max_distance, data, meta, k):
         return cosine4_chunk_topk(
             self.q_codes, self.q_sum, self.q_mag2, self.qr, max_distance, data, meta, self.sym, k
+        )
+
+    def coskey_collect(self, key_theta, data, meta, cap):
+        return cosine4_coskey_collect(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, key_theta, data, meta, self.sym, cap
+        )
+
+    def rescore(self, theta, data, meta, lens, cand_i):
+        return coskey_rescore(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta,
+            "cosine4" if self.sym else "cosine4a", lens, cand_i,
         )
 
     def widen(self, theta):
@@ -1016,10 +1247,18 @@ def _as_queries(query_u8, device) -> Tuple[torch.Tensor, bool]:
     return (q[None, :] if squeeze else q), squeeze
 
 
-def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap):
+def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap, epilogue="dist"):
     """The main pass shared by every kind: θ from the sample (widened by
-    the kind), K1a/K4a/K2a over every row, K1c over the buffer, and the proof.
-    Returns (dist [Q,k], idx [Q,k], exact [Q])."""
+    the kind; the sample stage always selects on the distance, as
+    ``_pallas_sample_theta`` does), the collect over every row, K1c over
+    the buffer, and the proof.  ``epilogue="dist"``: K1a/K4a/K2a collect
+    the distances under θ.  ``epilogue="cos"`` (cosine kinds): K1d/K4d
+    collect the rows under the key threshold, K1e rescores them under the
+    strict θ.  Returns (dist [Q,k], idx [Q,k], exact [Q])."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {EPILOGUES}, got {epilogue!r}")
+    if epilogue == "cos" and isinstance(qk, HammingQueries):
+        raise ValueError("Hamming distances have no cos key: epilogue='cos' is for the cosine kinds")
     n_pad = data.shape[0]
     md = _f32(max_distance, data)
     s = smp.data.shape[0]
@@ -1031,9 +1270,19 @@ def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap):
     unbound = ~(theta_j < md)
     if cap is None:
         cap = max(4096, topk_ops._next_pow2(8 * target_count))
-    count, cand_d, cand_i = qk.collect(theta, data, meta, cap)
-    best_d, best_i = lex_topk(cand_d, cand_i, k, lens=torch.clamp(count, max=cap))
-    exact = (count <= cap) & ((count >= k) | unbound)
+    if epilogue == "cos":
+        count, _, cand_i = qk.coskey_collect(cos_key_threshold(theta), data, meta, cap)
+        lens = torch.clamp(count, max=cap)
+        cand_d = qk.rescore(theta, data, meta, lens, cand_i)
+    else:
+        count, cand_d, cand_i = qk.collect(theta, data, meta, cap)
+        lens = torch.clamp(count, max=cap)
+    best_d, best_i = lex_topk(cand_d, cand_i, k, lens=lens)
+    # count <= cap: every row passing the filter (dist: exactly the θ rows;
+    # cos: a superset of them, the rest now +inf) was collected, so the
+    # collected top-k is the true top-k when k rows pass θ (the k-th
+    # distance is finite) or when θ is unbound (the WHERE-clause result).
+    exact = (count <= cap) & (torch.isfinite(best_d[:, k - 1]) | unbound)
     return best_d, best_i, exact
 
 
@@ -1056,23 +1305,27 @@ def fused_threshold_scan_topk(
     max_distance: float = 1e3,
     target_count: Optional[int] = None,
     cap: Optional[int] = None,
+    epilogue: str = "dist",
 ):
     """Batched guaranteed-verifiable u8 cosine threshold scan — the port of
     ``pallas_threshold_scan_topk_v2`` and of the buffer-select
     ``pallas_threshold_scan_topk`` (Q > 1024): K1a's exact-count buffer
-    serves every batch size.  Returns (dist [Q,k], idx [Q,k], exact [Q]).
+    serves every batch size; ``epilogue="cos"`` selects on the cos key
+    (K1d + K1e, the JAX ``epilogue="cos"``) with the same results.
+    Returns (dist [Q,k], idx [Q,k], exact [Q]).
 
-    ``exact[q]`` ⟺ the result provably equals the exact scan: K1a's count
-    is exact, so ``count <= cap`` means every θ-passing row was collected,
-    and then ``count >= k`` (the k-th smallest is < θ) or θ unbound (the
-    collected set IS the WHERE-clause result) makes the collected top-k
-    the true top-k.  Use via ``ops.scan.cosine_scan_topk_auto``, which
-    repairs unproven queries.
+    ``exact[q]`` ⟺ the result provably equals the exact scan: the
+    collect's count is exact, so ``count <= cap`` means every row passing
+    its filter (the θ rows, or a superset of them under the cos key) was
+    collected, and then a finite k-th distance (k rows under θ) or θ
+    unbound (the collected set IS the WHERE-clause result) makes the
+    collected top-k the true top-k.  Use via
+    ``ops.scan.cosine_scan_topk_auto``, which repairs unproven queries.
     """
     q, squeeze = _as_queries(query_u8, index.device)
     out = _threshold_scan(
         CosineQueries.from_u8(q), index.data, row_meta, smp, k, max_distance,
-        target_count, cap,
+        target_count, cap, epilogue,
     )
     return _squeezed(out, squeeze)
 
@@ -1112,6 +1365,7 @@ def fused_threshold4_scan_topk(
     target_count: Optional[int] = None,
     cap: Optional[int] = None,
     query_mode: str = "asym",
+    epilogue: str = "dist",
 ):
     """Batched guaranteed-verifiable int4 threshold scan over a
     ``PackedSemantic4Index`` — the port of
@@ -1119,10 +1373,13 @@ def fused_threshold4_scan_topk(
     with the cosine scan's θ estimate (over the packed ``smp``) and proof.
     ``row_meta`` is ``build_semantic4_meta``.  ``query_mode="asym"`` (u8
     queries, kind "cosine4a") or ``"sym"`` (4-bit queries, kind
-    "cosine4").  Returns (dist [Q,k], idx [Q,k], exact [Q]); repair the
-    unproven queries with :func:`fused_cosine4_scan_topk`."""
+    "cosine4"); ``epilogue="cos"`` selects on the cos key (K4d + K1e).
+    Returns (dist [Q,k], idx [Q,k], exact [Q]); repair the unproven
+    queries with :func:`fused_cosine4_scan_topk`."""
     qk, squeeze = _int4_queries(query_u8, index, query_mode)
-    out = _threshold_scan(qk, index.data, row_meta, smp, k, max_distance, target_count, cap)
+    out = _threshold_scan(
+        qk, index.data, row_meta, smp, k, max_distance, target_count, cap, epilogue
+    )
     return _squeezed(out, squeeze)
 
 

@@ -289,6 +289,7 @@ def cosine4_scan_topk_auto(
     sample=None,
     meta=None,
     query_mode: str = "asym",
+    epilogue: str = "dist",
 ):
     """Guaranteed-exact int4 scan: results always identical to
     :func:`cosine4a_scan_topk` (``query_mode="asym"``, the default — u8
@@ -299,7 +300,9 @@ def cosine4_scan_topk_auto(
     (K4a + K1c) runs and unproven queries are re-scanned by the fused
     exact scan in a small padded bucket.  Pass the cached ``sample``
     (``ops.scan.build_scan_sample`` of this index) and ``meta``
-    (:func:`build_semantic4_meta`) to skip re-deriving them.
+    (:func:`build_semantic4_meta`) to skip re-deriving them.  ``epilogue``
+    picks the threshold pass's selection: "dist" (K4a) or "cos" (the cos
+    key, K4d + K1e); the results are the same.
     """
     if query_mode not in ("asym", "sym"):
         raise ValueError(f"int4 query_mode must be 'asym' or 'sym', got {query_mode!r}")
@@ -318,7 +321,8 @@ def cosine4_scan_topk_auto(
         if sample is None:
             sample = build_scan_sample(index)
         best_d, best_i, exact = fused_threshold4_scan_topk(
-            q, index, meta, sample, k=k, max_distance=max_distance, query_mode=query_mode
+            q, index, meta, sample, k=k, max_distance=max_distance, query_mode=query_mode,
+            epilogue=epilogue,
         )
         best_d, best_i = repair_unproven(q, best_d, best_i, exact, exact_scan)
     if squeeze:

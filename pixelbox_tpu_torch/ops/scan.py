@@ -157,6 +157,7 @@ def cosine_scan_topk_auto(
     block_rows: int = DEFAULT_BLOCK_ROWS,
     sample: Optional[ScanSample] = None,
     row_meta: Optional[torch.Tensor] = None,
+    epilogue: str = "dist",
 ):
     """Guaranteed-exact scan (host-level repair); results always identical
     to :func:`cosine_scan_topk`.
@@ -169,7 +170,9 @@ def cosine_scan_topk_auto(
     CUDA index both go through the hand-written kernels; on a CPU index
     through their plain versions.  Pass the cached ``sample``
     (build_scan_sample) and ``row_meta`` (fused_scan.build_row_meta) to
-    skip re-deriving them.
+    skip re-deriving them.  ``epilogue`` picks the threshold pass's
+    selection: "dist" (K1a) or "cos" (the cos key, K1d + K1e); the
+    results are the same.
     """
     q, squeeze = _as_queries(query_u8, index.device)
     if row_meta is None:
@@ -182,7 +185,7 @@ def cosine_scan_topk_auto(
         if sample is None:
             sample = build_scan_sample(index)
         best_d, best_i, exact = fused_threshold_scan_topk(
-            q, index, row_meta, sample, k=k, max_distance=max_distance
+            q, index, row_meta, sample, k=k, max_distance=max_distance, epilogue=epilogue
         )
 
         def exact_rescan(rq):

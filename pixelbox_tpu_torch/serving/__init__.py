@@ -1,12 +1,22 @@
-"""Per-modality serving mixins for :class:`pixelbox_tpu_torch.engine.Engine`.
+"""Per-modality serving mixins for :class:`pixelbox_tpu_torch.engine.Engine`,
+and the micro-batching scan service behind the web server.
 
 Ported so far: semantic (visual-similarity) search, perceptual-hash
-search and whole-index duplicate finding; BLIP ``text:``, faces, IVF and
-watch wait (ROADMAP.md).
+search, whole-index duplicate finding, watched folders and the batching
+service; BLIP ``text:``, faces and IVF wait (ROADMAP.md).
 """
 
 from pixelbox_tpu_torch.serving.duplicates import DuplicateFinding
 from pixelbox_tpu_torch.serving.phash import PhashServing
 from pixelbox_tpu_torch.serving.semantic import SemanticServing
+from pixelbox_tpu_torch.serving.service import BatchingScanService, ScanInputs
+from pixelbox_tpu_torch.serving.watch import WatchMixin
 
-__all__ = ["DuplicateFinding", "PhashServing", "SemanticServing"]
+__all__ = [
+    "BatchingScanService",
+    "DuplicateFinding",
+    "PhashServing",
+    "ScanInputs",
+    "SemanticServing",
+    "WatchMixin",
+]

@@ -51,17 +51,35 @@ class PhashServing:
         kk = int(k or self.max_search_results)
         md = float(self.max_distance_from_query)
 
-        widths = np.asarray(self._ph_widths, dtype=np.int64)
-        uniform = wq >= dim and bool(np.all(widths == dim))
         with timed("engine.phash_scan"):
-            if uniform:
+            if wq >= dim and self.phash_store_uniform():
                 dist, idx = self._phash_gemm_scan(ph[:dim], kk, md)
             else:
+                widths = np.asarray(self._ph_widths, dtype=np.int64)
                 dist, idx = self._phash_mixed_scan(ph, wq, widths, kk, md)
         keep = idx >= 0
         ids = [self._ph_image_ids[int(row)] for row in idx[keep]]
         with timed("engine.build_results"):
             self._cached_search_results = self._results_from_image_ids(ids, dist[keep])
+
+    def phash_store_uniform(self) -> bool:
+        """True when every stored phash has the store's width — the case
+        the batched scan serves.  Cached per store version (appends,
+        deletes, compaction and ``grow_dim`` bump it): converting the
+        per-row width list costs tens of ms at 10^6 rows.
+
+        Callers hold the index read lock: a check during an append would
+        read the store's version before its width list.  It takes none
+        itself, because the scan service's collector calls it on behalf
+        of requests that hold theirs, and a new top-level read there would
+        queue behind a waiting writer that waits on those requests."""
+        ver = self._ph_store.version
+        cached = getattr(self, "_ph_uniform_cache", None)
+        if cached is None or cached[0] != ver:
+            widths = np.asarray(self._ph_widths, dtype=np.int64)
+            cached = (ver, bool(np.all(widths == self._ph_store.dim)))
+            self._ph_uniform_cache = cached
+        return cached[1]
 
     def _ensure_ph_gemm(self):
         """The scan's derived state for the packed phash store — the index,
@@ -99,8 +117,7 @@ class PhashServing:
         those queries take the grouped zip-truncate path per query."""
         q = np.asarray(queries, dtype=np.uint8)
         dim = self._ph_store.dim
-        widths = np.asarray(self._ph_widths, dtype=np.int64)
-        if q.shape[1] < dim or not bool(np.all(widths == dim)):
+        if q.shape[1] < dim or not self.phash_store_uniform():
             raise ValueError("mixed-width phash store: no batched path")
         _no_mesh(self)
         return self._phash_gemm_scan(q[:, :dim], k, max_distance)

@@ -47,6 +47,7 @@ from pixelbox_tpu_torch.ops.scan import (
 )
 from pixelbox_tpu_torch.records import IndexedImage
 from pixelbox_tpu_torch.serving.common import _read_locked
+from pixelbox_tpu_torch.serving.service import ScanInputs
 from pixelbox_tpu_torch.utils.timing import timed
 
 SCAN_MODES = ("auto", "exact", "fast", "pallas")
@@ -75,6 +76,15 @@ class SemanticServing:
             self._scan_sample = build_scan_sample(index)
             self._scan_sample_at_ver = self._sem_cache_key()
         return self._scan_sample
+
+    def semantic_scan_inputs(self) -> ScanInputs:
+        """The semantic store's device index with its cached θ sample and
+        row meta — the batching service's ``index_provider``.  The caches
+        are keyed on the store's (kind, version), which every in-place
+        append and tombstone bumps."""
+        return ScanInputs(
+            self._sem_store.device_index, self._get_scan_sample(), self._get_row_meta()
+        )
 
     # ------------------------------------------------------------------ #
     # Visual similarity query (engine.rs:352-396)

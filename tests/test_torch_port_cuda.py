@@ -196,3 +196,80 @@ def test_int4_main_path_goes_through_the_kernels(mode):
     assert fs.launch_counts()["cosine4_chunk_topk"] > 0
     want = exact(q.cpu(), cpu, k=100)
     assert torch.equal(fused[0].cpu(), want[0]) and torch.equal(fused[1].cpu(), want[1])
+
+
+def _key_collect_matches_plain(c1, k1, i1, c2, k2, i2, cap):
+    """Counts equal; the collected (key, row) pairs equal as sets (atomic
+    slot order on the card) wherever the buffer did not overflow."""
+    assert torch.equal(c1, c2)
+    for r in range(c1.shape[0]):
+        n = int(c1[r])
+        if n > cap:
+            continue
+        o1, o2 = torch.argsort(i1[r, :n]), torch.argsort(i2[r, :n])
+        assert torch.equal(i1[r, :n][o1], i2[r, :n][o2])
+        assert torch.equal(k1[r, :n][o1].view(torch.int32), k2[r, :n][o2].view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["cosine", "cosine4a", "cosine4"])
+@pytest.mark.parametrize("dim", [36, 128], ids=["d36", "d128_vec16"])
+def test_coskey_kernels_match_plain(kind, dim):
+    """K1d / K4d keys and counts, and K1e's rescored distances, bit for bit
+    against their plain versions; K1e's distances equal K1a's / K4a's."""
+    dev = _card()
+    if kind == "cosine":
+        idx, q = _index(65536, dim, seed=dim + 1, dev=dev)
+        meta = fs.build_row_meta(idx)
+        qk = fs.CosineQueries.from_u8(q)
+    else:
+        idx, q = _int4_index(65536, dim, seed=dim + 2, dev=dev)
+        meta = int4.build_semantic4_meta(idx)
+        qk = fs.Int4Queries.from_u8(q, "sym" if kind == "cosine4" else "asym")
+    args = (qk.q_codes, qk.q_sum, qk.q_mag2, qk.qr)
+    theta = torch.full((40,), 0.2, device=dev)
+    theta[5] = 1e7  # saturated: every valid row passes the key filter
+    key = fs.cos_key_threshold(theta)
+    cap = 4096
+    if kind == "cosine":
+        got = fs.cosine_coskey_collect(*args, key, idx.data, meta, cap)
+        want = fs.cosine_coskey_collect_plain(*args, key, idx.data, meta, cap)
+    else:
+        got = fs.cosine4_coskey_collect(*args, key, idx.data, meta, qk.sym, cap)
+        want = fs.cosine4_coskey_collect_plain(*args, key, idx.data, meta, qk.sym, cap)
+    _key_collect_matches_plain(*got, *want, cap)
+    assert int(got[0][5]) > cap  # the saturated query overflows
+    lens = torch.clamp(got[0], max=cap)
+    out = fs.coskey_rescore(*args, theta, idx.data, meta, kind, lens, got[2])
+    plain = fs.coskey_rescore_plain(*args, theta, idx.data, meta, kind, lens, got[2])
+    assert torch.equal(out, plain)
+    d_key = fs.lex_topk(out, got[2], 100, lens=lens)
+    d_dist = qk.collect(theta, idx.data, meta, cap)
+    d_dist = fs.lex_topk(d_dist[1], d_dist[2], 100, lens=torch.clamp(d_dist[0], max=cap))
+    ok = got[0] <= cap
+    assert torch.equal(d_key[0][ok], d_dist[0][ok]) and torch.equal(d_key[1][ok], d_dist[1][ok])
+
+
+@pytest.mark.parametrize("kind", ["cosine", "cosine4a", "cosine4"])
+def test_coskey_main_path_goes_through_the_kernels(kind):
+    dev = _card()
+    if kind == "cosine":
+        idx, q = _index(262144, 128, seed=9, dev=dev)
+        auto = lambda qq, ii, **kw: tscan.cosine_scan_topk_auto(qq, ii, k=100, **kw)  # noqa: E731
+        exact = tscan.cosine_scan_topk
+        cpu = PackedSemanticIndex(*(t.cpu() for t in idx))
+        collect = "cosine_coskey_collect"
+    else:
+        idx, q = _int4_index(262144, 128, seed=10, dev=dev)
+        mode = "sym" if kind == "cosine4" else "asym"
+        auto = lambda qq, ii, **kw: int4.cosine4_scan_topk_auto(qq, ii, k=100, query_mode=mode, **kw)  # noqa: E731
+        exact = int4.cosine4_scan_topk if mode == "sym" else int4.cosine4a_scan_topk
+        cpu = int4.PackedSemantic4Index(*(t.cpu() for t in idx))
+        collect = "cosine4_coskey_collect"
+    fs.reset_launch_counts()
+    got = auto(q, idx, epilogue="cos")
+    counts = fs.launch_counts()
+    assert counts[collect] > 0 and counts["coskey_rescore"] > 0
+    want = exact(q.cpu(), cpu, k=100)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    plain = auto(q.cpu(), cpu, epilogue="cos")
+    assert torch.equal(plain[0], want[0]) and torch.equal(plain[1], want[1])

@@ -46,7 +46,9 @@ def _index(engine_cls, db, shared, **kw):
         embedder_kwargs={"checkpoint_path": shared["ckpt"], "input_size": 64}, **kw,
     )
     eng.add_tracked_folder(shared["photos"])
-    eng.start_indexing(num_workers=2)
+    # One decode worker: rows are appended in crawl order, so row ids — the
+    # tie-break of equal distances — agree between the two libraries.
+    eng.start_indexing(num_workers=1)
     assert eng.wait_for_indexing(timeout=300)
     return eng
 
