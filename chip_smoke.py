@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. Device: requires ``torch.cuda.is_available()``; prints the card and
    ``nvidia-smi`` name/power limit; holds the exact numerics (TF32 off,
    cuDNN deterministic, benchmark off).
-2. Build: compiles ``pixelbox_tpu_torch/csrc/*.cu`` for sm_90a.
+2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu`` and
+   ``csrc/breakdown.cu`` for sm_90a, one nvcc each, in parallel.
 3. Kernels vs plain at the main shapes (1,048,576 rows × 128, k = 100,
    Q ∈ {1, 8, 256}) in five cases: θ from the sample, θ = max_distance, a
    max_distance filter that excludes rows, 1% invalid rows, and a tie
@@ -81,6 +82,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the batches the cos key serves) straight into the service against its
    dist-path scan; then a burst and a full bucket on phase 6's int4 engine
    (rerank on) — counting launches from zero around each burst.
+8. Mesh serving (runs before phase 7, which keeps its stores as phase 6
+   left them): phases 4–6's 1M-row u8, phash and int4 libraries put on a
+   4-shard mesh through ``Engine.serve_on_mesh`` (the visible cards
+   round-robin; with one card all four shards on it, 262,144 rows each):
+   ``similar`` (auto; pallas and exact modes; an upload),
+   ``phash-similar`` at 32 B and at 24 B (the mixed-width path), int4
+   ``similar`` with the rerank, and 64 batches of 256 of the phash and u8
+   duplicate passes (8 of the int4 one) — each equal to the same engine
+   on one device, and to the numpy oracle on sampled queries.  Every
+   per-shard and merge launch is replayed bit-identical through its plain
+   version; the sharded auto is timed against the one-device auto at
+   Q ∈ {1, 8, 256} in turns, and one shard's K1a and the merge K1c (with
+   ``torch.sort`` of its keys) at Q = 256 — counting launches from zero
+   around the mesh path.
+8b. Mesh mutations (after phase 7): the u8 library as phase 7 left it
+   (grown past 1M rows by its append) back on the mesh, then a tag, a
+   removal (one full reshard) and a 1,024-row append within the capacity
+   (a delta sync), each seen by the next query, which then equals the
+   engine on one device; launches counted from zero and replayed.
+9. The breakdown ladder: ``tools.measure_breakdown.run()`` at its full
+   shape (Q = 256 × 1,048,576 × 128, TILE 8,192, 20 repeats) — counting
+   launches from zero around it — then each rung once at that shape on
+   rows planted near the queries, bit-identical to its plain version.
 
 The last lines are the card's nvidia-smi line, the kernels' JSON summary
 (time, plain time, bound, library time per kernel) and
@@ -116,7 +140,9 @@ INT8_OPS = 1979e12
 F32_OPS = 67e12
 INT4_KS = (100, 400)   # k = 100, and C = 400 candidates of the exact-u8 rerank
 INT4_DUP_ROWS = 1 << 16  # the int4 duplicates library: a cut of the 1M one
-APPEND_ROWS = 1024       # phase 7's append between its two bursts
+APPEND_ROWS = 1024       # phases 7 and 8: the append between their queries
+MESH_SHARDS = 4          # phase 8: shards over the visible cards (4 on one card)
+DUP_BATCHES = 64         # phase 8: duplicate batches of 256 compared on the mesh
 
 
 def log(msg: str) -> None:
@@ -1552,6 +1578,315 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# Phase 8: multi-device serving — phases 4-6's libraries row-sharded over
+# a mesh (Engine.serve_on_mesh), row 8 of the kernel table
+
+
+def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.ops import int4
+    from pixelbox_tpu_torch.parallel import sharded_scan as ss
+    from pixelbox_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED + 8)
+    cards = torch.cuda.device_count()
+    n_shards = min(MESH_SHARDS, cards) if cards > 1 else MESH_SHARDS
+    mesh = make_mesh(n_shards)
+    log(f"[8] mesh: {n_shards} shards on {[str(d) for d in mesh.axis_devices()]}"
+        + (f" (one card: all {n_shards} shards on it)" if cards == 1 else ""))
+    engines = (sem_eng, ph_eng, i4_eng)
+    for e in engines:
+        e.scan_mode = "auto"
+        e.scan_mesh = None
+
+    def results(e):
+        return [(r.id, r.distance_from_query) for r in e.get_query_results()]
+
+    sem_ids = [int(x) for x in sem_eng._sem_image_ids[:2]] + [
+        int(x) for x in rng.choice(sem_eng._sem_image_ids[100:], 4, replace=False)]
+    i4_ids = [int(x) for x in rng.choice(i4_eng._sem_image_ids, 4, replace=False)]
+    ph_ids = [int(x) for x in rng.choice(ph_eng._ph_image_ids, 4, replace=False)]
+    ph_q = [ph_eng._ph_store.get_rows([ph_eng._ph_row_by_image[i]])[0] for i in ph_ids]
+
+    def drive(final=False):
+        """The phase's queries through the engines' entry points."""
+        out = {}
+        for i in sem_ids:
+            sem_eng.query_by_image_hash_from_id(i)
+            out[("u8", i)] = results(sem_eng)
+        for mode in ("pallas", "exact"):
+            sem_eng.scan_mode = mode
+            sem_eng.query_by_image_hash_from_id(sem_ids[0])
+            out[("u8", mode)] = results(sem_eng)
+        sem_eng.scan_mode = "auto"
+        sem_eng.query_by_image_hash_from_file(sem_paths[2])
+        out[("u8", "file")] = results(sem_eng)
+        for i, q in zip(ph_ids, ph_q):
+            ph_eng.query_by_phash(q)
+            out[("phash", i)] = results(ph_eng)
+            ph_eng.query_by_phash(q[:24])  # narrower query: the mixed-width path
+            out[("phash24", i)] = results(ph_eng)
+        for i in i4_ids:
+            i4_eng.query_by_image_hash_from_id(i)
+            out[("int4", i)] = results(i4_eng)
+        return out
+
+    def dup_cut():
+        """The first DUP_BATCHES batches of 256 of each duplicate pass (the
+        int4 one, whose host rerank dominates, the first 8)."""
+        out = {}
+        for e, by, md, nb in ((ph_eng, "phash", 0.1, DUP_BATCHES), (sem_eng, "semantic", 0.05, DUP_BATCHES),
+                              (i4_eng, "semantic", 0.05, 8)):
+            store, _, groups = e._duplicate_scans(by, 8, md)
+            rows, scan_fn = groups[0]
+            qrows = store.get_rows(rows[: nb * 256])
+            out[(e.db_path, by)] = [scan_fn(qrows[s : s + 256]) for s in range(0, len(qrows), 256)]
+        return out
+
+    t0 = time.perf_counter()
+    ref = drive()
+    ref_dup = dup_cut()
+    log(f"[8] one-device references in {time.perf_counter() - t0:.1f}s")
+
+    # Row 8 on the card: the sharded auto against the one-device auto, in
+    # turns, and the per-shard K1a and the merge K1c of one pass at Q = 256.
+    store = sem_eng._sem_store
+    index = store.device_index
+    mirror = ss.shard_semantic_index(index, mesh)
+    smp, meta = sem_eng._get_scan_sample(), sem_eng._get_row_meta()
+    qs = torch.from_numpy(perturb(rng, store._host_rows[rng.integers(0, store.n, MAIN_Q)])).cuda()
+    for qn in QS:
+        q = qs[:qn]
+        one_ms, mesh_ms = interleaved_ms([
+            lambda: scan.cosine_scan_topk_auto(q, index, k=K, sample=smp, row_meta=meta),
+            lambda: ss.sharded_cosine_scan_topk_auto(q, mirror, mesh, k=K),
+        ], reps=20)
+        log(f"[8] u8 auto in turns, Q={qn}: one device {one_ms:.4f} ms, {n_shards}-shard mesh "
+            f"{mesh_ms:.4f} ms ({mesh_ms / one_ms:.3f}x; capacity {index.capacity:,}, "
+            f"{mirror.local_rows:,} rows a shard; median of 20 each, CUDA events; {smi})")
+    with Recorder(fs) as rec:
+        ss.sharded_threshold_pass(qs, mirror, K, 1e3, fs.CosineQueries.from_u8)
+        torch.cuda.synchronize()
+    pass_ms = median_ms(lambda: ss.sharded_threshold_pass(qs, mirror, K, 1e3, fs.CosineQueries.from_u8))
+    shard_k1a = next(c for c in rec.calls if c[0] == "cosine_threshold_collect"
+                     and c[1][5].shape[0] == mirror.local_rows)
+    merge = rec.calls[-1]
+    check(merge[0] == "lex_topk_segments" and merge[1][0].shape[1] == n_shards * K, "the merge call")
+    st = {"pass_ms": pass_ms, "shard_k1a": time_kernel(fs, shard_k1a, smi, "[8] one shard's"),
+          "merge": time_kernel(fs, merge, smi, "[8] merge")}
+    keys = fs._keys(merge[1][0], merge[1][1], None)
+    st["merge"]["sort_ms"] = median_ms(lambda: torch.sort(keys, dim=1))
+    row_bytes = index.capacity * (DIM + 12)  # meta rows 0-2: row 3 is padding no kernel reads
+    log(f"[8] the sharded threshold pass at Q={MAIN_Q} ({n_shards} x θ stage + K1a + K1c, "
+        f"merge): {pass_ms:.4f} ms; bound {row_bytes / HBM_BPS * 1e3:.4f} ms (bytes: every row "
+        f"and its meta read once, {row_bytes:,} B); merge K1c {st['merge']['ms']:.4f} ms against "
+        f"torch.sort of its (dist, id) keys {st['merge']['sort_ms']:.4f} ms; {smi}")
+    del mirror, rec
+    torch.cuda.empty_cache()
+
+    replayed = {"calls": {}, "s": 0.0}
+    fs.reset_launch_counts()  # the mesh path starts here
+    with Recorder(fs) as rec:
+        t0 = time.perf_counter()
+        for e in engines:
+            e.serve_on_mesh(mesh)
+        got = drive()
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_dup = dup_cut()
+        t_dup = time.perf_counter() - t0
+        counts = fs.launch_counts()  # and ends here
+    replay_recorded(fs, err, rec, replayed)
+    log(f"[8] serve_on_mesh + {len(got)} queries in {t_first:.2f}s (sharding included); "
+        f"duplicate cuts in {t_dup:.2f}s; {smi}")
+    log(f"[8] kernel launches on the mesh path: {json.dumps(counts)}")
+    for n in ("cosine_threshold_collect", "cosine_chunk_topk", "cosine4_threshold_collect",
+              "hamming_chunk_topk", "lex_topk_segments"):
+        check(counts[n] > 0, f"kernel {n} was not launched on the mesh path")
+
+    for key, want in ref.items():
+        check(got[key] == want, f"mesh {key}: differs from the one-device result")
+    for key, want in ref_dup.items():
+        for j, ((d1, i1), (d2, i2)) in enumerate(zip(got_dup[key], want)):
+            check(np.array_equal(d1, d2) and np.array_equal(i1, i2),
+                  f"mesh duplicates {key}: batch {j} differs from the one-device scan")
+    log(f"[8] mesh = one device: u8 similar ({len(sem_ids)} ids, auto; pallas and exact modes; "
+        f"one upload), phash-similar ({len(ph_ids)} at 32 B and at 24 B), int4 similar with the "
+        f"rerank ({len(i4_ids)}), duplicate cuts {[len(v) for v in got_dup.values()]} batches")
+
+    # numpy oracle on sampled queries
+    for i in sem_ids[:2]:
+        row = sem_eng._sem_row_by_image[i]
+        od, oi = oracle_topk(store._host_rows[row][None], store._host_rows[: store.n],
+                             store._host_valid[: store.n], K, 1e3)
+        ids = sem_eng._sem_image_ids
+        check(got[("u8", i)] == [(ids[int(r)], float(x)) for x, r in zip(od[0], oi[0]) if r >= 0],
+              f"mesh u8 similar {i}: differs from the numpy oracle")
+    pst = ph_eng._ph_store
+    od, oi = oracle_hamming(ph_q[0][None], pst._host_rows[: pst.n], pst._host_valid[: pst.n],
+                            K, 1e3, PH_BYTES, False)
+    check(got[("phash", ph_ids[0])] == [(ph_eng._ph_image_ids[int(r)], float(x))
+                                        for x, r in zip(od[0], oi[0]) if r >= 0],
+          "mesh phash-similar: differs from the numpy oracle")
+    log("[8] mesh u8 (2 queries) and phash (1 query) = the numpy oracle")
+    log_replayed("[8]", replayed, counts)
+
+    for e in engines:
+        e.scan_mesh = None
+        e._sem_mirror.index = e._ph_mirror.index = None
+    torch.cuda.empty_cache()
+    return counts, {"mesh": mesh, "q_id": sem_ids[3]}
+
+
+def replay_recorded(fs, err, rec, replayed):
+    """Replay the calls recorded so far through their plain versions,
+    before a mutation writes into the tensors they read (the mirrors and
+    the stores change in place); plain versions launch nothing."""
+    import torch
+
+    t = time.perf_counter()
+    for call in rec.calls:
+        err[call[0]] = max(err[call[0]], replay(fs, call))
+        replayed["calls"][call[0]] = replayed["calls"].get(call[0], 0) + 1
+    rec.calls.clear()
+    torch.cuda.synchronize()
+    replayed["s"] += time.perf_counter() - t
+
+
+def log_replayed(tag, replayed, counts):
+    log(f"{tag} {sum(replayed['calls'].values())} kernel calls of the mesh path (per shard and "
+        f"merges) replayed bit-identical through their plain versions in {replayed['s']:.1f}s: "
+        f"{json.dumps(replayed['calls'])}")
+    check(replayed["calls"] == {n: c for n, c in counts.items() if c},
+          "the replays do not cover every launch of the mesh path")
+
+
+def phase_mesh_mutations(fs, err, smi, sem_eng, mesh, q_id):
+    """Phase 8b, after phase 7: the u8 library (as phase 7 left it) back on
+    the mesh, then a tag, a removal (one full reshard) and a 1,024-row
+    append within the capacity (a delta sync), each seen by the next
+    query; the result then equals the engine on one device."""
+    import numpy as np
+
+    from pixelbox_tpu_torch.records import IndexedImage
+
+    rng = np.random.default_rng(SEED + 9)
+    store = sem_eng._sem_store
+    check(q_id in sem_eng._sem_row_by_image, f"image {q_id} is gone before phase 8b")
+    check(store.n + APPEND_ROWS <= store.device_index.capacity,
+          "no room for the append within the capacity")
+
+    def results():
+        return [(r.id, r.distance_from_query) for r in sem_eng.get_query_results()]
+
+    replayed = {"calls": {}, "s": 0.0}
+    fs.reset_launch_counts()  # the mesh path starts here
+    with Recorder(fs) as rec:
+        sem_eng.serve_on_mesh(mesh)
+        sem_eng.query_by_image_hash_from_id(q_id)
+        before = results()
+        r0 = sem_eng._sharded_full_reshards
+        check(sem_eng.set_tag(q_id, "mesh", "meshtag"), "set_tag")
+        sem_eng.query("tag:meshtag")
+        check([r.id for r in sem_eng.get_query_results()] == [q_id], "search tag: misses the new tag")
+        victim = before[1][0]
+        check(sem_eng.remove_image(victim), "remove_image")
+        sem_eng.query_by_image_hash_from_id(q_id)
+        after_rm = results()
+        reshard_rm = sem_eng._sharded_full_reshards - r0
+        replay_recorded(fs, err, rec, replayed)  # before the append writes into the shards
+        copy = store.get_rows([sem_eng._sem_row_by_image[q_id]])
+        fresh = np.concatenate([copy, clustered_hashes(rng, APPEND_ROWS - 1, DIM)])
+        cap0 = store.device_index.capacity
+        new_ids = sem_eng.insert_records_batch([
+            IndexedImage(filename=f"mesh_{j:04d}.png", path=f"/synthetic/mesh_{j:04d}.png",
+                         visual_hash=fresh[j]) for j in range(APPEND_ROWS)])
+        sem_eng.query_by_image_hash_from_id(q_id)
+        after_app = results()
+        reshard_app = sem_eng._sharded_full_reshards - r0 - reshard_rm
+        counts = fs.launch_counts()  # and ends here
+    replay_recorded(fs, err, rec, replayed)
+    log(f"[8b] kernel launches on the mesh path: {json.dumps(counts)}")
+    check(counts["cosine_threshold_collect"] > 0 and counts["lex_topk_segments"] > 0,
+          "the sharded threshold pass did not run")
+
+    check(reshard_rm == 1 and reshard_app == 0 and store.device_index.capacity == cap0,
+          f"reshards: removal {reshard_rm} (want 1), append {reshard_app} (want 0, a delta)")
+    check(all(i != victim for i, _ in after_rm) and after_rm[0] == (q_id, 0.0), "after the removal")
+    want = [r for r in after_rm if r[1] == 0.0] + [(new_ids[0], 0.0)]
+    check(after_app[: len(want)] == want, "after the append: the copy is not next at 0.0")
+    sem_eng.scan_mesh = None
+    sem_eng.query_by_image_hash_from_id(q_id)
+    check(results() == after_app, "after the mutations: mesh differs from one device")
+    log(f"[8b] tag {q_id} found; removed {victim}: 1 full reshard, the victim gone; appended "
+        f"{APPEND_ROWS} rows within the capacity {cap0:,} ({store.n:,} rows, "
+        f"{cap0 // mesh.shape['data']:,} a shard): a delta sync (0 reshards), the copy "
+        f"{new_ids[0]} next at 0.0; = one device ({smi})")
+    log_replayed("[8b]", replayed, counts)
+    sem_eng._sem_mirror.index = None
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# Phase 9: the breakdown ladder (tools.measure_breakdown), row 9
+
+
+def phase_ladder(fs, smi):
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.ops.packed import query_moments_from_u8
+    from pixelbox_tpu_torch.tools import measure_breakdown as mb
+
+    fs.reset_launch_counts()
+    mb.LAUNCHES["breakdown_ladder"] = 0  # the ladder's main path starts here
+    t0 = time.perf_counter()
+    res = mb.run()
+    counts = {**fs.launch_counts(), **mb.LAUNCHES}  # and ends here
+    log(f"[9] measure_breakdown at Q={mb.Q} x {mb.N_ROWS:,} x {mb.DIM}, TILE {mb.TILE}, "
+        f"{mb.ITERS} repeats each: {json.dumps(res)} ({time.perf_counter() - t0:.1f}s; {smi})")
+    check(counts["breakdown_ladder"] >= 4 * mb.ITERS, "the ladder kernel did not run its rungs")
+    check(counts["cosine_threshold_collect"] > 0, "the shipping scan did not run")
+
+    # Each rung once against its plain version, on rows planted near the
+    # queries so that every lane it compares is finite and varied.
+    q, idx, meta = mb.ladder_inputs(mb.N_ROWS, mb.DIM, mb.Q, seed=SEED, planted=True, device="cuda")
+    mom = query_moments_from_u8(q[0])
+    st = {"rungs": {}, "max_abs_err": 0.0}
+    for rung in mb.RUNGS:
+        out, dsum = mb.ladder(rung, *mom, idx.data, meta)
+        torch.cuda.synchronize()
+        pout, psum = mb.ladder_plain(rung, *mom, idx.data, meta)
+        check(torch.equal(out.view(torch.int32), pout.view(torch.int32)) and torch.equal(dsum, psum),
+              f"ladder rung {rung} differs from its plain version")
+        fin = torch.isfinite(out) & torch.isfinite(pout)
+        st["max_abs_err"] = max(st["max_abs_err"], float((out[fin] - pout[fin]).abs().max()))
+        lanes = out if rung in ("gemm", "chain") else out[:, :1]
+        check(bool(torch.isfinite(lanes).all()) and lanes.unique().numel() >= lanes.numel() // 4,
+              f"ladder rung {rung}: outputs not finite and varied")
+        p_ms = median_ms(lambda: mb.ladder_plain(rung, *mom, idx.data, meta), reps=3)
+        n, d = idx.data.shape
+        # the rungs past gemm read meta rows 0-2 (12 B a row), as K1a does
+        nbytes = n * d + (0 if rung == "gemm" else 12 * n) + mb.Q * (d + 8) + mb.Q * 128 * 4
+        ops = 2 * mb.Q * n * d
+        b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+        st["rungs"][rung] = {"ms": res[f"{rung}_ms"], "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
+                             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        log(f"[9] rung {rung}: kernel {res[f'{rung}_ms']:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{max(b_bytes, b_ops):.4f} ms ({st['rungs'][rung]['bound_by']}: {nbytes:,} B, "
+            f"{ops:,} ops); replayed bit-identical, finite and varied ({smi})")
+    qp = mom[0].contiguous()
+    st["library_ms"] = median_ms(lambda: torch._int_mm(qp, idx.data.t()))
+    log(f"[9] library: the gemm rung's dot alone (torch._int_mm, Q={mb.Q}) {st['library_ms']:.4f} ms")
+    st.update(res)
+    del idx, meta
+    torch.cuda.empty_cache()
+    return counts, st
+
+
 def phase_time(tag: str, t0: float) -> float:
     now = time.perf_counter()
     log(f"[{tag}] phase wall time {now - t0:.1f}s")
@@ -1581,13 +1916,21 @@ def main() -> int:
         f"nvidia-smi: {smi}; TF32 off, cuDNN deterministic")
     check("jax" not in sys.modules, "jax was imported")
 
-    # [2] build
+    # [2] build: one nvcc for each source, started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pixelbox_tpu_torch.tools import measure_breakdown
+
     t0 = time.perf_counter()
-    kern = fs.load_kernels()
-    log(f"[2] built {os.path.basename(kern.path)} in {time.perf_counter() - t0:.2f}s")
-    for line in kern.ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(load) for load in (fs.load_kernels, measure_breakdown.load_kernels)]
+        kerns = [b.result() for b in builds]
+    for kern in kerns:
+        log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
+        for line in kern.ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[2] ptxas: {line.strip()}")
+    log(f"[2] both builds in {time.perf_counter() - t0:.2f}s (in parallel)")
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
     err = {n: 0.0 for n in Recorder.NAMES}
@@ -1610,10 +1953,16 @@ def main() -> int:
         t0 = phase_time("5", t0)
         counts6, i4_eng = phase_int4_engine(fs, scan, smi, tmp, ckpt)
         t0 = phase_time("6", t0)
+        counts8, carry = phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng)
+        t0 = phase_time("8", t0)
         counts7 = phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng)
-        phase_time("7", t0)
+        t0 = phase_time("7", t0)
+        counts8b = phase_mesh_mutations(fs, err, smi, sem_eng, carry["mesh"], carry["q_id"])
+        t0 = phase_time("8b", t0)
         for eng in (sem_eng, ph_eng, i4_eng):
             eng.close()
+    counts9, ladder = phase_ladder(fs, smi)
+    phase_time("9", t0)
 
     check("jax" not in sys.modules, "jax was imported")
     replaces = {
@@ -1636,11 +1985,22 @@ def main() -> int:
             "route": "cuda",
             "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
             "replaces": replaces[n],
-            "launches": counts4[n] + counts5[n] + counts6[n] + counts7[n],
+            "launches": sum(c[n] for c in (counts4, counts5, counts6, counts7, counts8, counts8b, counts9)),
             "max_abs_err": err[n],
             **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **({"dot_only_ms": st["dot_only_ms"]} if "dot_only_ms" in st else {}),
         })
+    kernels.append({
+        "name": "breakdown_ladder",
+        "route": "cuda",
+        "source": "pixelbox_tpu_torch/csrc/breakdown.cu",
+        "replaces": "scripts/measure_breakdown.py:52",
+        "launches": counts9["breakdown_ladder"],
+        "max_abs_err": ladder["max_abs_err"],
+        **{key: ladder["rungs"]["gemm"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": ladder["library_ms"],
+        "rungs": ladder["rungs"],
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

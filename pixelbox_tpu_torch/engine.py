@@ -18,12 +18,16 @@ Semantics kept from the reference (as in the JAX package):
 - image-hash queries apply strict ``dist < max_distance_from_query``
   (engine.rs:375-383); results cached until the next query.
 
-Ported so far, on one device: the semantic modality at either index
-precision (u8, or int4 with the exact-u8 rerank), perceptual-hash search
+Ported so far: the semantic modality at either index precision (u8, or
+int4 with the exact-u8 rerank), perceptual-hash search
 (``query_by_phash``), whole-index duplicate finding, watched folders, the
-removal and tag surface, and :meth:`Engine.attach_scan_service` for the
-web server's batching service (``serve.py``).  The BLIP, face and IVF
-mixins and mesh serving wait (ROADMAP.md).
+removal and tag surface, :meth:`Engine.attach_scan_service` for the web
+server's batching service (``serve.py``), and multi-device serving:
+:meth:`Engine.serve_on_mesh` row-shards the semantic and phash indexes
+over a mesh of devices (``parallel/``; one process drives them all, and
+one card may hold several shards), and ``Engine.mesh`` splits the ingest
+and query embed batches over a mesh.  The BLIP, face and IVF mixins (and
+their mesh branches) and multi-process meshes wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ from pixelbox_tpu_torch.ingest.thumbnail import make_thumbnail, qoi_encode
 from pixelbox_tpu_torch.models import get_embedder
 from pixelbox_tpu_torch.ops import phash as phash_ops
 from pixelbox_tpu_torch.ops.distances import cosine_distance
-from pixelbox_tpu_torch.ops.int4 import cosine4a_distance_np, cosine4a_scan_topk, rerank_candidates_u8
-from pixelbox_tpu_torch.ops.scan import cosine_scan_topk
+from pixelbox_tpu_torch.ops.int4 import cosine4a_distance_np, rerank_candidates_u8
+from pixelbox_tpu_torch.parallel.sharded_scan import ShardedMirror
 from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
 from pixelbox_tpu_torch.serving import DuplicateFinding, PhashServing, SemanticServing, WatchMixin
@@ -199,8 +203,15 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
         self._ph_widths: List[int] = []
         self._ph_gemm = None
         self._ph_gemm_at_ver = -1
-        #: Mesh serving is not yet ported: the scans raise unless None.
+        #: Optional ``parallel.mesh.Mesh``: ingest and query embed batches
+        #: split over its 'data' axis (parallel/data_parallel).
+        self.mesh = None
+        #: Optional mesh for QUERIES: the semantic and phash indexes are
+        #: mirrored row-sharded over it and scans merge per-shard top-k
+        #: (parallel/sharded_scan).  Set via serve_on_mesh().
         self.scan_mesh = None
+        self._sem_mirror = ShardedMirror()
+        self._ph_mirror = ShardedMirror()
         self._watcher: Optional[threading.Thread] = None
         self._watch_stop: Optional[threading.Event] = None
         self._cached_index_size: Optional[int] = None
@@ -424,6 +435,13 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
         benchmark off (utils/device.hold_exact_numerics) — makes the two
         bit-identical.  The batch size is read from the library when not
         set in-process (set_embed_batch_size).
+
+        Caveat (documented, not guarded): the MESH state is not persisted.
+        Under ``self.mesh`` the batch splits over the mesh's devices, so
+        each device runs the forward at another batch size; a library
+        ingested under a data-parallel mesh and queried without one (or
+        vice versa) can then drift by ulps and flip a u8 bin.  Attach the
+        same mesh for bit-exact self-matches of mesh-ingested libraries.
         """
         from pixelbox_tpu_torch.ingest.pipeline import DEFAULT_BATCH_SIZE, _normalize_frames
         from pixelbox_tpu_torch.ops.preprocess import fill_resize_u8
@@ -440,7 +458,12 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
             frames = np.zeros((b,) + frame.shape, dtype=np.uint8)
             frames[0] = frame
             stacked = _normalize_frames(torch.from_numpy(frames).to(self.embedder.device))
-            latents = self.embedder.embed_preprocessed(stacked)
+            if self.mesh is not None:
+                from pixelbox_tpu_torch.parallel.data_parallel import embed_batch_sharded
+
+                latents = embed_batch_sharded(self.embedder, stacked, self.mesh)
+            else:
+                latents = self.embedder.embed_preprocessed(stacked)
             return quantize_embedding(latents).cpu().numpy()[0]
 
     def _record_from_decoded(self, decoded: DecodedImage) -> IndexedImage:
@@ -524,6 +547,9 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
                 self._ph_store, self._ph_image_ids, self._ph_row_by_image
             )
             self._ph_widths = [width_by_image[img] for img in self._ph_image_ids]
+        # The sharded mirrors are stale now (their structural keys catch
+        # this too); drop them eagerly to free device memory.
+        self._sem_mirror.index = self._ph_mirror.index = None
 
     def remove_tracked_folder_and_images(self, folder_glob: str) -> int:
         """Remove a folder AND everything indexed under it.
@@ -658,19 +684,17 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
             with timed("engine.text_query_scan"):
                 if len(rows) > 16384:
                     # Broad filter: one exact device scan with the filter
-                    # folded into the validity mask (int4: candidates in
-                    # the asymmetric int4 metric, then — rerank on — the
+                    # folded into the validity mask — of the sharded
+                    # mirror under serve_on_mesh (int4: candidates in the
+                    # asymmetric int4 metric, then — rerank on — the
                     # exact-u8 rescore, so a pair scores the same with or
                     # without a filter).
-                    base = self._sem_store.device_index
-                    mask = torch.zeros(base.capacity, dtype=torch.bool, device=base.device)
-                    mask[torch.from_numpy(rows).to(base.device)] = True
-                    masked = base._replace(valid=base.valid & mask)
                     q = torch.as_tensor(q_u8)
-                    scan = cosine4a_scan_topk if int4 else cosine_scan_topk
 
                     def masked_scan(c, md):
-                        return scan(q, masked, k=c, max_distance=md)
+                        return self._masked_exact_topk(
+                            q, self._sem_store, self._get_sharded_index, rows, c, md
+                        )
 
                     if int4 and self.int4_rerank:
                         dists, idxs = self._int4_scan_rerank(masked_scan, q_u8, k, np.inf)
@@ -714,6 +738,29 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
 
     def clear_query_results(self) -> None:
         self._cached_search_results = None
+
+    def serve_on_mesh(self, mesh=None, axis: str = "data") -> None:
+        """Serve similarity and phash queries from row-sharded mirrors of
+        the indexes over ``mesh`` (default: a mesh over every visible card
+        for a CUDA engine, the engine's own device otherwise).
+
+        Each shard holds a copy of 1/n of the rows; queries scan every
+        shard and merge the k candidates of each.  The shards are cut
+        from the store's full index, which stays resident on the engine's
+        device: the mesh spreads the scan, it adds no capacity (the
+        engine's device holds N + N/n rows when it is also in the mesh).
+        The mirrors sync lazily: an append ships only its rows, a
+        structural change reshards.  Resets the mirrors of the modalities
+        the port has (semantic, phash)."""
+        from pixelbox_tpu_torch.parallel.mesh import make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(
+                axis_names=(axis,), device=None if self.device.type == "cuda" else self.device
+            )
+        self.scan_mesh = mesh
+        self._sem_mirror = ShardedMirror()
+        self._ph_mirror = ShardedMirror()
 
     def attach_scan_service(self, service) -> None:
         """Register this engine's batched phash scan on a

@@ -230,7 +230,14 @@ class IngestPipeline:
                 frames_u8 = torch.from_numpy(
                     self._pad_batch(np.stack([it.preprocessed for it in batch]))
                 ).to(embedder.device)
-                latents = embedder.embed_preprocessed(_normalize_frames(frames_u8))
+                stacked = _normalize_frames(frames_u8)
+                mesh = getattr(self.engine, "mesh", None)
+                if mesh is not None:
+                    from pixelbox_tpu_torch.parallel.data_parallel import embed_batch_sharded
+
+                    latents = embed_batch_sharded(embedder, stacked, mesh)
+                else:
+                    latents = embedder.embed_preprocessed(stacked)
                 hashes = quantize_embedding(latents).cpu().numpy()[:m]
         for it, vh in zip(batch, hashes):
             it.record.visual_hash = vh

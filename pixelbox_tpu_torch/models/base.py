@@ -8,6 +8,7 @@ f32 latents out → quantized u8 via ``ops.quantize.quantize_embedding``.
 from __future__ import annotations
 
 import abc
+import copy
 
 import numpy as np
 import torch
@@ -31,6 +32,21 @@ class Embedder(abc.ABC):
     def embed_preprocessed(self, batch) -> torch.Tensor:
         """f32 [B, S, S, 3] (NHWC, numpy or tensor) in [0,1] → f32 [B, dim]
         on ``self.device``."""
+
+    def replica(self, device) -> "Embedder":
+        """A copy of this embedder whose forward runs on ``device``, with
+        the same weights (its tensors and modules copied there) — one
+        shard's model in a data-parallel embed (``parallel/data_parallel``)."""
+        dev = torch.device(device)
+        rep = copy.copy(self)
+        rep.device = dev
+        rep._replicas = {}
+        for name, value in vars(self).items():
+            if torch.is_tensor(value):
+                setattr(rep, name, value.to(dev, copy=True))
+            elif isinstance(value, torch.nn.Module):
+                setattr(rep, name, copy.deepcopy(value).to(dev))
+        return rep
 
     def embed_images(self, images) -> np.ndarray:
         """List of HxWx3 u8 arrays (any sizes) → f32 [B, dim]."""

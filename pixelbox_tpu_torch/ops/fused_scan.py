@@ -165,8 +165,9 @@ def _nvcc() -> str:
 
 
 def load_kernels() -> _Kernels:
-    """Compile ``csrc/*.cu`` for sm_90a (once per source/flag content) and
-    load the library.  Raises on any failure — there is no fallback."""
+    """Compile ``csrc/fused_scan.cu`` for sm_90a (once per source/flag
+    content) and load the library.  Raises on any failure — there is no
+    fallback."""
     global _KERNELS
     with _KERNELS_LOCK:
         if _KERNELS is None:
@@ -174,14 +175,18 @@ def load_kernels() -> _Kernels:
         return _KERNELS
 
 
-def _build_and_load() -> _Kernels:
-    srcs = [_CSRC / s for s in _SOURCES]
+def build_library(sources, stem: str) -> _Kernels:
+    """Compile ``csrc`` sources into one shared library for sm_90a and
+    load it (no symbols bound).  The file name carries a hash of the
+    flags, the sources and every ``csrc`` header, so an edit rebuilds and
+    an unchanged tree reuses the build.  Raises on any failure."""
+    srcs = [_CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(s.read_bytes())
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"libpixelbox_fused_scan-{h.hexdigest()[:16]}.so"
+    so = out_dir / f"{stem}-{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     ptxas = ""
     if not so.exists():
@@ -194,7 +199,12 @@ def _build_and_load() -> _Kernels:
             )
         ptxas = res.stderr
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    return _Kernels(ctypes.CDLL(str(so)), str(so), time.perf_counter() - t0, ptxas)
+
+
+def _build_and_load() -> _Kernels:
+    kern = build_library(_SOURCES, "libpixelbox_fused_scan")
+    lib = kern.lib
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.px_threshold_collect.restype = ci
     lib.px_threshold_collect.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 4
@@ -216,7 +226,7 @@ def _build_and_load() -> _Kernels:
     lib.px_cosine4_coskey_collect.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 4
     lib.px_coskey_rescore.restype = ci
     lib.px_coskey_rescore.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 4
-    return _Kernels(lib, str(so), time.perf_counter() - t0, ptxas)
+    return kern
 
 
 def _ptr(t: torch.Tensor):

@@ -8,7 +8,9 @@ near pairs under a strict distance cutoff, plus transitive groups.
 the exact per-width-group scan (compat libraries); ``by="semantic"`` the
 guaranteed-exact cosine scan — on an int4 library the int4 scan, its
 candidates rescored with the exact u8 metric when ``int4_rerank`` is on.
-Mesh serving is not yet ported.  Mixed into
+Under ``Engine.serve_on_mesh`` the uniform phash, the u8 and the int4
+scans run row-sharded (``parallel.sharded_scan``), as in the JAX package;
+mixed-width phash groups stay on one device there too.  Mixed into
 :class:`pixelbox_tpu_torch.engine.Engine`.
 """
 
@@ -21,6 +23,10 @@ import torch
 
 from pixelbox_tpu_torch.ops.int4 import cosine4_scan_topk_auto
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto
+from pixelbox_tpu_torch.parallel.sharded_scan import (
+    sharded_cosine4_scan_topk_auto,
+    sharded_cosine_scan_topk_auto,
+)
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.timing import timed
 
@@ -51,11 +57,40 @@ class DuplicateFinding:
         (duplicate renders share geometry, so cross-aspect pairs are
         not duplicates).
         """
+        store, image_ids, groups = self._duplicate_scans(by, k, max_distance)
+        if store is None:
+            return []
+
+        seen = set()
+        out = []
+        with timed("engine.duplicate_scan"):
+            for rows, scan in groups:
+                qrows = store.get_rows(rows)
+                for s in range(0, len(rows), batch):
+                    qb = qrows[s : s + batch]
+                    dists, idxs = scan(qb)
+                    for qi in range(len(qb)):
+                        a = image_ids[int(rows[s + qi])]
+                        for d, r in zip(dists[qi], idxs[qi]):
+                            if r < 0:
+                                break  # hits are sorted; -1 padding follows
+                            b = image_ids[int(r)]
+                            if b == a:
+                                continue
+                            key = (min(a, b), max(a, b))
+                            if key in seen:
+                                continue
+                            seen.add(key)
+                            out.append((key[0], key[1], float(d)))
+        out.sort(key=lambda p: (p[2], p[0], p[1]))
+        return out
+
+    def _duplicate_scans(self, by: str, k: int, max_distance: float):
+        """(store, row → image id list, groups) of a duplicate pass: each
+        group is (its live rows, ``scan(q_batch) -> (dist [B, k], rows
+        [B, k])`` as host arrays); store None when there is nothing to
+        scan."""
         assert by in ("phash", "semantic"), by
-        if self.scan_mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded duplicate scans are not yet ported to pixelbox_tpu_torch"
-            )
         if by == "phash":
             store, row_by_image, image_ids = (
                 self._ph_store, self._ph_row_by_image, self._ph_image_ids,
@@ -65,16 +100,20 @@ class DuplicateFinding:
                 self._sem_store, self._sem_row_by_image, self._sem_image_ids,
             )
         if store is None or store.size == 0:
-            return []
+            return None, image_ids, []
         live_rows = np.asarray(sorted(row_by_image.values()), dtype=np.int64)
+        on_mesh = self.scan_mesh is not None
 
-        # (group_rows, scan_fn(q_batch) -> (dist [B,k], idx [B,k]))
         groups = []
         if by == "phash":
             widths = np.asarray(self._ph_widths, dtype=np.int64)
             if bool(np.all(widths[live_rows] == store.dim)):
+                # Uniform widths: the whole-index self-scan rides the mesh
+                # when there is one.
+                scan_batch = self._phash_sharded_scan if on_mesh else self._phash_gemm_scan
+
                 def scan(qb):
-                    return self._phash_gemm_scan(qb, k, max_distance)
+                    return scan_batch(qb, k, max_distance)
 
                 groups.append((live_rows, scan))
             else:
@@ -103,6 +142,11 @@ class DuplicateFinding:
             index = store.device_index
 
             def base_scan(qb, c, md):
+                if on_mesh:
+                    return sharded_cosine4_scan_topk_auto(
+                        torch.from_numpy(qb), self._get_sharded_index(), self.scan_mesh,
+                        k=c, max_distance=md,
+                    )
                 return cosine4_scan_topk_auto(
                     torch.from_numpy(qb), index, k=c, max_distance=md,
                     sample=self._get_scan_sample(), meta=self._get_row_meta(),
@@ -125,37 +169,20 @@ class DuplicateFinding:
             index = store.device_index
 
             def scan(qb):
-                d, i = cosine_scan_topk_auto(
-                    torch.from_numpy(qb), index, k=k, max_distance=max_distance,
-                    sample=self._get_scan_sample(), row_meta=self._get_row_meta(),
-                )
+                if on_mesh:
+                    d, i = sharded_cosine_scan_topk_auto(
+                        torch.from_numpy(qb), self._get_sharded_index(), self.scan_mesh,
+                        k=k, max_distance=max_distance,
+                    )
+                else:
+                    d, i = cosine_scan_topk_auto(
+                        torch.from_numpy(qb), index, k=k, max_distance=max_distance,
+                        sample=self._get_scan_sample(), row_meta=self._get_row_meta(),
+                    )
                 return d.cpu().numpy(), i.cpu().numpy()
 
             groups.append((live_rows, scan))
-
-        seen = set()
-        out = []
-        with timed("engine.duplicate_scan"):
-            for rows, scan in groups:
-                qrows = store.get_rows(rows)
-                for s in range(0, len(rows), batch):
-                    qb = qrows[s : s + batch]
-                    dists, idxs = scan(qb)
-                    for qi in range(len(qb)):
-                        a = image_ids[int(rows[s + qi])]
-                        for d, r in zip(dists[qi], idxs[qi]):
-                            if r < 0:
-                                break  # hits are sorted; -1 padding follows
-                            b = image_ids[int(r)]
-                            if b == a:
-                                continue
-                            key = (min(a, b), max(a, b))
-                            if key in seen:
-                                continue
-                            seen.add(key)
-                            out.append((key[0], key[1], float(d)))
-        out.sort(key=lambda p: (p[2], p[0], p[1]))
-        return out
+        return store, image_ids, groups
 
     def find_duplicate_groups(self, **kwargs) -> List[List[int]]:
         """Connected components of :meth:`find_duplicate_pairs` — each

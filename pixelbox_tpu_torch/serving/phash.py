@@ -1,13 +1,16 @@
-"""Perceptual-hash (Hamming) serving, single device (torch port of
-``serving/phash.py``).
+"""Perceptual-hash (Hamming) serving, on one device or row-sharded over
+a mesh (torch port of ``serving/phash.py``).
 
 The capability behind the reference's phash table + hamming UDF
 (engine.rs:594-663).  Uniform-width indexes take the guaranteed-exact
 threshold scan over the packed u8 rows (``ops.hamming_gemm``: K2a + K1c,
 repair K2b + K1c); mixed widths (aspect-preserving compat phashes)
 replicate the reference's zip-truncate semantics per width group with the
-exact scan (K2b + K1c).  Mesh serving is not yet ported.  Mixed into
-:class:`pixelbox_tpu_torch.engine.Engine`.
+exact scan (K2b + K1c).  Under ``Engine.serve_on_mesh`` both run
+row-sharded (``parallel.sharded_scan.sharded_hamming_scan_topk``: K2b +
+K1c per shard, the width group's mask sharded with the rows), as the JAX
+package does; the batched service path stays on one device there too.
+Mixed into :class:`pixelbox_tpu_torch.engine.Engine`.
 """
 
 from __future__ import annotations
@@ -17,15 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pixelbox_tpu_torch.parallel.sharded_scan import sharded_hamming_scan_topk
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.timing import timed
-
-
-def _no_mesh(engine) -> None:
-    if engine.scan_mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded phash scans are not yet ported to pixelbox_tpu_torch"
-        )
 
 
 class PhashServing:
@@ -44,7 +41,6 @@ class PhashServing:
         if self._ph_store is None or self._ph_store.size == 0:
             self._cached_search_results = []
             return
-        _no_mesh(self)
         ph = np.asarray(phash_bytes, dtype=np.uint8).ravel()
         wq = len(ph)
         dim = self._ph_store.dim
@@ -53,7 +49,10 @@ class PhashServing:
 
         with timed("engine.phash_scan"):
             if wq >= dim and self.phash_store_uniform():
-                dist, idx = self._phash_gemm_scan(ph[:dim], kk, md)
+                if self.scan_mesh is not None:
+                    dist, idx = self._phash_sharded_scan(ph[:dim], kk, md)
+                else:
+                    dist, idx = self._phash_gemm_scan(ph[:dim], kk, md)
             else:
                 widths = np.asarray(self._ph_widths, dtype=np.int64)
                 dist, idx = self._phash_mixed_scan(ph, wq, widths, kk, md)
@@ -111,6 +110,19 @@ class PhashServing:
         )
         return dist.cpu().numpy(), idx.cpu().numpy()
 
+    def _ensure_ph_sharded(self):
+        """The phash store's row-sharded mirror over ``scan_mesh``, synced
+        lazily like the semantic one (``ShardedMirror``)."""
+        return self._ph_mirror.get(self._ph_store, self.scan_mesh)
+
+    def _phash_sharded_scan(self, q: np.ndarray, k: int, max_distance: float):
+        """Uniform-width scan over the sharded mirror → numpy (dist, rows)."""
+        dist, idx = sharded_hamming_scan_topk(
+            torch.from_numpy(np.array(q, dtype=np.uint8)), self._ensure_ph_sharded(),
+            self.scan_mesh, k=k, max_distance=max_distance,
+        )
+        return dist.cpu().numpy(), idx.cpu().numpy()
+
     def phash_scan_batched(self, queries: np.ndarray, k: int, max_distance: float):
         """Batched uniform-width Hamming scan: u8 [B, H] → (dist [B,k],
         device rows [B,k]).  Raises on a mixed-width (compat) store —
@@ -119,7 +131,6 @@ class PhashServing:
         dim = self._ph_store.dim
         if q.shape[1] < dim or not self.phash_store_uniform():
             raise ValueError("mixed-width phash store: no batched path")
-        _no_mesh(self)
         return self._phash_gemm_scan(q[:, :dim], k, max_distance)
 
     def phash_ids_for_rows(self, rows) -> list:
@@ -131,7 +142,9 @@ class PhashServing:
     ):
         """Zip-truncate Hamming scan over mixed-width rows: one exact scan
         (K2b + K1c) per distinct min(wq, row_width) with the group folded
-        into the row mask, merged by (dist, id)."""
+        into the row mask, merged by (dist, id).  Under ``serve_on_mesh``
+        each group's scan runs row-sharded, its mask sharded with the
+        rows."""
         from pixelbox_tpu_torch.ops.fused_scan import build_hamming_meta
         from pixelbox_tpu_torch.ops.hamming_gemm import hamming_gemm_scan_topk
 
@@ -148,10 +161,16 @@ class PhashServing:
                 continue  # 0-length zip → 0/0 = NaN in the reference: excluded
             group = np.zeros(cap, dtype=bool)
             group[np.nonzero(limits == m)[0]] = True
-            d, i = hamming_gemm_scan_topk(
-                qt, index, k=k, max_distance=max_distance,
-                meta=build_hamming_meta(index, group), byte_limit=m,
-            )
+            if self.scan_mesh is not None:
+                d, i = sharded_hamming_scan_topk(
+                    qt, self._ensure_ph_sharded(), self.scan_mesh, k=k,
+                    max_distance=max_distance, byte_limit=m, valid_mask=group,
+                )
+            else:
+                d, i = hamming_gemm_scan_topk(
+                    qt, index, k=k, max_distance=max_distance,
+                    meta=build_hamming_meta(index, group), byte_limit=m,
+                )
             d, i = d.cpu().numpy(), i.cpu().numpy()
             keep = i >= 0
             cand.append((d[keep], i[keep]))

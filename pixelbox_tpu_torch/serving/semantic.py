@@ -1,7 +1,8 @@
 """Semantic (visual-similarity) serving — the engine's hot query path
-(torch port of ``serving/semantic.py``, single device).
+(torch port of ``serving/semantic.py``), on one device or row-sharded
+over a mesh (``Engine.serve_on_mesh``).
 
-Scan-mode dispatch (reference engine.rs:352-396):
+Scan-mode dispatch on one device (reference engine.rs:352-396):
 
 - ``auto`` (default) and ``fast``: ``ops.scan.cosine_scan_topk_auto`` —
   the fused threshold scan plus exact repair, results identical to
@@ -10,7 +11,15 @@ Scan-mode dispatch (reference engine.rs:352-396):
 - ``exact``: the blocked exact scan (plain PyTorch);
 - ``pallas``: the fused exact kernel scan (``fused_cosine_scan_topk``) —
   the flag keeps its name;
-- ``ivf`` and mesh serving raise NotImplementedError.
+- ``ivf`` raises NotImplementedError.
+
+On a mesh (``parallel/sharded_scan``), as the JAX package dispatches:
+``auto`` → the sharded auto (per-shard K1a + K1c, merged, repaired);
+the other modes → the sharded exact scan (per shard: the plain blocked
+scan for ``exact``, K1b + K1c for ``pallas`` and ``fast``).  An int4
+library: ``exact`` → the sharded plain int4 scan, the others → the
+sharded int4 auto (K4a + K1c).  The mirror syncs lazily
+(:meth:`SemanticServing._get_sharded_index`).
 
 An int4 library (``semantic_precision="int4"``, the ``semantic4`` store)
 scans in the asymmetric int4 metric: ``exact`` → the plain
@@ -45,6 +54,12 @@ from pixelbox_tpu_torch.ops.scan import (
     cosine_scan_topk,
     cosine_scan_topk_auto,
 )
+from pixelbox_tpu_torch.parallel.sharded_scan import (
+    sharded_cosine4_scan_topk,
+    sharded_cosine4_scan_topk_auto,
+    sharded_cosine_scan_topk,
+    sharded_cosine_scan_topk_auto,
+)
 from pixelbox_tpu_torch.records import IndexedImage
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.serving.service import ScanInputs
@@ -76,6 +91,19 @@ class SemanticServing:
             self._scan_sample = build_scan_sample(index)
             self._scan_sample_at_ver = self._sem_cache_key()
         return self._scan_sample
+
+    def _get_sharded_index(self):
+        """The semantic store's row-sharded mirror over ``scan_mesh``,
+        synced lazily on the store's (kind, version)
+        (``parallel.sharded_scan.ShardedMirror``: appends as deltas,
+        structural changes as full reshards).  It keeps each shard's row
+        meta and θ sample."""
+        return self._sem_mirror.get(self._sem_store, self.scan_mesh)
+
+    @property
+    def _sharded_full_reshards(self) -> int:
+        """Full reshards of the semantic mirror (delta syncs do not count)."""
+        return self._sem_mirror.full_reshards
 
     def semantic_scan_inputs(self) -> ScanInputs:
         """The semantic store's device index with its cached θ sample and
@@ -137,11 +165,9 @@ class SemanticServing:
                 f"pixelbox_tpu_torch (ported: {', '.join(SCAN_MODES)})"
             )
         if self.scan_mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded semantic scans are not yet ported to pixelbox_tpu_torch"
-            )
+            return self._sharded_scan(visual_hash, k, max_distance)
         index = self._sem_store.device_index
-        q = torch.as_tensor(np.asarray(visual_hash, dtype=np.uint8)).to(index.device)
+        q = torch.from_numpy(np.array(visual_hash, dtype=np.uint8)).to(index.device)
         if self.semantic_precision == "int4":
             if self.scan_mode == "exact":
                 return cosine4a_scan_topk(q, index, k=k, max_distance=max_distance)
@@ -158,6 +184,26 @@ class SemanticServing:
         return cosine_scan_topk_auto(
             q, index, k=k, max_distance=max_distance,
             sample=self._get_scan_sample(), row_meta=self._get_row_meta(),
+        )
+
+    def _sharded_scan(self, visual_hash, k: int, max_distance: float):
+        """:meth:`similarity_scan` on the mesh (the JAX branches
+        ``serving/semantic.py:219-240`` and ``:257-287``)."""
+        q = torch.from_numpy(np.array(visual_hash, dtype=np.uint8))
+        sharded = self._get_sharded_index()
+        if self.semantic_precision == "int4":
+            fn = (
+                sharded_cosine4_scan_topk
+                if self.scan_mode == "exact"
+                else sharded_cosine4_scan_topk_auto
+            )
+            return fn(q, sharded, self.scan_mesh, k=k, max_distance=max_distance)
+        if self.scan_mode == "auto":
+            return sharded_cosine_scan_topk_auto(
+                q, sharded, self.scan_mesh, k=k, max_distance=max_distance
+            )
+        return sharded_cosine_scan_topk(
+            q, sharded, self.scan_mesh, k=k, max_distance=max_distance, mode=self.scan_mode
         )
 
     @_read_locked
@@ -205,3 +251,26 @@ class SemanticServing:
                 candidates, np.asarray(query_u8, dtype=np.uint8),
                 self._sem_store._host_rows, k=k, max_distance=max_distance,
             )
+
+    def _masked_exact_topk(self, q, store, ensure_sharded, rows, k, max_distance):
+        """Exact top-k over a row-masked semantic index (broad catalog
+        filters): the store's validity ANDed with the filter's rows.  One
+        device: the resident index; under ``serve_on_mesh``: the sharded
+        mirror, the mask sharded with its rows, so filtered scans scale
+        with the mesh too.  Exact (not auto) — a filter-shrunk validity
+        set breaks the θ sample's assumptions, so proofs would just fail
+        into repairs.  An int4 store scans in the asymmetric int4 metric.
+        Returns (dist [k], idx [k]) tensors."""
+        int4 = store.kind == "semantic4"
+        if self.scan_mesh is not None:
+            base = ensure_sharded()
+            mask = np.zeros(base.capacity, dtype=bool)
+            mask[np.asarray(rows, dtype=np.int64)] = True
+            scan = sharded_cosine4_scan_topk if int4 else sharded_cosine_scan_topk
+            return scan(q, base.with_valid_mask(mask), self.scan_mesh, k=k,
+                        max_distance=max_distance)
+        index = store.device_index
+        mask = torch.zeros(index.capacity, dtype=torch.bool, device=index.device)
+        mask[torch.as_tensor(np.asarray(rows, dtype=np.int64)).to(index.device)] = True
+        scan = cosine4a_scan_topk if int4 else cosine_scan_topk
+        return scan(q, index._replace(valid=index.valid & mask), k=k, max_distance=max_distance)

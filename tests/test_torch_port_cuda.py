@@ -273,3 +273,49 @@ def test_coskey_main_path_goes_through_the_kernels(kind):
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     plain = auto(q.cpu(), cpu, epilogue="cos")
     assert torch.equal(plain[0], want[0]) and torch.equal(plain[1], want[1])
+
+
+# --------------------------------------------------------------------- #
+# Mesh serving (row 8) and the breakdown ladder (row 9)
+
+
+def test_sharded_auto_on_the_card_matches_one_device():
+    """Four shards on the visible cards (all on cuda:0 with one card):
+    per-shard K1a + K1c and the K1c merge give the one-device results."""
+    from pixelbox_tpu_torch.parallel import sharded_scan as ss
+    from pixelbox_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card()
+    idx, q = _index(1 << 19, 64, seed=11, dev=dev)
+    mesh = make_mesh(4)
+    mirror = ss.shard_semantic_index(idx, mesh)
+    assert mirror.local_rows == 1 << 17  # past the 4·block_rows gate at block_rows 16,384
+    fs.reset_launch_counts()
+    got = ss.sharded_cosine_scan_topk_auto(q, mirror, mesh, k=50, block_rows=16384)
+    counts = fs.launch_counts()
+    assert counts["cosine_threshold_collect"] >= 8 and counts["lex_topk_segments"] >= 9
+    want = tscan.cosine_scan_topk(q, idx, k=50)
+    assert torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(got[1].cpu(), want[1].cpu())
+    ph = PackedHammingIndex(idx.data.view(torch.uint8)[:, :32].contiguous(), idx.valid)
+    hq = q[:, :32].contiguous()  # u8 rows and queries as 32-byte hashes
+    got = ss.sharded_hamming_scan_topk(hq, ss.shard_hamming_index(ph, mesh), mesh, k=20)
+    want = hg.hamming_gemm_scan_topk(hq, ph, k=20)
+    assert torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(got[1].cpu(), want[1].cpu())
+
+
+@pytest.mark.parametrize("rung", ["gemm", "coskey", "epilogue", "chain"])
+def test_ladder_rungs_match_plain(rung):
+    from pixelbox_tpu_torch.ops.packed import query_moments_from_u8
+    from pixelbox_tpu_torch.tools import measure_breakdown as mb
+
+    dev = _card()
+    q, idx, meta = mb.ladder_inputs(1 << 16, 128, 40, seed=3, planted=True, device=dev)
+    mom = query_moments_from_u8(q[0])
+    before = mb.LAUNCHES["breakdown_ladder"]
+    out, dsum = mb.ladder(rung, *mom, idx.data, meta, 4096)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["breakdown_ladder"] == before + 1
+    pout, psum = mb.ladder_plain(rung, *mom, idx.data, meta, 4096)
+    assert torch.equal(out.view(torch.int32), pout.view(torch.int32)) and torch.equal(dsum, psum)
+    lanes = out if rung in ("gemm", "chain") else out[:, :1]
+    assert bool(torch.isfinite(lanes).all())

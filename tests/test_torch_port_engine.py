@@ -2,9 +2,18 @@
 
 One seeded folder is indexed by each package with EfficientNet-B0 (input
 64, dim 32) from the same ``.npz`` checkpoint: the stored semantic hashes
-per path are equal and ``similar`` gives the same paths and distances.
-A library written by the JAX package opens in the port with identical
-``similar`` and ``search`` results.
+per path are equal — but for a byte whose f32 latent lies within 2e-5 of
+a quantization edge in both packages, the model contract of ROADMAP.md —
+and ``similar`` gives the same paths and distances.  A library written by
+the JAX package opens in the port with identical ``similar`` and
+``search`` results.
+
+B0's f32 latents on the CPU move by a few ulps with the thread count
+(PyTorch: 2, 3, 8 and 16 threads against 1, 4 and 6; XLA: the size of
+its CPU thread pool, set by the cores the process sees) and with the
+batch size.  So the port ingests with one thread;
+the JAX package's pool is fixed when the backend starts, which is why a
+flipped byte is held to the contract instead of to equality.
 """
 
 import os
@@ -88,19 +97,89 @@ def jax_library(shared):
     return out
 
 
+#: The model contract (ROADMAP.md): a u8 byte may differ between the
+#: packages only where its f32 latent lies within this of a quantization
+#: edge (the reference truncates f·128, so the edges are k/128).
+EDGE = 2e-5
+
+
+def _latents(paths, shared, package):
+    """Each image's B0 latent through ``package``'s own decode, resize and
+    forward, at the ingest batch shape (zero-padded 64, the image first),
+    as the engines' query replay computes it."""
+    if package == "jax":
+        from pixelbox_tpu.ingest.decode import decode_image_file
+        from pixelbox_tpu.ingest.pipeline import DEFAULT_BATCH_SIZE, _normalize_frames
+        from pixelbox_tpu.models import get_embedder
+        from pixelbox_tpu.ops.preprocess import fill_resize_u8
+
+        emb = get_embedder("efficientnet", dim=32, input_size=64, checkpoint_path=shared["ckpt"])
+
+        def forward(frames):
+            return np.asarray(emb.embed_preprocessed(_normalize_frames(jnp.asarray(frames))))
+    else:
+        from pixelbox_tpu_torch.ingest.decode import decode_image_file
+        from pixelbox_tpu_torch.ingest.pipeline import DEFAULT_BATCH_SIZE, _normalize_frames
+        from pixelbox_tpu_torch.models import get_embedder
+        from pixelbox_tpu_torch.ops.preprocess import fill_resize_u8
+
+        emb = get_embedder("efficientnet", dim=32, input_size=64,
+                           checkpoint_path=shared["ckpt"], device="cpu")
+
+        def forward(frames):
+            return emb.embed_preprocessed(_normalize_frames(torch.from_numpy(frames))).numpy()
+
+    out = {}
+    for p in paths:
+        frames = np.zeros((DEFAULT_BATCH_SIZE, 64, 64, 3), np.uint8)
+        frames[0] = fill_resize_u8(decode_image_file(p).rgb, 64)
+        out[p] = forward(frames)[0]
+    return out
+
+
+def _near_edge(x):
+    scaled = np.float64(x) * 128.0
+    return abs(scaled - np.round(scaled)) <= EDGE * 128.0
+
+
 def test_ingest_hashes_and_similar_match_jax(shared, jax_library):
     from pixelbox_tpu_torch.engine import Engine
+    from pixelbox_tpu_torch.ops.oracle import cosine_distance_np
 
-    eng = _index(Engine, str(shared["root"] / "torch_lib.db"), shared, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # B0's latents move with the thread count
     try:
-        assert eng.get_num_indexed_images() == 8
-        assert _hashes(eng) == jax_library["hashes"]
-        probe = os.path.join(shared["photos"], "cat_2.png")
-        got = _similar(eng, probe)
-        assert got == jax_library["similar"]
-        assert got[0] == (os.path.realpath(probe), 0.0)
+        eng = _index(Engine, str(shared["root"] / "torch_lib.db"), shared, device="cpu")
+        try:
+            assert eng.get_num_indexed_images() == 8
+            hashes, want = _hashes(eng), jax_library["hashes"]
+            assert hashes.keys() == want.keys()
+            flipped = {p for p in hashes if hashes[p] != want[p]}
+            if flipped:
+                mine, theirs = _latents(flipped, shared, "torch"), _latents(flipped, shared, "jax")
+                for p in flipped:
+                    a, b = np.frombuffer(hashes[p], np.uint8), np.frombuffer(want[p], np.uint8)
+                    for j in np.nonzero(a != b)[0]:
+                        assert abs(int(a[j]) - int(b[j])) == 1, (p, j)
+                        assert _near_edge(mine[p][j]) and _near_edge(theirs[p][j]), (
+                            p, j, mine[p][j], theirs[p][j])
+            probe = os.path.join(shared["photos"], "cat_2.png")
+            got = _similar(eng, probe)
+            assert got[0] == (os.path.realpath(probe), 0.0)
+            if not flipped:
+                assert got == jax_library["similar"]
+            else:
+                # A byte within the contract moves distances; the scan must
+                # still rank the port's own hashes as the numpy spec does.
+                q = np.frombuffer(hashes[os.path.realpath(probe)], np.uint8)
+                dist = {p: float(cosine_distance_np(q, np.frombuffer(h, np.uint8)))
+                        for p, h in hashes.items()}
+                assert got == sorted(((p, d) for p, d in dist.items() if d < 1e3),
+                                     key=lambda t: (t[1], eng.catalog.get_image_by_path(t[0])["id"]))
+        finally:
+            eng.close()
     finally:
-        eng.close()
+        torch.set_num_threads(threads)
 
 
 def test_jax_library_opens_in_port(shared, jax_library):

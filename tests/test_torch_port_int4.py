@@ -336,14 +336,27 @@ def test_jax_int4_library_opens_in_port(int4_library):
 
 
 def test_int4_mesh_serving_raises(int4_library):
+    """int4 serving on a mesh (ported): the results of one device on a
+    mesh whose shards divide the capacity; a mesh whose shards do not
+    divide it raises instead of serving a partial index."""
     from pixelbox_tpu_torch.engine import Engine
+    from pixelbox_tpu_torch.parallel.mesh import make_mesh
 
     eng = Engine.open(int4_library["db"], device="cpu")
     try:
-        eng.scan_mesh = object()
-        with pytest.raises(NotImplementedError, match="mesh"):
-            eng.query_by_image_hash_from_id(int4_library["ids"][0])
-        with pytest.raises(NotImplementedError, match="mesh"):
+        image_id = int4_library["ids"][0]
+        eng.query_by_image_hash_from_id(image_id)
+        single = [(r.id, r.distance_from_query) for r in eng.get_query_results()]
+        pairs = eng.find_duplicate_pairs(by="semantic")
+        eng.serve_on_mesh(make_mesh(8, device="cpu"))
+        eng.query_by_image_hash_from_id(image_id)
+        assert [(r.id, r.distance_from_query) for r in eng.get_query_results()] == single
+        assert eng.find_duplicate_pairs(by="semantic") == pairs
+        assert eng._sem_mirror.index.n_shards == 8
+        eng.serve_on_mesh(make_mesh(3, device="cpu"))
+        with pytest.raises(ValueError, match="divide"):
+            eng.query_by_image_hash_from_id(image_id)
+        with pytest.raises(ValueError, match="divide"):
             eng.find_duplicate_pairs(by="semantic")
     finally:
         eng.close()

@@ -454,11 +454,62 @@ def test_stand_alone_check_flags_what_it_should(snippet, bad):
     assert bool(_faults("x.py", snippet)) == bad
 
 
-def test_port_sources_stand_alone():
+def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for d, dirs, names in os.walk(os.path.join(REPO, "pixelbox_tpu_torch")):
         dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
         files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]
+    return files
+
+
+def test_stand_alone_check_covers_the_mesh_the_tools_and_the_kernels():
+    rel = {os.path.relpath(f, os.path.join(REPO, "pixelbox_tpu_torch")) for f in _port_sources()}
+    for want in (
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_scan.py",
+        "parallel/data_parallel.py", "tools/measure_breakdown.py",
+        "csrc/fused_scan.cu", "csrc/breakdown.cu", "csrc/scan_device.cuh",
+    ):
+        assert want in rel, want
+
+
+def test_kernel_builds_read_the_ports_own_sources():
+    """Every nvcc build compiles files of the port's csrc/ into the port's
+    build directory — nothing of the JAX package."""
+    from pixelbox_tpu_torch.ops import fused_scan
+
+    csrc = os.path.realpath(os.path.join(REPO, "pixelbox_tpu_torch", "csrc"))
+    assert os.path.realpath(str(fused_scan._CSRC)) == csrc
+    for name in (*fused_scan._SOURCES, "breakdown.cu"):
+        assert os.path.isfile(os.path.join(csrc, name)), name
+    for inc in re.findall(r'#include "([^"]+)"', open(os.path.join(csrc, "breakdown.cu")).read()):
+        assert os.path.isfile(os.path.join(csrc, inc)), inc
+    build = os.path.realpath(str(fused_scan._build_dir()))
+    assert build.startswith(os.path.realpath(os.path.join(REPO, "pixelbox_tpu_torch")) + os.sep) or \
+        "PIXELBOX_TPU_TORCH_BUILD_DIR" in os.environ
+
+
+def test_port_modules_import_without_jax():
+    """Importing the port — the mesh and the tools included — pulls in no
+    jax and nothing of the JAX package."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None; sys.modules['pixelbox_tpu'] = None\n"
+        "import pixelbox_tpu_torch.engine, pixelbox_tpu_torch.parallel, pixelbox_tpu_torch.serve\n"
+        "import pixelbox_tpu_torch.parallel.data_parallel, pixelbox_tpu_torch.tools.measure_breakdown\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pixelbox_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_stand_alone():
+    files = _port_sources()
     assert len(files) > 40
     faults = {}
     for f in files:
