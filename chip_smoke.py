@@ -8,8 +8,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. Device: requires ``torch.cuda.is_available()``; prints the card and
    ``nvidia-smi`` name/power limit; holds the exact numerics (TF32 off,
    cuDNN deterministic, benchmark off).
-2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu`` and
-   ``csrc/breakdown.cu`` for sm_90a, one nvcc each, in parallel.
+2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
+   ``csrc/tc_scan.cu`` (the tensor-core K1a and K2a) and
+   ``csrc/breakdown.cu`` for sm_90a, one nvcc each, in parallel; logs the
+   tensor-core kernels' registers and spills and ptxas's wgmma warnings.
 3. Kernels vs plain at the main shapes (1,048,576 rows × 128, k = 100,
    Q ∈ {1, 8, 256}) in five cases: θ from the sample, θ = max_distance, a
    max_distance filter that excludes rows, 1% invalid rows, and a tie
@@ -18,14 +20,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    PyTorch version on the same inputs — outputs must be bit-identical —
    and the end-to-end results must equal the exact scan, and the numpy
    oracle on a sub-sample of queries.  Kernel and plain medians are timed
-   with CUDA events.
+   with CUDA events; the tensor-core K1a at Q ∈ {1, 8, 256} (and 2048 in
+   3c) in turns against the ``__dp4a`` kernel it replaced, per call and
+   device-only.
 3b. Hamming kernels vs plain at the phash's published width (1,048,576
    rows × 32 bytes, k = 100, Q ∈ {1, 8, 256, 2048}) in seven cases: θ
    from the sample, θ = max_distance, max_distance 0.1, 1% tombstones,
    the u8 wrap, byte_limit 24 with a width-group mask, and an 8,192-row
    tie flood that must defeat the proof and be repaired.  Replayed and
    checked as in phase 3, with the proof rate and the repaired count
-   printed per Q.
+   printed per Q; the tensor-core K2a timed at every Q in turns against the
+   ``__popc`` kernel it replaced.
 3c. Large batches (the JAX package's buffer-select kernel, Q > 1024):
    cosine ``auto`` at Q = 2048 over phase 3's 1,048,576 × 128 rows, every
    launch replayed through its plain version.
@@ -36,7 +41,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    tombstones, and a tie flood that must be repaired.  Every launch is
    replayed bit-identical through its plain version; end results must
    equal the plain exact scan, and the numpy oracle on one query per case
-   and mode; the proof rate is printed per Q.  At k = 400, Q ∈ {1, 8,
+   and mode; the proof rate is printed per Q, and every query a non-flood
+   case leaves unproven is explained: its exact count against the cap, its
+   θ and k-th distance, and the same query rerun alone (Q = 1).  At k = 400, Q ∈ {1, 8,
    256} the cos-key pass (K4d + K1e) runs too, with the same checks; K4d
    is timed against K4a in turns, and the whole auto scan (asym, k = 400)
    with ``epilogue="dist"`` against ``"cos"`` at the batching service's
@@ -78,10 +85,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    /api/similar`` and 16 ``POST /api/phash-similar``, every response
    equal to the engine's direct call; then ``/api/tag`` → ``search
    tag:``, ``/api/remove`` of a top hit and an append of 1,024 seeded rows,
-   which a second burst must see; a full bucket (256 concurrent submits,
-   the batches the cos key serves) straight into the service against its
-   dist-path scan; then a burst and a full bucket on phase 6's int4 engine
-   (rerank on) — counting launches from zero around each burst.
+   which a second burst must see; a full bucket (256 concurrent submits)
+   straight into the service against its dist-path scan, then (uncounted)
+   the same bucket served again on the distance, which the u8 service
+   takes, and on the cos key (K1d + K1e), in turns: results equal, the
+   burst's wall split at the service's batch; then a burst and a full
+   bucket on phase 6's int4 engine (rerank on; the cos key at 256) —
+   counting launches from zero around each burst.
 8. Mesh serving (runs before phase 7, which keeps its stores as phase 6
    left them): phases 4–6's 1M-row u8, phash and int4 libraries put on a
    4-shard mesh through ``Engine.serve_on_mesh`` (the visible cards
@@ -106,9 +116,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    launches from zero around it — then each rung once at that shape on
    rows planted near the queries, bit-identical to its plain version.
 
-The last lines are the card's nvidia-smi line, the kernels' JSON summary
-(time, plain time, bound, library time per kernel) and
-``{"ok": true, "device": {...}}``.
+Phases 4-9 must run every u8 collect at D = 128 and every Hamming collect
+at 32 B on the tensor-core kernels (their ``__dp4a`` / ``__popc``
+predecessors launched no time).  The last lines are the card's nvidia-smi
+line, the kernels' JSON summary (time, plain time, bound, library time per
+kernel; the tensor-core collects with their predecessor's time and error
+against their outputs and a per-Q table) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -258,6 +271,32 @@ class Recorder:
         return wrapper
 
 
+def same_collect(fs, what, out, ref, cap):
+    """Hold a collect's (count, cand, cand_i) against another run's on the
+    same inputs: counts equal, and the sorted (dist, row) sets equal where
+    count <= cap.  Returns the two compared distance tensors."""
+    import torch
+
+    c1, d1, i1 = out
+    c2, d2, i2 = ref
+    check(torch.equal(c1, c2), f"{what}: counts differ")
+    ok = c1 <= cap
+    lens = torch.clamp(c1, max=cap)
+    s1 = fs.lex_topk_segments_plain(d1, i1, cap, lens, segment=cap)
+    s2 = fs.lex_topk_segments_plain(d2, i2, cap, lens, segment=cap)
+    check(torch.equal(s1[0][ok], s2[0][ok]), f"{what}: distances differ")
+    check(torch.equal(s1[1][ok], s2[1][ok]), f"{what}: row ids differ")
+    return s1[0][ok], s2[0][ok]
+
+
+def max_abs_err(a, b):
+    """Largest |a − b| over the places where both are finite (0.0 if none)."""
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
 def replay(fs, call):
     """Re-run one recorded call through the plain version; returns
     (max_abs_err over compared finite values)."""
@@ -269,17 +308,8 @@ def replay(fs, call):
         check(torch.equal(out, d2), "coskey_rescore differs from plain")
         a, b = out, d2
     elif name.endswith("collect"):
-        cap = args[-1]
-        c2, d2, i2 = getattr(fs, name + "_plain")(*args)
-        c1, d1, i1 = out
-        check(torch.equal(c1, c2), f"{name} count differs from plain")
-        ok = c1 <= cap
-        lens = torch.clamp(c1, max=cap)
-        s1 = fs.lex_topk_segments_plain(d1, i1, cap, lens, segment=cap)
-        s2 = fs.lex_topk_segments_plain(d2, i2, cap, lens, segment=cap)
-        check(torch.equal(s1[0][ok], s2[0][ok]), f"{name} distances differ from plain")
-        check(torch.equal(s1[1][ok], s2[1][ok]), f"{name} row ids differ from plain")
-        a, b = s1[0][ok], s2[0][ok]
+        a, b = same_collect(fs, f"{name} against plain", out,
+                            getattr(fs, name + "_plain")(*args), args[-1])
     elif name.endswith("chunk_topk"):
         d2, i2 = getattr(fs, name + "_plain")(*args, **kwargs)
         check(torch.equal(out[0], d2) and torch.equal(out[1], i2), f"{name} differs from plain")
@@ -290,8 +320,7 @@ def replay(fs, call):
         d2, i2 = fs.lex_topk_segments_plain(dist, idx, k, lens)
         check(torch.equal(out[0], d2) and torch.equal(out[1], i2), "K1c differs from plain")
         a, b = out[0], d2
-    fin = torch.isfinite(a) & torch.isfinite(b)
-    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return max_abs_err(a, b)
 
 
 def median_ms(fn, reps=10):
@@ -332,6 +361,67 @@ def interleaved_ms(fns, reps=10):
     return [statistics.median(t) for t in times]
 
 
+def gpu_ms(fns, reps=20, rounds=3):
+    """Device time a call, of each function in turns: a sleep kernel first
+    lets the host queue ``reps`` back-to-back calls, so the CUDA events
+    bracket device work only (the wrappers' host cost is hidden); the
+    least of ``rounds`` rounds."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    best = [float("inf")] * len(fns)
+    for _ in range(rounds):
+        for j, f in enumerate(fns):
+            torch.cuda._sleep(20_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(reps):
+                f()
+            e.record()
+            torch.cuda.synchronize()
+            best[j] = min(best[j], s.elapsed_time(e) / reps)
+    return best
+
+
+#: The tensor-core collects and the kernels they replaced, kept as timing
+#: references (ops/fused_scan.py).
+PREVIOUS = {"cosine_threshold_collect": "cosine_threshold_collect_dp4a",
+            "hamming_threshold_collect": "hamming_threshold_collect_popc"}
+
+
+def time_against_previous(fs, call, smi, tag, err, reps=10):
+    """A tensor-core collect's recorded call: its predecessor held against
+    the recorded outputs on the same inputs (its error in ``err`` under its
+    own name), time_kernel's numbers (single calls), then the kernel
+    against its predecessor in turns — single-call medians and device-only
+    times."""
+    name, args, kwargs, out = call
+    prev = PREVIOUS[name]
+    a, b = same_collect(fs, f"{prev} against {name}", getattr(fs, prev)(*args, **kwargs),
+                        out, args[-1])
+    err[prev] = max(err[prev], max_abs_err(a, b))
+    st = time_kernel(fs, call, smi, tag, reps=reps)
+    new, old = getattr(fs, name), getattr(fs, PREVIOUS[name])
+    st["ms"], st["previous_ms"] = interleaved_ms(
+        [lambda: new(*args, **kwargs), lambda: old(*args, **kwargs)], reps)
+    st["gpu_ms"], st["previous_gpu_ms"] = gpu_ms(
+        [lambda: new(*args, **kwargs), lambda: old(*args, **kwargs)], reps=max(2, 2 * reps))
+    qn = args[0].shape[0]
+    log(f"{tag} {name} Q={qn} vs {PREVIOUS[name]} (same counts and candidates) in turns: {st['ms']:.4f} / "
+        f"{st['previous_ms']:.4f} ms a call ({st['previous_ms'] / st['ms']:.2f}x), device only "
+        f"{st['gpu_ms']:.4f} / {st['previous_gpu_ms']:.4f} ms ({st['previous_gpu_ms'] / st['gpu_ms']:.2f}x); "
+        f"bound {st['bound_ms']:.4f} ms ({smi})")
+    return st
+
+
+def by_q(st):
+    return {k: st[k] for k in ("ms", "previous_ms", "gpu_ms", "previous_gpu_ms", "plain_ms",
+                               "bound_ms", "bound_by", "dot_only_ms") if k in st}
+
+
 def ab_collect(fs, a_call, b_call, smi, tag, reps=20):
     """K1a/K4a (``a_call``) against K1d/K4d (``b_call``) on the same
     queries and rows, in turns; logs and returns (a_ms, b_ms)."""
@@ -356,6 +446,32 @@ def ab_auto_buckets(auto, queries, smi, tag, reps=30):
         log(f"{tag} auto dist vs cos in turns, Q={qn}: {d_ms:.4f} / {c_ms:.4f} ms "
             f"({c_ms / d_ms:.3f}x; median of {reps} each; {smi})")
     return out
+
+
+def time_theta_stage(fs, smp, q, md, smi, reps=10):
+    """The θ stage of the main pass (k = K) against its parts, in turns:
+    the plain-torch mini-sample (stage 1), K1a over the sample (stage 2)
+    and K1c over its buffer."""
+    import torch
+
+    qk = fs.CosineQueries.from_u8(q)
+    s = smp.data.shape[0]
+    j = min(s, max(1, -(-max(16 * K // 5, 256) * s // N_ROWS)))
+    cap = fs.sample_cap(j)
+    theta0 = fs.mini_sample_theta(qk, smp, md, j)
+    count, cand_d, cand_i = qk.collect(theta0, smp.data, smp.meta, cap)
+    lens = torch.clamp(count, max=cap)
+    whole, mini, k1a, k1c = interleaved_ms([
+        lambda: fs.sample_theta(qk, smp, md, j),
+        lambda: fs.mini_sample_theta(qk, smp, md, j),
+        lambda: qk.collect(theta0, smp.data, smp.meta, cap),
+        lambda: fs.lex_topk(cand_d, cand_i, j, lens=lens),
+    ], reps)
+    nbytes = smp.data.numel() + 12 * s  # the sample's rows and meta rows 0-2, read once
+    log(f"[3] θ stage at Q={q.shape[0]} over the {s:,}-row sample (j={j}): {whole:.4f} ms; "
+        f"its parts alone: plain mini-sample {mini:.4f}, K1a over the sample {k1a:.4f}, "
+        f"K1c {k1c:.4f} ms; bound {nbytes / HBM_BPS * 1e3:.4f} ms (bytes: {nbytes:,} B) "
+        f"(medians of {reps} in turns, CUDA events; {smi})")
 
 
 def phase_kernels(fs, scan, smi, err):
@@ -450,6 +566,7 @@ def phase_kernels(fs, scan, smi, err):
             qall = torch.from_numpy(queries).to(dev)
             ab_auto_buckets(lambda q, e: scan.cosine_scan_topk_auto(
                 q, idx, k=K, max_distance=md, sample=smp, row_meta=meta, epilogue=e), qall, smi, "[3e] u8")
+            time_theta_stage(fs, smp, qall[:MAIN_Q], md, smi)
         del idx, meta, smp
         torch.cuda.empty_cache()
 
@@ -462,11 +579,15 @@ def phase_kernels(fs, scan, smi, err):
         return args[5].shape[0] == N_ROWS
 
     stats = {}
-    for n, qn in (("cosine_threshold_collect", MAIN_Q), ("cosine_chunk_topk", REPAIR_Q),
-                  ("lex_topk_segments", MAIN_Q), ("cosine_coskey_collect", MAIN_Q),
-                  ("coskey_rescore", MAIN_Q)):
+    for n, qn in (("cosine_chunk_topk", REPAIR_Q), ("lex_topk_segments", MAIN_Q),
+                  ("cosine_coskey_collect", MAIN_Q), ("coskey_rescore", MAIN_Q)):
         call = next(c for c in timed_calls[(n, qn)] if main_pass(c))
         stats[n] = time_kernel(fs, call, smi, "[3e]" if "coskey" in n else "[3]")
+    k1a = {}
+    for qn in QS:  # the tensor-core K1a against the __dp4a kernel it replaced
+        call = next(c for c in timed_calls[("cosine_threshold_collect", qn)] if main_pass(c))
+        k1a[qn] = time_against_previous(fs, call, smi, "[3]", err)
+    stats["cosine_threshold_collect"] = {**k1a[MAIN_Q], "by_q": {q: by_q(st) for q, st in k1a.items()}}
     ab_collect(fs, next(c for c in timed_calls[("cosine_threshold_collect", MAIN_Q)] if main_pass(c)),
                next(c for c in timed_calls[("cosine_coskey_collect", MAIN_Q)] if main_pass(c)),
                smi, "[3e] K1a vs K1d")
@@ -581,11 +702,16 @@ def phase_hamming(fs, scan, hg, smi, err):
         torch.cuda.empty_cache()
 
     stats = {}
-    for n, qn in (("hamming_threshold_collect", MAIN_Q), ("hamming_chunk_topk", REPAIR_Q),
-                  ("hamming_threshold_collect", BIG_Q), ("hamming_chunk_topk", MAIN_Q)):
+    for n, qn in (("hamming_chunk_topk", REPAIR_Q), ("hamming_chunk_topk", MAIN_Q)):
         call = next(c for c in timed_calls[(n, qn)] if c[1][2].shape[0] == N_ROWS)
         st = time_kernel(fs, call, smi, "[3b]", reps=10 if qn <= MAIN_Q else 3)
         stats.setdefault(n, st)  # the main-path shape (listed first) goes in the kernels line
+    k2a = {}
+    for qn in PH_QS:  # the tensor-core K2a against the __popc kernel it replaced
+        call = next(c for c in timed_calls[("hamming_threshold_collect", qn)]
+                    if c[1][2].shape[0] == N_ROWS)
+        k2a[qn] = time_against_previous(fs, call, smi, "[3b]", err, reps=10 if qn <= MAIN_Q else 3)
+    stats["hamming_threshold_collect"] = {**k2a[MAIN_Q], "by_q": {q: by_q(st) for q, st in k2a.items()}}
     return stats
 
 
@@ -632,7 +758,7 @@ def phase_big_batch(fs, scan, smi, err, db):
         f"({', '.join(names)}) replayed bit-identical; = exact scan and oracle; proven "
         f"{n_exact}/{BIG_Q}, repaired {BIG_Q - n_exact}")
     main = next(c for c in rec.calls if c[0] == "cosine_threshold_collect" and c[1][5].shape[0] == N_ROWS)
-    st = time_kernel(fs, main, smi, "[3c]", reps=3)
+    st = time_against_previous(fs, main, smi, "[3c]", err, reps=3)
     del idx, meta, smp
     torch.cuda.empty_cache()
     return st
@@ -711,6 +837,7 @@ def phase_int4_kernels(fs, scan, smi, err, db):
                         if which in ("auto", "both"):
                             td, ti, exact = fs.fused_threshold4_scan_topk(
                                 q, idx, meta, smp, k=k, max_distance=md, query_mode=mode)
+                            first_pass = list(rec.calls)
                             check(torch.equal(td[exact], wd[exact]) and torch.equal(ti[exact], wi[exact]),
                                   f"int4 {name}/{mode}: a query flagged exact differs from the exact scan")
                             results.append(("auto", *int4.cosine4_scan_topk_auto(
@@ -733,6 +860,11 @@ def phase_int4_kernels(fs, scan, smi, err, db):
                         err[call[0]] = max(err[call[0]], replay(fs, call))
                         if name in ("theta_from_sample", "theta_max_distance"):
                             timed_calls.setdefault((call[0], mode, k, qn), []).append(call)
+                    if which in ("auto", "both") and name != "tie_flood":
+                        explain_unproven(fs, err, first_pass, td, exact,
+                                         lambda qq: fs.fused_threshold4_scan_topk(
+                                             qq, idx, meta, smp, k=k, max_distance=md, query_mode=mode),
+                                         q, k, f"[3d] int4 {name} {mode} k={k} Q={qn}")
                     for label, d, i in results:
                         check(tuple(d.shape) == (qn, k) and tuple(i.shape) == (qn, k),
                               f"int4 {name}/{label}: shape")
@@ -779,6 +911,30 @@ def phase_int4_kernels(fs, scan, smi, err, db):
                          for n in ("cosine4_threshold_collect", "cosine4_coskey_collect")),
                    smi, f"[3d] {mode} k={kmax} K4a vs K4d")
     return stats
+
+
+def explain_unproven(fs, err, calls, td, exact, scan_one, q, k, tag):
+    """Every query a threshold pass left unproven: its exact count against
+    the buffer's cap, its θ and k-th distance from the recorded main
+    collect (over all N_ROWS rows), then the same query alone (Q = 1)
+    through ``scan_one`` — its count, θ and proof — every launch replayed."""
+    import torch
+
+    main = [c for c in calls if c[0].endswith("collect") and c[1][5].shape[0] == N_ROWS]
+    if not main or bool(exact.all()):
+        return
+    args, out = main[-1][1], main[-1][3]
+    cap, theta, count = args[-1], args[4], out[0]
+    for qi in torch.nonzero(~exact).flatten().tolist():
+        with Recorder(fs) as rec:
+            _, _, ex1 = scan_one(q[qi:qi + 1])
+            torch.cuda.synchronize()
+        for call in rec.calls:
+            err[call[0]] = max(err[call[0]], replay(fs, call))
+        one = [c for c in rec.calls if c[0].endswith("collect") and c[1][5].shape[0] == N_ROWS][-1]
+        log(f"{tag}: query {qi} unproven: count {int(count[qi])} vs cap {cap}, θ {float(theta[qi])!r}, "
+            f"k-th distance {float(td[qi, k - 1])!r}; alone (Q=1): count {int(one[3][0][0])}, "
+            f"θ {float(one[1][4][0])!r}, proven {bool(ex1[0])}")
 
 
 # --------------------------------------------------------------------- #
@@ -1421,14 +1577,37 @@ def service_burst(svc, queries):
     return out
 
 
+def with_gc_ms(fn):
+    """Run ``fn``; returns (its result, ms that Python's cyclic garbage
+    collector ran meanwhile, the oldest generation it collected or -1)."""
+    import gc
+
+    spent, start, oldest = [0.0], [0.0], [-1]
+
+    def timer(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            spent[0] += time.perf_counter() - start[0]
+            oldest[0] = max(oldest[0], info["generation"])
+
+    gc.callbacks.append(timer)
+    try:
+        out = fn()
+    finally:
+        gc.callbacks.remove(timer)
+    return out, spent[0] * 1e3, oldest[0]
+
+
 def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
     import threading
     import urllib.request
 
     import numpy as np
+
     from pixelbox_tpu_torch.records import IndexedImage
     from pixelbox_tpu_torch.serve import _serialize_results, build_scan_service, make_server
-    from pixelbox_tpu_torch.serving.service import _COSKEY_MIN_BUCKET
+    from pixelbox_tpu_torch.serving.service import _BUCKETS
 
     rng = np.random.default_rng(SEED + 7)
     counts = {n: 0 for n in fs.LAUNCHES}
@@ -1530,16 +1709,17 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
     log("[7] burst 2: all 80 responses = direct calls; every appended copy found, the removed image gone")
 
     def full_bucket(s, eng, tag):
-        """A full bucket straight into a service — the batches the cos key
-        serves (K1d/K4d + K1e) — against the same service's dist-path scan
-        of the queries in two half buckets."""
-        rows = eng._sem_store.get_rows(rng.choice(eng._sem_store.n, _COSKEY_MIN_BUCKET, replace=False))
+        """A full bucket straight into a service against the same service's
+        dist-path scan of the queries in two half buckets; returns the
+        queries and the results."""
+        full = _BUCKETS[-1]
+        rows = eng._sem_store.get_rows(rng.choice(eng._sem_store.n, full, replace=False))
         full_q = perturb(rng, rows)
         batches0, before = s.batches_run, dict(counts)
         t0 = time.perf_counter()
-        got = counted(lambda: service_burst(s, full_q))
+        got, gc_ms, gc_gen = with_gc_ms(lambda: counted(lambda: service_burst(s, full_q)))
         wall = time.perf_counter() - t0
-        half = _COSKEY_MIN_BUCKET // 2
+        half = full // 2
         want = [tuple(np.asarray(x.cpu() if hasattr(x, "cpu") else x)
                       for x in s._semantic_scan(full_q[h:h + half], n_real=half))
                 for h in (0, half)]
@@ -1548,11 +1728,79 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
             check(np.array_equal(i, wi[j % half]) and np.array_equal(d, wd[j % half]),
                   f"{tag} full-bucket burst: query {j} differs from the dist-path scan")
         delta = {n: counts[n] - before[n] for n in counts if counts[n] != before[n]}
-        log(f"{tag} full-bucket burst: {len(full_q)} submits in {wall * 1e3:.1f} ms, "
+        log(f"{tag} full-bucket burst: {len(full_q)} submits in {wall * 1e3:.1f} ms "
+            f"(garbage collection {gc_ms:.1f} ms of it, oldest generation {gc_gen}), "
             f"{s.batches_run - batches0} batches, launches {json.dumps(delta)}; "
             f"every result = the dist-path scan; {smi}")
+        return full_q, got
 
-    full_bucket(svc, sem_eng, "[7] u8")
+    def served_in_turns(s, full_q, got, tag, rounds=6):
+        """The full bucket through the u8 service again, on the distance
+        (what it serves) and on the cos key (K1d + K1e: the service's scan
+        call wrapped to pass epilogue="cos") in turns, the first of each
+        round alternating, uncounted: every result = the counted burst's.
+        The service's batching window is widened meanwhile, so that each
+        burst forms one batch of 256 (its 256 submits outlast the 2 ms
+        window now and then).  Per run: the burst's wall, and its split at
+        the batch — submits until it starts, the batch (scan + host
+        copies), its end until the last submit returns — the garbage
+        collector's time within it, and the kernels it launched."""
+        import pixelbox_tpu_torch.serving.service as service_mod
+
+        auto = service_mod.cosine_scan_topk_auto
+        run_group = s._run_group
+        marks = []
+
+        def marked(kind, batch):
+            marks.append(time.perf_counter())
+            run_group(kind, batch)
+            marks.append(time.perf_counter())
+
+        def cos_key(*args, **kwargs):
+            return auto(*args, **{**kwargs, "epilogue": "cos"})
+
+        split = {"dist": [], "cos": []}
+        s._run_group = marked
+        window, s.max_wait_s = s.max_wait_s, 1.0
+        try:
+            for r in range(rounds):
+                for epi in ("dist", "cos") if r % 2 == 0 else ("cos", "dist"):
+                    service_mod.cosine_scan_topk_auto = cos_key if epi == "cos" else auto
+                    marks.clear()
+                    before = fs.launch_counts()
+                    t0 = time.perf_counter()
+                    out, gc_ms, _ = with_gc_ms(lambda: service_burst(s, full_q))
+                    t1 = time.perf_counter()
+                    service_mod.cosine_scan_topk_auto = auto
+                    in_batches = sum(marks[j + 1] - marks[j] for j in range(0, len(marks), 2))
+                    split[epi].append(((t1 - t0) * 1e3, (marks[0] - t0) * 1e3, in_batches * 1e3,
+                                       (t1 - marks[-1]) * 1e3, gc_ms, len(marks) // 2))
+                    for j, ((d, i), (wd, wi)) in enumerate(zip(out, got)):
+                        check(np.array_equal(i, wi) and np.array_equal(d, wd),
+                              f"{tag} full bucket on the {epi} path: query {j} differs from the served burst")
+                    launched = {n: c - before[n] for n, c in fs.launch_counts().items() if c != before[n]}
+                    if len(split[epi]) == 1:
+                        log(f"{tag} full bucket on the {epi} path: launches {json.dumps(launched)}")
+        finally:
+            service_mod.cosine_scan_topk_auto = auto
+            s._run_group = run_group
+            s.max_wait_s = window
+        med = {e: [statistics.median(x[j] for x in v) for j in range(5)] for e, v in split.items()}
+        for e, (wall, pre, batch, post, gc_ms) in med.items():
+            log(f"{tag} full bucket served on the {e} path, medians of {rounds} in turns: burst "
+                f"{wall:.1f} ms = submits until the batch {pre:.1f} + the batch {batch:.1f} + "
+                f"results back {post:.1f}; garbage collection {gc_ms:.1f} ms within it (runs, "
+                f"burst/batch/garbage collection ms and batches: "
+                f"{', '.join(f'{x[0]:.1f}/{x[2]:.1f}/{x[4]:.1f}/{x[5]}' for x in split[e])}); {smi}")
+        no_gc = {e: statistics.median(x[0] - x[4] for x in v) for e, v in split.items()}
+        log(f"{tag} full bucket: the cos key / the distance {med['cos'][0] / med['dist'][0]:.3f}x "
+            f"the burst ({no_gc['cos'] / no_gc['dist']:.3f}x without the garbage collection: "
+            f"{no_gc['dist']:.1f} / {no_gc['cos']:.1f} ms), {med['cos'][2] / med['dist'][2]:.3f}x "
+            f"the batch; every result = the served burst")
+        return med
+
+    full_q, got = full_bucket(svc, sem_eng, "[7] u8")
+    served_in_turns(svc, full_q, got, "[7] u8")
 
     # The int4 engine (exact-u8 rerank on): K4d on a serving path.
     i4_svc, i4_url = counted(lambda: start(i4_eng))
@@ -1565,15 +1813,16 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
     check(i4_svc.batches_run < len(i4_ids), "int4 service: no coalescing")
     log(f"[7] int4 burst: 32 responses = direct calls; {i4_svc.queries_served} queries in "
         f"{i4_svc.batches_run} batches")
-    full_bucket(i4_svc, i4_eng, "[7] int4")
+    full_bucket(i4_svc, i4_eng, "[7] int4")  # the cos key at the full bucket
 
     for srv, s in servers:
         srv.shutdown()
         srv.server_close()
         s.close()
     log(f"[7] kernel launches on the serving path: {json.dumps(counts)}")
-    for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "cosine_coskey_collect",
-              "coskey_rescore", "cosine4_coskey_collect", "hamming_threshold_collect", "lex_topk_segments"):
+    # (u8 batches select on the distance at every bucket: no K1d here)
+    for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "coskey_rescore",
+              "cosine4_coskey_collect", "hamming_threshold_collect", "lex_topk_segments"):
         check(counts[n] > 0, f"kernel {n} was not launched on the serving path")
     return counts
 
@@ -1922,24 +2171,33 @@ def main() -> int:
     from pixelbox_tpu_torch.tools import measure_breakdown
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(load) for load in (fs.load_kernels, measure_breakdown.load_kernels)]
+    loads = (fs.load_kernels, fs.load_tc_kernels, measure_breakdown.load_kernels)
+    with ThreadPoolExecutor(len(loads)) as pool:
+        builds = [pool.submit(load) for load in loads]
         kerns = [b.result() for b in builds]
     for kern in kerns:
         log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
-        for line in kern.ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+        lines = kern.ptxas.splitlines()
+        for j, line in enumerate(lines):
+            if "Compiling entry" in line and "tc_" in line:  # the tensor-core kernels, by name
+                name = line.split("'")[1]
+                used = next((x.strip() for x in lines[j:j + 5] if "registers" in x), "")
+                spill = next((x.strip() for x in lines[j:j + 5] if "spill" in x), "")
+                log(f"[2] ptxas {name[name.find('tc_'):name.find('tc_') + 40]}: {used}; {spill}")
+            elif "tc_" not in kern.path and ("registers" in line or "spill" in line):
                 log(f"[2] ptxas: {line.strip()}")
-    log(f"[2] both builds in {time.perf_counter() - t0:.2f}s (in parallel)")
+        for warn in sorted({x.split(" in function")[0].split("info    : ")[-1] for x in lines if "(C75" in x}):
+            log(f"[2] ptxas: {warn}")
+    log(f"[2] {len(loads)} builds in {time.perf_counter() - t0:.2f}s (in parallel)")
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
-    err = {n: 0.0 for n in Recorder.NAMES}
+    err = {n: 0.0 for n in (*Recorder.NAMES, *PREVIOUS.values())}
     t0 = time.perf_counter()
     stats, db = phase_kernels(fs, scan, smi, err)
     t0 = phase_time("3", t0)
     stats.update(phase_hamming(fs, scan, hg, smi, err))
     t0 = phase_time("3b", t0)
-    phase_big_batch(fs, scan, smi, err, db)
+    stats["cosine_threshold_collect"]["by_q"][BIG_Q] = by_q(phase_big_batch(fs, scan, smi, err, db))
     t0 = phase_time("3c", t0)
     stats.update(phase_int4_kernels(fs, scan, smi, err, db))
     t0 = phase_time("3d", t0)
@@ -1965,6 +2223,12 @@ def main() -> int:
     phase_time("9", t0)
 
     check("jax" not in sys.modules, "jax was imported")
+    main_counts = (counts4, counts5, counts6, counts7, counts8, counts8b, counts9)
+    for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
+                     ("hamming_threshold_collect_popc", "hamming_threshold_collect")):
+        n_old, n_new = (sum(c[n] for c in main_counts) for n in (old, new))
+        check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
+        log(f"main paths (phases 4-9): {new} {n_new} launches on the tensor cores, {old} {n_old}")
     replaces = {
         "cosine_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:979",
         "cosine_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:1074",
@@ -1983,12 +2247,14 @@ def main() -> int:
         kernels.append({
             "name": n,
             "route": "cuda",
-            "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
+            "source": "pixelbox_tpu_torch/csrc/" + ("tc_scan.cu" if n in PREVIOUS else "fused_scan.cu"),
             "replaces": replaces[n],
-            "launches": sum(c[n] for c in (counts4, counts5, counts6, counts7, counts8, counts8b, counts9)),
+            "launches": sum(c[n] for c in main_counts),
             "max_abs_err": err[n],
             **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            **({"dot_only_ms": st["dot_only_ms"]} if "dot_only_ms" in st else {}),
+            **{key: st[key] for key in ("dot_only_ms", "previous_ms", "gpu_ms", "previous_gpu_ms", "by_q")
+               if key in st},
+            **({"previous_max_abs_err": err[PREVIOUS[n]]} if n in PREVIOUS else {}),
         })
     kernels.append({
         "name": "breakdown_ladder",

@@ -20,10 +20,14 @@
 //   - its exact finish (_exact_dist_gathered,
 //     _coskey_candidate_postpass)                        -> K1e + K1c
 //
-// The Hamming kernels read the packed u8 phash rows (32 bytes for the
-// published 16x16 hash) and count differing bits with xor + __popc; the
-// TPU kernel multiplied a ±1 bit-unpacked int8 copy on its matrix unit,
-// which costs 8x the bytes and gives the same integer.
+// K1a and K2a run on the tensor cores (tc_scan.cu) at the main path's
+// widths; their kernels here serve the other widths and are the timing
+// references of the tensor-core ones.
+//
+// The Hamming kernels here read the packed u8 phash rows and count
+// differing bits with xor + __popc; the TPU kernel multiplied a ±1
+// bit-unpacked int8 copy on its matrix unit (which tc_scan.cu's K2a does
+// in registers), and both give the same integer.
 //
 // The contract is ported, not the loop shape: output (dist [Q,k] f32,
 // idx [Q,k] i32) with missing entries +inf / -1, the strict dist < θ
@@ -62,64 +66,6 @@
 #define PX_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace {
-
-// Differing bits between one packed u8 row (width H) and QT staged
-// queries over the first `limit` bytes (the reference's zip-truncate,
-// engine.rs:594-604).  16-byte loads where H allows, then 32-bit words,
-// then a masked word for a limit that is not a multiple of 4 (rows of a
-// width that is not a multiple of 4 — compat hashes of 16x9 images are
-// 18 bytes — take the byte loop).  Little-endian: a word's low byte is
-// the row's first byte, so the tail mask keeps the low 8*tail bits.
-template <int QT>
-__device__ __forceinline__ void row_popc(const uint8_t* __restrict__ row,
-                                         const uint8_t* q_sh, int H, int limit,
-                                         int (&acc)[QT]) {
-#pragma unroll
-  for (int j = 0; j < QT; ++j) acc[j] = 0;
-  if ((H & 3) != 0) {
-    for (int c = 0; c < limit; ++c) {
-      const unsigned r = row[c];
-#pragma unroll
-      for (int j = 0; j < QT; ++j) acc[j] += __popc(r ^ q_sh[j * H + c]);
-    }
-    return;
-  }
-  int c = 0;
-  if ((H & 15) == 0) {
-    for (; c + 16 <= limit; c += 16) {
-      const uint4 r = *reinterpret_cast<const uint4*>(row + c);
-#pragma unroll
-      for (int j = 0; j < QT; ++j) {
-        const uint4 q = *reinterpret_cast<const uint4*>(q_sh + j * H + c);
-        acc[j] += __popc(r.x ^ q.x) + __popc(r.y ^ q.y) + __popc(r.z ^ q.z) +
-                  __popc(r.w ^ q.w);
-      }
-    }
-  }
-  for (; c + 4 <= limit; c += 4) {
-    const unsigned r = *reinterpret_cast<const unsigned*>(row + c);
-#pragma unroll
-    for (int j = 0; j < QT; ++j)
-      acc[j] += __popc(r ^ *reinterpret_cast<const unsigned*>(q_sh + j * H + c));
-  }
-  const int tail = limit - c;
-  if (tail > 0) {
-    const unsigned mask = (1u << (8 * tail)) - 1u;
-    const unsigned r = *reinterpret_cast<const unsigned*>(row + c) & mask;
-#pragma unroll
-    for (int j = 0; j < QT; ++j)
-      acc[j] += __popc((r ^ *reinterpret_cast<const unsigned*>(q_sh + j * H + c)) & mask);
-  }
-}
-
-// Normalized Hamming distance, the JAX spec op for op (ops/scan.py
-// hamming_scan_topk, pallas_scan.py _kind_dist_tile): the optional u8
-// accumulator wrap of the reference (engine.rs:603), then one correctly
-// rounded f32 multiply by the host's f32(1 / (8 * limit)).
-__device__ __forceinline__ float hamming_dist(int bits, int wrap, float scale) {
-  if (wrap) bits &= 255;
-  return __fmul_rn(__int2float_rn(bits), scale);
-}
 
 // Sort every `seg`-long segment of keys[0:total] ascending (bitonic; seg
 // and total powers of two with seg | total).

@@ -1,14 +1,16 @@
 """Fused threshold scans with guaranteed-exact top-k — the counterpart of
 ``pixelbox_tpu/ops/pallas_scan.py``.
 
-Ten hand-written Hopper kernels (``csrc/fused_scan.cu``) replace the
-JAX package's one Pallas TPU kernel family
-(``pallas_scan.py:_threshold_kernel``; kinds "cosine", "cosine4a",
-"cosine4" and "hamming", selects "carry" and "buffer"):
+Hand-written Hopper kernels (``csrc/fused_scan.cu``, and the tensor-core
+collects in ``csrc/tc_scan.cu``) replace the JAX package's one Pallas TPU
+kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
+"cosine4a", "cosine4" and "hamming", selects "carry" and "buffer"):
 
 - **K1a** :func:`cosine_threshold_collect` — exact int8 dot + spec-v2
   epilogue + strict ``dist < θ_q`` filter; passing rows are appended to a
-  per-query ``[Q, cap]`` buffer with an exact atomic count.
+  per-query ``[Q, cap]`` buffer with an exact atomic count.  On the
+  tensor cores (int8 ``wgmma``) at the rows of :data:`TC_COSINE_DIMS`
+  bytes, on the first port's ``__dp4a`` kernel at other widths.
 - **K1b** :func:`cosine_chunk_topk` — the same dot and epilogue with
   θ = max_distance; each block sorts its row chunk by (dist, id) in shared
   memory and keeps the chunk's first k.
@@ -17,10 +19,13 @@ JAX package's one Pallas TPU kernel family
   It finishes K1a's buffer and K1b's partials, and sorting on the id as
   the second key makes both independent of atomic order.
 - **K2a** :func:`hamming_threshold_collect` and **K2b**
-  :func:`hamming_chunk_topk` — K1a and K1b for the Hamming kind: xor +
-  popcount over the first ``byte_limit`` bytes of the packed u8 phash
-  rows, the optional u8 wrap of the reference (engine.rs:603), one f32
-  multiply by ``f32(1 / (8 * byte_limit))``.  K1c finishes both.
+  :func:`hamming_chunk_topk` — K1a and K1b for the Hamming kind: the
+  differing bits over the first ``byte_limit`` bytes of the packed u8
+  phash rows, the optional u8 wrap of the reference (engine.rs:603), one
+  f32 multiply by ``f32(1 / (8 * byte_limit))``.  K2a multiplies the ±1
+  form of the bits on the tensor cores at :data:`TC_HAMMING_BYTES`-byte
+  hashes (``__popc`` at other widths), K2b counts with xor + ``__popc``.
+  K1c finishes both.
 - **K4a** :func:`cosine4_threshold_collect` and **K4b**
   :func:`cosine4_chunk_topk` — K1a and K1b over the packed int4 rows
   (``ops/int4.py``: two 4-bit codes a byte, column-blocked), unpacked in
@@ -68,18 +73,21 @@ float64 matmul of int8 codes is exact for any realistic D) and select
 with a (dist, id) sort; the CPU tests hold them bit-identical to the JAX
 package, and ``chip_smoke.py`` holds the kernels bit-identical to them.
 
-What bounds the kernels on the card: K1a/K1b read the int8 index once
-per query tile (32 / 4 queries) and spend ~D/4 ``__dp4a`` per (query,
-row) plus one correctly-rounded divide — integer-ALU and divide bound at
-Q >= 32, HBM-read bound below; K4a/K4b read half the bytes and spend
-the same ``__dp4a`` plus one mask and one shift + mask per packed word;
-K1d/K4d are K1a/K4a without the divide, clamp and pin; K1e is bound by
-its gathered rows.  K2a/K2b spend byte_limit/4 ``__popc``
-per (query, row) — popcount-throughput bound at Q >= 32.  The design
-keeps distances out of device memory (only θ-passing rows or each
-chunk's top-k are written); tensor-core versions (an int8 ``wgmma`` dot,
-a ``.b1`` MMA or ±1 int8 product for Hamming) and fusing K1a with K1c
-are later work (ROADMAP.md).
+What bounds the kernels on the card: the tensor-core K1a and K2a read
+the rows once per 256 queries and multiply on the tensor cores; past the
+product, a branch-free filter of every (query, row) pair on the
+accumulators (a few f32 / integer operations a pair) is their cost, and
+only its survivors take the exact distance (ops bound at Q >= 256, HBM
+read bound below).  K1b reads the int8 index once per 4 queries and
+spends ~D/4 ``__dp4a`` per (query, row) plus one correctly-rounded
+divide — integer-ALU and divide bound; K4a/K4b read half the bytes and
+spend the same ``__dp4a`` plus one mask and one shift + mask per packed
+word (32 queries a block for K4a); K1d/K4d are K4a's loop without the
+divide, clamp and pin; K1e is bound by its gathered rows; K2b spends
+byte_limit/4 ``__popc`` per (query, row).  The design keeps distances
+out of device memory (only θ-passing rows or each chunk's top-k are
+written); the tensor-core skeleton for K4a/K1d/K4d and K1b/K4b/K2b, and
+fusing the collects with K1c, are later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -108,15 +116,22 @@ from pixelbox_tpu_torch.ops.packed import (
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("fused_scan.cu",)
+_TC_SOURCES = ("tc_scan.cu",)
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
     "-gencode", "arch=compute_90a,code=sm_90a", "-fmad=false",
     "-Xptxas", "-v",
 )
 
-#: Queries staged per K1a block; K1a stages ``_COLLECT_Q * D`` bytes of
-#: shared memory (must stay under the 48 KB static-launch limit).
+#: Queries staged per block of the ``__dp4a`` / ``__popc`` collect kernels
+#: (K1d, K4a, K4d, and K1a / K2a at the widths the tensor-core kernels do
+#: not take); they stage ``_COLLECT_Q * D`` bytes of shared memory (must
+#: stay under the 48 KB static-launch limit).
 _COLLECT_Q = 32
+#: Row widths (bytes) the tensor-core K1a takes (TMA-fed K-major tiles).
+TC_COSINE_DIMS = (32, 64, 128)
+#: Hash width (bytes) the tensor-core K2a takes: the published 16x16 phash.
+TC_HAMMING_BYTES = 32
 #: Rows per K1b chunk (power of two); the chunk keeps its first k.
 CHUNK_ROWS = 1024
 #: Candidates per K1c segment (power of two, >= 2k so each pass shrinks).
@@ -146,7 +161,9 @@ class _Kernels(NamedTuple):
 
 
 _KERNELS: Optional[_Kernels] = None
+_TC_KERNELS: Optional[_Kernels] = None
 _KERNELS_LOCK = threading.Lock()
+_TC_KERNELS_LOCK = threading.Lock()
 
 
 def _build_dir() -> Path:
@@ -173,6 +190,23 @@ def load_kernels() -> _Kernels:
         if _KERNELS is None:
             _KERNELS = _build_and_load()
         return _KERNELS
+
+
+def load_tc_kernels() -> _Kernels:
+    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a and K2a) for
+    sm_90a into its own library, beside :func:`load_kernels`'s, so the
+    two build in parallel.  Raises on any failure."""
+    global _TC_KERNELS
+    with _TC_KERNELS_LOCK:
+        if _TC_KERNELS is None:
+            kern = build_library(_TC_SOURCES, "libpixelbox_tc_scan")
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            kern.lib.px_tc_cosine_collect.restype = ci
+            kern.lib.px_tc_cosine_collect.argtypes = [vp] * 7 + [ci] * 4 + [cf] * 3 + [vp] * 4
+            kern.lib.px_tc_hamming_collect.restype = ci
+            kern.lib.px_tc_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
+            _TC_KERNELS = kern
+        return _TC_KERNELS
 
 
 def build_library(sources, stem: str) -> _Kernels:
@@ -280,9 +314,11 @@ def _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=False):
 #: take the plain version, do not count).
 LAUNCHES = {
     "cosine_threshold_collect": 0,
+    "cosine_threshold_collect_dp4a": 0,
     "cosine_chunk_topk": 0,
     "lex_topk_segments": 0,
     "hamming_threshold_collect": 0,
+    "hamming_threshold_collect_popc": 0,
     "hamming_chunk_topk": 0,
     "cosine4_threshold_collect": 0,
     "cosine4_chunk_topk": 0,
@@ -422,19 +458,49 @@ def cosine_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap:
     sort by (dist, id).
 
     Replaces ``pallas_scan.py:_threshold_kernel`` (select="buffer"
-    semantics) for the θ stage and the main pass.  On the card it is bound
-    by the int8 dot (D/4 ``__dp4a`` per query and row) and the divide;
-    it writes only the θ-passing rows (~320 per query at the default
-    target), so distances never reach device memory.
+    semantics) for the θ stage and the main pass.  On the card, rows of
+    :data:`TC_COSINE_DIMS` bytes (the main path's 128, and 32 and 64) go to
+    the tensor-core K1a (``csrc/tc_scan.cu``: int8 ``wgmma`` over TMA-fed
+    row tiles, a cos-key prefilter on the accumulators, the spec distance
+    and strict θ for the key's survivors only); other widths (e.g. 8 or
+    36) go to the ``__dp4a`` kernel (:func:`cosine_threshold_collect_dp4a`,
+    its own launch count).  Either writes only the θ-passing rows (~320
+    per query at the default target), so distances never reach device
+    memory.
     """
-    dev, qn, _, _ = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
+    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
     _require(theta, "theta", torch.float32, (qn,), dev)
     if dev.type != "cuda":
         return cosine_threshold_collect_plain(
             q_codes, q_sum, q_mag2, qr, theta, data, meta, cap
         )
+    if d not in TC_COSINE_DIMS:
+        return cosine_threshold_collect_dp4a(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap)
+    if q_codes.data_ptr() % 16:  # a TMA source: copy an unaligned view
+        q_codes = q_codes.clone()
+    kern = load_tc_kernels()
+    count = torch.zeros(qn, dtype=torch.int32, device=dev)
+    cand_d = torch.empty((qn, cap), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_tc_cosine_collect(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2), _ptr(qr), _ptr(theta),
+            _ptr(data), _ptr(meta), qn, n, d, cap, _KEY_SCALE, DIST_SATURATION, KEY_LOOSE,
+            _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
+        )
+    _check(rc, "cosine_threshold_collect")
+    LAUNCHES["cosine_threshold_collect"] += 1
+    return count, cand_d, cand_i
+
+
+def cosine_threshold_collect_dp4a(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap: int):
+    """K1a on the ``__dp4a`` kernel of the first port (``fused_scan.cu``
+    ``threshold_collect_kernel``: one thread a row against 32 staged
+    queries), for CUDA tensors only: :func:`cosine_threshold_collect`'s
+    path for widths outside :data:`TC_COSINE_DIMS`, and the timing
+    reference of the tensor-core kernel.  Same contract and outputs."""
     return _collect_on_card(
-        "cosine_threshold_collect", "px_threshold_collect",
+        "cosine_threshold_collect_dp4a", "px_threshold_collect",
         q_codes, q_sum, q_mag2, qr, theta, data, meta, cap,
     )
 
@@ -668,6 +734,8 @@ def cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, met
 #: ``pallas_scan.py:_DIST_SATURATION``): a θ at or above it admits every
 #: valid row, so its key threshold is +inf.
 DIST_SATURATION = float(np.float32(1.0) / np.float32(1e-6) - np.float32(1.0))
+#: The key threshold's margin factor ``f32(1 − 1e-5)``.
+_KEY_SCALE = float(np.float32(1 - 1e-5))
 
 
 def cos_key_threshold(theta: torch.Tensor) -> torch.Tensor:
@@ -678,10 +746,45 @@ def cos_key_threshold(theta: torch.Tensor) -> torch.Tensor:
     on the thresholds' own device, for the kernels and their plain
     versions alike."""
     one = _f32(1.0, theta)
-    c = (one / (one + theta)) * _f32(1 - 1e-5, theta)
+    c = (one / (one + theta)) * _f32(_KEY_SCALE, theta)
     return torch.where(
         theta >= _f32(DIST_SATURATION, theta), torch.full_like(theta, float("inf")), -c
     ).contiguous()
+
+
+#: The tensor-core K1a's loosening of its key bound, ``1 − 2^-16`` (passed
+#: to the kernel): far more than the roundings between the bound and the
+#: cos key.
+KEY_LOOSE = float(np.float32(1.0 - 2.0**-16))
+
+
+def key_bound(theta: torch.Tensor, qr: torch.Tensor) -> torch.Tensor:
+    """[Q] f32 bound of the tensor-core K1a's branch-free filter, op for op
+    the kernel's ``key_bound`` (``csrc/tc_scan.cu``, once per query tile;
+    IEEE divides in both): row r passes query q when
+    ``fl(dot_c · rr) > u[q]``, with ``u = fl(fl(c · KEY_LOOSE) / qr)`` and
+    ``c = −cos_key_threshold(θ)``; −inf (every valid row) where ``c <= 0``.
+    The cos key ``fl(dot_c · fl(qr · rr)) > c`` implies the bound (a few
+    roundings apart, far inside the 2^-16 loosening), and ``dist < θ``
+    implies the key, so the filter keeps every θ-passing row; the kernel
+    then applies the exact distance and the strict θ to the survivors."""
+    c = -cos_key_threshold(theta)
+    u = (c * _f32(KEY_LOOSE, c)) / qr
+    return torch.where(c <= 0, torch.full_like(u, float("-inf")), u).contiguous()
+
+
+def hamming_pass_count(theta: torch.Tensor, byte_limit: int, wrap_u8: bool) -> torch.Tensor:
+    """[Q] int32 T of the tensor-core K2a's integer filter, the kernel's
+    per-query threshold (there by a binary search on the same
+    ``fl(d · scale) < θ``): the number of bit counts d in ``[0, dmax]`` with
+    ``fl(d · scale) < θ`` (dmax = 8·byte_limit, or ≤ 255 under the wrap).
+    The distance is monotone in d, so ``dist < θ`` ⟺ ``d < T``: unwrapped,
+    ``dot_pm1 > 8·byte_limit − 2T`` on the ±1 product; wrapped, ``(d &
+    255) < T``."""
+    bits = 8 * byte_limit
+    d = torch.arange((min(bits, 255) if wrap_u8 else bits) + 1, device=theta.device)
+    dist = d.to(torch.float32) * _f32(hamming_scale(byte_limit), theta)
+    return (dist[None, :] < theta[:, None]).sum(dim=1, dtype=torch.int32)
 
 
 def cosine_coskey_collect(q_codes, q_sum, q_mag2, qr, key_theta, data, meta, cap: int):
@@ -959,14 +1062,48 @@ def hamming_threshold_collect(q, theta, data, meta, byte_limit: int, wrap_u8: bo
 
     Replaces ``pallas_scan.py:_threshold_kernel`` for kind="hamming" (the
     θ stage and the main pass of ``pallas_hamming_threshold_scan_topk``
-    and ``_v2``).  Bound on the card by ``__popc`` throughput
-    (byte_limit/4 per query and row); the packed rows are read once per
-    32 queries and only θ-passing rows are written.
+    and ``_v2``).  On the card, hashes of :data:`TC_HAMMING_BYTES` bytes
+    (the published 16x16 phash, any ``byte_limit``) go to the tensor-core
+    K2a (``csrc/tc_scan.cu``: each packed row expanded in registers to the
+    ±1 int8 form the TPU multiplied, an int8 ``wgmma`` against the ±1
+    queries, one integer compare a (query, row) pair); other widths (e.g.
+    the 18-byte compat hash) go to the ``__popc`` kernel
+    (:func:`hamming_threshold_collect_popc`, its own launch count).  Only
+    θ-passing rows are written.
     """
     dev, qn, n, h = _check_hamming_args(q, data, meta, byte_limit)
     _require(theta, "theta", torch.float32, (qn,), dev)
     if dev.type != "cuda":
         return hamming_threshold_collect_plain(q, theta, data, meta, byte_limit, wrap_u8, cap)
+    if h != TC_HAMMING_BYTES:
+        return hamming_threshold_collect_popc(q, theta, data, meta, byte_limit, wrap_u8, cap)
+    if meta.data_ptr() % 16:
+        raise ValueError("meta must be 16-byte aligned")
+    if q.data_ptr() % 16:  # read with 16-byte loads: copy an unaligned view
+        q = q.clone()
+    kern = load_tc_kernels()
+    count = torch.zeros(qn, dtype=torch.int32, device=dev)
+    cand_d = torch.empty((qn, cap), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_tc_hamming_collect(
+            _ptr(q), _ptr(theta), _ptr(data), _ptr(meta), qn, n, h, byte_limit,
+            int(wrap_u8), hamming_scale(byte_limit), cap,
+            _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
+        )
+    _check(rc, "hamming_threshold_collect")
+    LAUNCHES["hamming_threshold_collect"] += 1
+    return count, cand_d, cand_i
+
+
+def hamming_threshold_collect_popc(q, theta, data, meta, byte_limit: int, wrap_u8: bool, cap: int):
+    """K2a on the ``__popc`` kernel of the first port (``fused_scan.cu``
+    ``hamming_collect_kernel``: one thread a row against 32 staged
+    queries), for CUDA tensors only: :func:`hamming_threshold_collect`'s
+    path for widths other than :data:`TC_HAMMING_BYTES`, and the timing
+    reference of the tensor-core kernel.  Same contract and outputs."""
+    dev = data.device
+    qn, h = q.shape
     if _COLLECT_Q * h > 48 * 1024:
         raise ValueError(f"hash width {h} too wide for hamming_threshold_collect")
     kern = load_kernels()
@@ -975,12 +1112,12 @@ def hamming_threshold_collect(q, theta, data, meta, byte_limit: int, wrap_u8: bo
     cand_i = torch.empty((qn, cap), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = kern.lib.px_hamming_collect(
-            _ptr(q), _ptr(theta), _ptr(data), _ptr(meta), qn, n, h, byte_limit,
+            _ptr(q), _ptr(theta), _ptr(data), _ptr(meta), qn, data.shape[0], h, byte_limit,
             int(wrap_u8), hamming_scale(byte_limit), cap,
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
-    _check(rc, "hamming_threshold_collect")
-    LAUNCHES["hamming_threshold_collect"] += 1
+    _check(rc, "hamming_threshold_collect_popc")
+    LAUNCHES["hamming_threshold_collect_popc"] += 1
     return count, cand_d, cand_i
 
 
@@ -1211,8 +1348,7 @@ def sample_theta(qk, smp, max_distance, j: int):
     threshold scan — in the JAX package's two stages
     (``pallas_scan.py:_pallas_sample_theta``):
 
-    1. θ0 from a 1/16 mini-subsample in plain torch (~4j mini rows' worth,
-       floor 8);
+    1. θ0 from a 1/16 mini-subsample in plain torch (:func:`mini_sample_theta`);
     2. K1a/K4a/K2a + K1c over the FULL sample: the exact top-j of {dist < θ0}.
 
     ``qk`` is a :class:`CosineQueries`, :class:`Int4Queries` or
@@ -1225,8 +1361,26 @@ def sample_theta(qk, smp, max_distance, j: int):
     JAX package does; θ accuracy only shapes work, never the proof.
     Returns [Q] f32; value == max_distance ⟺ θ is unbound.
     """
-    s = smp.data.shape[0]
     dev = smp.data.device
+    theta0 = mini_sample_theta(qk, smp, max_distance, j)
+    cap = sample_cap(j)
+    count, cand_d, cand_i = qk.collect(theta0, smp.data, smp.meta, cap)
+    best_d, _ = lex_topk(cand_d, cand_i, j, lens=torch.clamp(count, max=cap))
+    jth = best_d[:, j - 1]
+    ok = torch.isfinite(jth) & (count <= cap)
+    return torch.where(ok, jth, theta0).to(dev)
+
+
+def sample_cap(j: int) -> int:
+    """The buffer of :func:`sample_theta`'s stage 2 (16j, at least 2048)."""
+    return max(2048, topk_ops._next_pow2(16 * j))
+
+
+def mini_sample_theta(qk, smp, max_distance, j: int):
+    """Stage 1 of :func:`sample_theta`: θ0, the ~4j-th distance of a 1/16
+    mini-subsample of the sample (floor 8 rows), in plain torch; [Q] f32,
+    at most max_distance."""
+    s = smp.data.shape[0]
     md = _f32(max_distance, smp.data)
     stride = 16
     while stride > 1 and (s // stride < 1024 or s % stride != 0):
@@ -1238,14 +1392,7 @@ def sample_theta(qk, smp, max_distance, j: int):
     dist0, valid0 = qk.dist(mini, mmeta)
     dist0 = torch.where(valid0 & (dist0 < md), dist0, torch.full_like(dist0, float("inf")))
     t0, _ = topk_ops.block_topk(dist0, torch.zeros_like(dist0, dtype=torch.int32), j0)
-    theta0 = torch.minimum(t0[:, j0 - 1], md).contiguous()
-
-    cap = max(2048, topk_ops._next_pow2(16 * j))
-    count, cand_d, cand_i = qk.collect(theta0, smp.data, smp.meta, cap)
-    best_d, _ = lex_topk(cand_d, cand_i, j, lens=torch.clamp(count, max=cap))
-    jth = best_d[:, j - 1]
-    ok = torch.isfinite(jth) & (count <= cap)
-    return torch.where(ok, jth, theta0).to(dev)
+    return torch.minimum(t0[:, j0 - 1], md).contiguous()
 
 
 def _as_queries(query_u8, device) -> Tuple[torch.Tensor, bool]:

@@ -38,14 +38,14 @@ from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto
 from pixelbox_tpu_torch.utils.timing import timed
 
 _BUCKETS = (1, 8, 32, 128, 256)
-#: The smallest bucket whose semantic scan selects on the cos key (K1d/K4d
-#: + K1e) instead of the distance (K1a/K4a); the results are the same.
-#: The whole auto scan at 1M rows on the H100, cos against dist in turns
-#: (chip_smoke.py's "auto dist vs cos" lines, PERF.md §6): below 256 the
-#: cos key's extra launch and key-θ ops cost more than K1d saves on a
-#: host-bound call; at 256 the collect is ALU-bound and the cos key is as
-#: fast or faster end to end while it spends less card time.
-_COSKEY_MIN_BUCKET = 256
+#: The smallest bucket whose int4 semantic scan selects on the cos key
+#: (K4d + K1e) instead of the distance (K4a); the results are the same.
+#: K4a and K4d share the ``__dp4a`` loop: on the H100 (chip_smoke.py's
+#: "auto dist vs cos" lines, PERF.md §6) the cos key's extra launch and
+#: key-θ ops cost more than K4d saves below 256, and at 256 it is as fast
+#: or faster.  u8 batches select on the distance at every bucket: the
+#: tensor-core K1a filters on the cos key inside its one launch.
+_INT4_COSKEY_MIN_BUCKET = 256
 
 
 def _bucket(n: int) -> int:
@@ -110,9 +110,10 @@ class BatchingScanService:
         ``rerank_rows_provider``: zero-arg callable returning the u8 host
         mirror [N, D] — when set and the index is int4, batched scans
         retrieve the top-C int4 candidates and rescore them with the exact
-        u8 metric (the engine's ``int4_rerank``).  A semantic batch's
+        u8 metric (the engine's ``int4_rerank``).  An int4 batch's
         threshold pass selects on the cos key from the bucket
-        ``_COSKEY_MIN_BUCKET`` on, on the distance below it."""
+        ``_INT4_COSKEY_MIN_BUCKET`` on, on the distance below it; a u8
+        batch always on the distance."""
         self._provider = index_provider
         self._rerank_rows = rerank_rows_provider
         self.k = k
@@ -135,7 +136,7 @@ class BatchingScanService:
     def warmup(self, dim: int, buckets=_BUCKETS, kinds=("semantic",)) -> None:
         """Run each kind's scan once per batch-size bucket with zero
         queries (results discarded), so the first real queries find the
-        kernels built, both semantic selections run once and the cached
+        kernels built, each bucket's semantic selection run once and the cached
         sample and meta in place.  Callers skip an empty store; any other
         failure (a kernel that does not build or launch) raises."""
         for kind in kinds:
@@ -245,12 +246,12 @@ class BatchingScanService:
     def _semantic_scan(self, queries: np.ndarray, n_real: Optional[int] = None):
         index, sample, meta = self._provider()
         q = torch.from_numpy(queries).to(index.device)
-        epilogue = "cos" if len(queries) >= _COSKEY_MIN_BUCKET else "dist"
         if not isinstance(index, PackedSemantic4Index):
             return cosine_scan_topk_auto(
                 q, index, k=self.k, max_distance=self.max_distance,
-                sample=sample, row_meta=meta, epilogue=epilogue,
+                sample=sample, row_meta=meta,
             )
+        epilogue = "cos" if len(queries) >= _INT4_COSKEY_MIN_BUCKET else "dist"
 
         def scan(c, md):
             d, i = cosine4_scan_topk_auto(

@@ -319,3 +319,141 @@ def test_ladder_rungs_match_plain(rung):
     assert torch.equal(out.view(torch.int32), pout.view(torch.int32)) and torch.equal(dsum, psum)
     lanes = out if rung in ("gemm", "chain") else out[:, :1]
     assert bool(torch.isfinite(lanes).all())
+
+
+# --------------------------------------------------------------------- #
+# The tensor-core collects (K1a and K2a on int8 wgmma, csrc/tc_scan.cu)
+
+
+def _collect_agrees(got, want, cap):
+    """Counts equal; where count <= cap the collected (dist, row) sets equal
+    (sorted by (dist, id): the kernel's slot order is atomic)."""
+    c1, d1, i1 = got
+    c2, d2, i2 = want
+    assert torch.equal(c1, c2)
+    lens = torch.clamp(c1, max=cap)
+    s1 = fs.lex_topk_segments_plain(d1, i1, cap, lens, segment=cap)
+    s2 = fs.lex_topk_segments_plain(d2, i2, cap, lens, segment=cap)
+    ok = c1 <= cap
+    assert torch.equal(s1[0][ok], s2[0][ok]) and torch.equal(s1[1][ok], s2[1][ok])
+
+
+def _tc_cases(n_rows, cap):
+    """(label, θ [Q] builder, cap): a mid θ, θ = max_distance (unbound),
+    θ past the saturation (the +inf key), and a small buffer that
+    overflows."""
+    return [
+        ("mid", lambda qn, dev: torch.full((qn,), 0.2, device=dev), cap),
+        ("max_distance", lambda qn, dev: torch.full((qn,), 1e3, device=dev), cap),
+        ("saturated", lambda qn, dev: torch.full((qn,), 2 * fs.DIST_SATURATION, device=dev), cap),
+        ("overflow", lambda qn, dev: torch.full((qn,), 0.5, device=dev), 64),
+    ]
+
+
+def _tie_flood(idx, q, rows=3000):
+    """Rows 100..100+rows copies of row 7, query 0 a copy of it: a tie flood
+    at distance 0 that overflows a 2,048-slot buffer."""
+    data = idx.data.clone()
+    data[100 : 100 + rows] = data[7]
+    for name in ("row_sum", "row_mag2"):
+        col = getattr(idx, name).clone()
+        col[100 : 100 + rows] = col[7]
+        idx = idx._replace(**{name: col})
+    idx = idx._replace(data=data, valid=idx.valid.clone())
+    idx.valid[7] = True
+    idx.valid[100 : 100 + rows] = True
+    q = q.clone()
+    q[0] = (data[7].to(torch.int16) + 128).to(torch.uint8)
+    return idx, q
+
+
+@pytest.mark.parametrize("qn", [1, 3, 8, 257, 2048])
+@pytest.mark.parametrize("dim", [32, 64, 128])
+def test_tc_cosine_collect_matches_plain(dim, qn):
+    """The tensor-core K1a against its plain version at N = 65,537 (not a
+    multiple of the 64-row tile), 1% invalid rows, every query tile width
+    and Q > 256; each launch counted under the tensor-core kernel."""
+    dev = _card()
+    idx, _ = _index(65537, dim, seed=dim + qn, dev=dev)
+    rng = np.random.default_rng(qn)
+    rows_u8 = (idx.data[torch.from_numpy(rng.integers(0, 65537, qn)).to(dev)].to(torch.int16) + 128)
+    q = rows_u8.to(torch.uint8)
+    idx, q = _tie_flood(idx, q) if qn > 1 else (idx, q)
+    meta = fs.build_row_meta(idx)
+    qk = fs.CosineQueries.from_u8(q)
+    args = (qk.q_codes, qk.q_sum, qk.q_mag2, qk.qr)
+    for label, theta_of, cap in [*_tc_cases(65537, 4096), ("flood", lambda n, d: torch.full((n,), 0.05, device=d), 2048)]:
+        theta = theta_of(qn, dev)
+        fs.reset_launch_counts()
+        got = fs.cosine_threshold_collect(*args, theta, idx.data, meta, cap)
+        torch.cuda.synchronize()
+        assert fs.launch_counts()["cosine_threshold_collect"] == 1, label
+        assert fs.launch_counts()["cosine_threshold_collect_dp4a"] == 0, label
+        _collect_agrees(got, fs.cosine_threshold_collect_plain(*args, theta, idx.data, meta, cap), cap)
+    if qn > 1:
+        assert int(got[0][0]) > 2048  # the tie flood overflowed and was still counted
+
+
+def test_tc_cosine_other_width_takes_the_dp4a_kernel():
+    dev = _card()
+    idx, q = _index(65537, 36, seed=36, dev=dev)
+    meta = fs.build_row_meta(idx)
+    qk = fs.CosineQueries.from_u8(q)
+    theta = torch.full((q.shape[0],), 0.2, device=dev)
+    fs.reset_launch_counts()
+    got = fs.cosine_threshold_collect(*qk, theta, idx.data, meta, 4096)
+    assert fs.launch_counts()["cosine_threshold_collect_dp4a"] == 1
+    assert fs.launch_counts()["cosine_threshold_collect"] == 0
+    _collect_agrees(got, fs.cosine_threshold_collect_plain(*qk, theta, idx.data, meta, 4096), 4096)
+
+
+@pytest.mark.parametrize("qn", [1, 3, 8, 257, 2048])
+@pytest.mark.parametrize(
+    "limit,wrap", [(32, False), (32, True), (24, False), (24, True)],
+    ids=["limit32", "limit32_wrap", "limit24", "limit24_wrap"],
+)
+def test_tc_hamming_collect_matches_plain(limit, wrap, qn):
+    """The tensor-core K2a against its plain version at N = 65,537, 1%
+    invalid rows and a width-group mask, limits 32 and 24 with and
+    without the u8 wrap, a tie flood, θ = max_distance and an overflowing
+    buffer; each launch counted under the tensor-core kernel."""
+    dev = _card()
+    idx, q = _phash_index(65537, 32, seed=limit + qn, dev=dev)
+    data = idx.data.clone()
+    data[100:3100] = data[7]  # 3,000 copies of row 7
+    idx = idx._replace(data=data)
+    rng = np.random.default_rng(qn)
+    q = torch.cat([q, data[torch.from_numpy(rng.integers(0, 65537, max(0, qn - 40))).to(dev)]])[:qn]
+    q = q.contiguous()
+    if qn > 1:
+        q[0] = data[7]
+    group = torch.arange(65537, device=dev) % 3 != 0
+    meta = fs.build_hamming_meta(idx, group)
+    meta[7] = 1
+    meta[100:3100] = 1
+    cases = [
+        ("mid", 0.3, 4096), ("max_distance", 1e3, 4096), ("overflow", 0.45, 64), ("flood", 0.05, 2048),
+    ]
+    for label, th, cap in cases:
+        theta = torch.full((qn,), th, device=dev)
+        fs.reset_launch_counts()
+        got = fs.hamming_threshold_collect(q, theta, idx.data, meta, limit, wrap, cap)
+        torch.cuda.synchronize()
+        assert fs.launch_counts()["hamming_threshold_collect"] == 1, label
+        assert fs.launch_counts()["hamming_threshold_collect_popc"] == 0, label
+        want = fs.hamming_threshold_collect_plain(q, theta, idx.data, meta, limit, wrap, cap)
+        _collect_agrees(got, want, cap)
+    if qn > 1:
+        assert int(got[0][0]) > 2048
+
+
+def test_tc_hamming_other_width_takes_the_popc_kernel():
+    dev = _card()
+    idx, q = _phash_index(65537, 18, seed=18, dev=dev)
+    meta = fs.build_hamming_meta(idx)
+    theta = torch.full((q.shape[0],), 0.3, device=dev)
+    fs.reset_launch_counts()
+    got = fs.hamming_threshold_collect(q, theta, idx.data, meta, 18, False, 4096)
+    assert fs.launch_counts()["hamming_threshold_collect_popc"] == 1
+    assert fs.launch_counts()["hamming_threshold_collect"] == 0
+    _collect_agrees(got, fs.hamming_threshold_collect_plain(q, theta, idx.data, meta, 18, False, 4096), 4096)

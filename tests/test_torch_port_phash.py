@@ -358,6 +358,36 @@ def test_engine_phash_and_duplicates_match_jax(jax_phash_library):
         eng.close()
 
 
+def test_port_ingest_without_compat_hashes_the_full_image(tmp_path):
+    """With ``phash_compat=False`` the port stores ``phash(rgb,
+    aspect_preserving=False)`` of the full decoded image — the JAX turbo
+    ingest hashes the 224² embed frame instead, which its own
+    ``phash_batch_tpu`` docstring says it must not — and every image's
+    stored phash finds the image itself at 0.0."""
+    from pixelbox_tpu_torch.engine import Engine
+    from pixelbox_tpu_torch.ingest.decode import decode_image_file
+    from pixelbox_tpu_torch.ops.phash import phash
+
+    photos = str(tmp_path / "photos")
+    _write_photos(photos, mixed=True)  # square and non-square images
+    eng = Engine.new(str(tmp_path / "lib.db"), embedder="stub", dim=16, phash_compat=False,
+                     device="cpu")
+    try:
+        eng.add_tracked_folder(photos)
+        eng.start_indexing(num_workers=1)
+        assert eng.wait_for_indexing(timeout=300)
+        stored = dict(eng.catalog.iter_hashes("phashes"))
+        assert len(stored) == 9
+        for image_id, h in stored.items():
+            rgb = decode_image_file(eng.catalog.get_image(image_id)["path"]).rgb
+            assert bytes(h) == np.asarray(phash(rgb, aspect_preserving=False), np.uint8).tobytes()
+            eng.query_by_phash(np.frombuffer(h, np.uint8).copy())
+            hits = [(r.id, r.distance_from_query) for r in eng.get_query_results()]
+            assert hits[0][1] == 0.0 and (image_id, 0.0) in hits
+    finally:
+        eng.close()
+
+
 def _cli_out(main, argv):
     buf = io.StringIO()
     with redirect_stdout(buf):
@@ -468,6 +498,7 @@ def test_stand_alone_check_covers_the_mesh_the_tools_and_the_kernels():
         "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_scan.py",
         "parallel/data_parallel.py", "tools/measure_breakdown.py",
         "csrc/fused_scan.cu", "csrc/breakdown.cu", "csrc/scan_device.cuh",
+        "csrc/tc_scan.cu", "csrc/wgmma_s8.cuh",
     ):
         assert want in rel, want
 
@@ -479,10 +510,11 @@ def test_kernel_builds_read_the_ports_own_sources():
 
     csrc = os.path.realpath(os.path.join(REPO, "pixelbox_tpu_torch", "csrc"))
     assert os.path.realpath(str(fused_scan._CSRC)) == csrc
-    for name in (*fused_scan._SOURCES, "breakdown.cu"):
+    for name in (*fused_scan._SOURCES, *fused_scan._TC_SOURCES, "breakdown.cu"):
         assert os.path.isfile(os.path.join(csrc, name)), name
-    for inc in re.findall(r'#include "([^"]+)"', open(os.path.join(csrc, "breakdown.cu")).read()):
-        assert os.path.isfile(os.path.join(csrc, inc)), inc
+    for src in ("breakdown.cu", *fused_scan._TC_SOURCES):
+        for inc in re.findall(r'#include "([^"]+)"', open(os.path.join(csrc, src)).read()):
+            assert os.path.isfile(os.path.join(csrc, inc)), inc
     build = os.path.realpath(str(fused_scan._build_dir()))
     assert build.startswith(os.path.realpath(os.path.join(REPO, "pixelbox_tpu_torch")) + os.sep) or \
         "PIXELBOX_TPU_TORCH_BUILD_DIR" in os.environ
