@@ -9,9 +9,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``nvidia-smi`` name/power limit; holds the exact numerics (TF32 off,
    cuDNN deterministic, benchmark off).
 2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
-   ``csrc/tc_scan.cu`` (the tensor-core K1a and K2a) and
+   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a and K2a) and
    ``csrc/breakdown.cu`` for sm_90a, one nvcc each, in parallel; logs the
-   tensor-core kernels' registers and spills and ptxas's wgmma warnings.
+   tensor-core and select kernels' registers and spills and ptxas's wgmma
+   warnings.
 3. Kernels vs plain at the main shapes (1,048,576 rows × 128, k = 100,
    Q ∈ {1, 8, 256}) in five cases: θ from the sample, θ = max_distance, a
    max_distance filter that excludes rows, 1% invalid rows, and a tie
@@ -22,7 +23,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    oracle on a sub-sample of queries.  Kernel and plain medians are timed
    with CUDA events; the tensor-core K1a at Q ∈ {1, 8, 256} (and 2048 in
    3c) in turns against the ``__dp4a`` kernel it replaced, per call and
-   device-only.
+   device-only; K1c (``lex_topk`` on the select kernel) on the main
+   pass's buffer (256 × 4,096 → 100), the θ stage's (256 × 2,048 → 20)
+   and a repair's K1b partials (8 × 102,400 → 100, two launches) in turns
+   against the first port's re-launch chain, ``torch.topk`` and
+   ``torch.sort`` of the keys, after holding the chain's result equal.
 3b. Hamming kernels vs plain at the phash's published width (1,048,576
    rows × 32 bytes, k = 100, Q ∈ {1, 8, 256, 2048}) in seven cases: θ
    from the sample, θ = max_distance, max_distance 0.1, 1% tombstones,
@@ -44,10 +49,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and mode; the proof rate is printed per Q, and every query a non-flood
    case leaves unproven is explained: its exact count against the cap, its
    θ and k-th distance, and the same query rerun alone (Q = 1).  At k = 400, Q ∈ {1, 8,
-   256} the cos-key pass (K4d + K1e) runs too, with the same checks; K4d
-   is timed against K4a in turns, and the whole auto scan (asym, k = 400)
-   with ``epilogue="dist"`` against ``"cos"`` at the batching service's
-   buckets 1/8/32/128/256.
+   256} the cos-key pass (K4d + K1e) runs too, with the same checks.  The
+   tensor-core K4a is timed in turns against the ``__dp4a`` kernel it
+   replaced at Q ∈ {1, 8, 256, 2048}, both modes, and K4d against K4a;
+   K1c on the 256 × 16,384 → 400 buffer against the chain; the whole
+   auto scan (asym, k = 400) with ``epilogue="dist"`` against ``"cos"``
+   at the batching service's buckets 1/8/32/128/256.
 3e. The cos-key kernels (K1d, K1e) inside phase 3's loop: in every case
    with a threshold pass, ``cosine_scan_topk_auto(epilogue="cos")`` at
    Q ∈ {1, 8, 256}, every launch replayed bit-identical, the results equal
@@ -87,11 +94,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    tag:``, ``/api/remove`` of a top hit and an append of 1,024 seeded rows,
    which a second burst must see; a full bucket (256 concurrent submits)
    straight into the service against its dist-path scan, then (uncounted)
-   the same bucket served again on the distance, which the u8 service
-   takes, and on the cos key (K1d + K1e), in turns: results equal, the
-   burst's wall split at the service's batch; then a burst and a full
-   bucket on phase 6's int4 engine (rerank on; the cos key at 256) —
-   counting launches from zero around each burst.
+   the same bucket served again on the distance, which the service takes
+   at every bucket, and on the cos key (K1d + K1e), in turns: results
+   equal, the burst's wall split at the service's batch; then a burst and
+   a full bucket on phase 6's int4 engine (rerank on), served the same two
+   ways in turns (K4a against K4d + K1e) — counting launches from zero
+   around each burst; no served batch takes the cos key.
 8. Mesh serving (runs before phase 7, which keeps its stores as phase 6
    left them): phases 4–6's 1M-row u8, phash and int4 libraries put on a
    4-shard mesh through ``Engine.serve_on_mesh`` (the visible cards
@@ -104,8 +112,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    per-shard and merge launch is replayed bit-identical through its plain
    version; the sharded auto is timed against the one-device auto at
    Q ∈ {1, 8, 256} in turns, and one shard's K1a and the merge K1c (with
-   ``torch.sort`` of its keys) at Q = 256 — counting launches from zero
-   around the mesh path.
+   ``torch.sort`` of its keys, in turns with the chain) at Q = 256 —
+   counting launches from zero around the mesh path.
 8b. Mesh mutations (after phase 7): the u8 library as phase 7 left it
    (grown past 1M rows by its append) back on the mesh, then a tag, a
    removal (one full reshard) and a 1,024-row append within the capacity
@@ -116,12 +124,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    launches from zero around it — then each rung once at that shape on
    rows planted near the queries, bit-identical to its plain version.
 
-Phases 4-9 must run every u8 collect at D = 128 and every Hamming collect
-at 32 B on the tensor-core kernels (their ``__dp4a`` / ``__popc``
-predecessors launched no time).  The last lines are the card's nvidia-smi
-line, the kernels' JSON summary (time, plain time, bound, library time per
-kernel; the tensor-core collects with their predecessor's time and error
-against their outputs and a per-Q table) and ``{"ok": true, "device": {...}}``.
+Phases 4-9 must run every u8 and int4 collect at D = 128 and every
+Hamming collect at 32 B on the tensor-core kernels, and every top-k on
+the select kernel (their ``__dp4a`` / ``__popc`` predecessors and the
+first port's ``lex_topk_segments`` launched no time).  The last lines are
+the card's nvidia-smi line, the kernels' JSON summary (time, plain time,
+bound, library time per kernel; the tensor-core collects with their
+predecessor's time and error against their outputs and a per-Q table,
+K1c per shape with the chain's) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -242,7 +252,7 @@ class Recorder:
     outputs so each call can be replayed through its plain version."""
 
     NAMES = (
-        "cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments",
+        "cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_select",
         "hamming_threshold_collect", "hamming_chunk_topk",
         "cosine4_threshold_collect", "cosine4_chunk_topk",
         "cosine_coskey_collect", "cosine4_coskey_collect", "coskey_rescore",
@@ -315,9 +325,7 @@ def replay(fs, call):
         check(torch.equal(out[0], d2) and torch.equal(out[1], i2), f"{name} differs from plain")
         a, b = out[0], d2
     else:
-        dist, idx, k = args[:3]
-        lens = args[3] if len(args) > 3 else kwargs.get("lens")
-        d2, i2 = fs.lex_topk_segments_plain(dist, idx, k, lens)
+        d2, i2 = fs.lex_topk_select_plain(*args, **kwargs)
         check(torch.equal(out[0], d2) and torch.equal(out[1], i2), "K1c differs from plain")
         a, b = out[0], d2
     return max_abs_err(a, b)
@@ -389,6 +397,7 @@ def gpu_ms(fns, reps=20, rounds=3):
 #: The tensor-core collects and the kernels they replaced, kept as timing
 #: references (ops/fused_scan.py).
 PREVIOUS = {"cosine_threshold_collect": "cosine_threshold_collect_dp4a",
+            "cosine4_threshold_collect": "cosine4_threshold_collect_dp4a",
             "hamming_threshold_collect": "hamming_threshold_collect_popc"}
 
 
@@ -414,6 +423,55 @@ def time_against_previous(fs, call, smi, tag, err, reps=10):
         f"{st['previous_ms']:.4f} ms a call ({st['previous_ms'] / st['ms']:.2f}x), device only "
         f"{st['gpu_ms']:.4f} / {st['previous_gpu_ms']:.4f} ms ({st['previous_gpu_ms'] / st['gpu_ms']:.2f}x); "
         f"bound {st['bound_ms']:.4f} ms ({smi})")
+    return st
+
+
+def k1c_args(call):
+    """(dist, idx, k, lens) of a recorded K1c call."""
+    _, args, kwargs, _ = call
+    return (*args[:3], args[3] if len(args) > 3 else kwargs.get("lens"))
+
+
+def time_k1c(fs, call, smi, tag, err, reps=10):
+    """K1c (lex_topk on the select kernel: one launch, two past
+    SELECT_SLOTS entries a row) on a recorded call's row, against the first
+    port's re-launch chain (lex_topk_segments_chain) in turns — single-call
+    medians and device-only times — after holding the chain's result equal
+    to it (its error under lex_topk_segments); the plain version, the
+    bound, and torch.topk / torch.sort of the (dist, id) keys."""
+    import torch
+
+    dist, idx, k, lens = k1c_args(call)
+    new = lambda: fs.lex_topk(dist, idx, k, lens)  # noqa: E731
+    old = lambda: fs.lex_topk_segments_chain(dist, idx, k, lens)  # noqa: E731
+    before = fs.launch_counts()
+    got = new()
+    launches = fs.launch_counts()["lex_topk_select"] - before["lex_topk_select"]
+    prev = old()
+    check(torch.equal(got[0], prev[0]) and torch.equal(got[1], prev[1]),
+          f"{tag} K1c: the first port's chain differs from lex_topk_select")
+    err["lex_topk_segments"] = max(err["lex_topk_segments"], max_abs_err(got[0], prev[0]))
+    keys = fs._keys(dist, idx, lens)
+    fns = [new, old, lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True),
+           lambda: torch.sort(keys, dim=1)]
+    st = {"launches_a_call": launches}
+    st["ms"], st["previous_ms"], st["library_ms"], st["sort_ms"] = interleaved_ms(fns, reps)
+    (st["gpu_ms"], st["previous_gpu_ms"], st["library_gpu_ms"],
+     st["sort_gpu_ms"]) = gpu_ms(fns, reps=max(2, 2 * reps))
+    st["plain_ms"] = median_ms(lambda: fs.lex_topk_select_plain(dist, idx, k, lens), reps)
+    nbytes, ops, peak = work_of("lex_topk_select", (dist, idx, k, lens), got)
+    b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    st.update(bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
+              bytes=nbytes, ops=ops)
+    qn, m = dist.shape
+    log(f"{tag} K1c {qn} x {m:,} -> {k} ({ops:,} filled, lens {'given' if lens is not None else 'none'}): "
+        f"lex_topk_select ({launches} launch{'es' if launches > 1 else ''}) vs the first port's chain "
+        f"(same outputs) in turns: {st['ms']:.4f} / {st['previous_ms']:.4f} ms a call, device only "
+        f"{st['gpu_ms']:.4f} / {st['previous_gpu_ms']:.4f} ms ({st['previous_gpu_ms'] / st['gpu_ms']:.2f}x); "
+        f"plain {st['plain_ms']:.4f} ms; of the (dist, id) keys in the same turns torch.topk "
+        f"{st['library_ms']:.4f} / {st['library_gpu_ms']:.4f} ms, torch.sort {st['sort_ms']:.4f} / "
+        f"{st['sort_gpu_ms']:.4f} ms (a call / device); bound {st['bound_ms']:.4f} ms "
+        f"({st['bound_by']}: {nbytes:,} B) ({smi})")
     return st
 
 
@@ -570,19 +628,31 @@ def phase_kernels(fs, scan, smi, err):
         del idx, meta, smp
         torch.cuda.empty_cache()
 
-    # Timing at the main path's shapes: K1a and K1c at the main pass
-    # (Q = MAIN_Q over all rows, k = 100), K1b at a repair bucket.
+    # Timing at the main path's shapes: K1a at the main pass (Q = MAIN_Q
+    # over all rows, k = 100), K1b at a repair bucket; K1c on the main
+    # pass's buffer, the θ stage's and a repair's K1b partials.
     def main_pass(call):
-        name, args, kwargs, _ = call
-        if name == "lex_topk_segments":
-            return args[2] == K and (len(args) > 3 or kwargs.get("lens") is not None)
-        return args[5].shape[0] == N_ROWS
+        return call[1][5].shape[0] == N_ROWS
 
     stats = {}
-    for n, qn in (("cosine_chunk_topk", REPAIR_Q), ("lex_topk_segments", MAIN_Q),
-                  ("cosine_coskey_collect", MAIN_Q), ("coskey_rescore", MAIN_Q)):
+    for n, qn in (("cosine_chunk_topk", REPAIR_Q), ("cosine_coskey_collect", MAIN_Q),
+                  ("coskey_rescore", MAIN_Q)):
         call = next(c for c in timed_calls[(n, qn)] if main_pass(c))
         stats[n] = time_kernel(fs, call, smi, "[3e]" if "coskey" in n else "[3]")
+    k1c = timed_calls[("lex_topk_select", MAIN_Q)]
+    k1c_calls = {
+        "main_pass": next(c for c in k1c if k1c_args(c)[2] == K and k1c_args(c)[3] is not None),
+        "theta_stage": next(c for c in k1c if k1c_args(c)[3] is not None),  # the first with lens
+        "k1b_partials": next(c for c in timed_calls[("lex_topk_select", REPAIR_Q)]
+                             if k1c_args(c)[0].shape[1] > fs.SELECT_SLOTS),
+    }
+    k1c_st = {shape: time_k1c(fs, c, smi, f"[3] {shape}", err) for shape, c in k1c_calls.items()}
+    stats["lex_topk_select"] = {**k1c_st["main_pass"], "by_shape": k1c_st}
+    # the first port's K1c alone: its first launch on the main pass's buffer
+    d, i, kk, ln = k1c_args(k1c_calls["main_pass"])
+    stats["lex_topk_segments"] = time_kernel(
+        fs, ("lex_topk_segments", (d, i, kk, ln), {}, fs.lex_topk_segments(d, i, kk, ln)), smi,
+        "[3] the first port's K1c, first launch of its chain:")
     k1a = {}
     for qn in QS:  # the tensor-core K1a against the __dp4a kernel it replaced
         call = next(c for c in timed_calls[("cosine_threshold_collect", qn)] if main_pass(c))
@@ -895,17 +965,32 @@ def phase_int4_kernels(fs, scan, smi, err, db):
         got, tot = sum(a for a, _ in runs), sum(b for _, b in runs)
         log(f"[3d] int4 proof rate Q={qn}{' (tie flood)' if flood else ''}: {got}/{tot} = {got / tot:.4f}")
 
-    # Timing at the int4 main path's shapes: K4a at the main pass (Q =
-    # MAIN_Q over all rows, k = 400 — the rerank's candidates), K4b at a
-    # repair bucket; asym (the default) in the kernels line, sym logged.
+    # Timing at the int4 main path's shapes: the tensor-core K4a at the
+    # main pass (over all rows, k = 400 — the rerank's candidates) at every
+    # Q, in turns against the __dp4a kernel it replaced; K4b at a repair
+    # bucket; K1c on the main pass's buffer; asym (the default) in the
+    # kernels line, sym beside it.
+    def main_call(n, mode, qn):
+        return next(c for c in timed_calls[(n, mode, kmax, qn)] if c[1][5].shape[0] == N_ROWS)
+
     stats = {}
-    for n, qn in (("cosine4_threshold_collect", MAIN_Q), ("cosine4_chunk_topk", REPAIR_Q),
-                  ("cosine4_threshold_collect", BIG_Q), ("cosine4_coskey_collect", MAIN_Q)):
+    k4a = {}
+    for mode in ("asym", "sym"):
+        for qn in PH_QS:
+            k4a[mode, qn] = time_against_previous(fs, main_call("cosine4_threshold_collect", mode, qn), smi,
+                                                  f"[3d] {mode} k={kmax}", err, reps=10 if qn <= MAIN_Q else 3)
+    stats["cosine4_threshold_collect"] = {
+        **k4a["asym", MAIN_Q], "by_q": {q: by_q(k4a["asym", q]) for q in PH_QS},
+        "sym_by_q": {q: by_q(k4a["sym", q]) for q in PH_QS}}
+    for n, qn in (("cosine4_chunk_topk", REPAIR_Q), ("cosine4_coskey_collect", MAIN_Q)):
         for mode in ("asym", "sym"):
-            call = next(c for c in timed_calls[(n, mode, kmax, qn)] if c[1][5].shape[0] == N_ROWS)
-            st = time_kernel(fs, call, smi, f"[3d] {mode} k={kmax}", reps=10 if qn <= MAIN_Q else 3)
+            st = time_kernel(fs, main_call(n, mode, qn), smi, f"[3d] {mode} k={kmax}")
             if mode == "asym":
                 stats.setdefault(n, st)
+    k1c = next(c for c in timed_calls[("lex_topk_select", "asym", kmax, MAIN_Q)]
+               if k1c_args(c)[2] == kmax and k1c_args(c)[3] is not None
+               and k1c_args(c)[0].shape[1] == fs.SELECT_SLOTS)
+    stats["k1c_int4"] = time_k1c(fs, k1c, smi, "[3d] int4", err)
     for mode in ("asym", "sym"):
         ab_collect(fs, *(next(c for c in timed_calls[(n, mode, kmax, MAIN_Q)] if c[1][5].shape[0] == N_ROWS)
                          for n in ("cosine4_threshold_collect", "cosine4_coskey_collect")),
@@ -967,7 +1052,7 @@ def work_of(name, args, out):
         # codes, sums, moments, θ, lens; the [Q, cap] f32 output
         nbytes = used * (4 + data.shape[1] + 12) + qn * (d + 20) + cand_i.numel() * 4
         return nbytes, 2 * used * d, INT8_OPS
-    if name == "lex_topk_segments":
+    if name.startswith("lex_topk"):
         dist, k = args[0], args[2]
         lens = args[3] if len(args) > 3 else None
         qn, m = dist.shape
@@ -1038,7 +1123,7 @@ def time_kernel(fs, call, smi, tag, reps=10):
           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
           "bytes": nbytes, "ops": ops, "library_ms": None}
     extra = ""
-    if name == "lex_topk_segments":
+    if name.startswith("lex_topk"):
         dist, idx, k = args[:3]
         lens = args[3] if len(args) > 3 else kwargs.get("lens")
         keys = fs._keys(dist, idx, lens)
@@ -1169,7 +1254,7 @@ def phase_engine(fs, scan, smi, tmp):
         log(f"[4] similar ({mode}) spans, mean ms over the 5 timed queries: {json.dumps(spans)}")
     counts = fs.launch_counts()  # the main path ends here; the timings below launch on their own
     log(f"[4] kernel launches on the main path: {json.dumps(counts)}")
-    for n in ("cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_segments"):
+    for n in ("cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_select"):
         check(counts[n] > 0, f"kernel {n} was not launched on the main path")
 
     h = res[0].visual_hash
@@ -1305,7 +1390,7 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
         dups.append((e, by, md, pairs, dt, span))
     counts = fs.launch_counts()  # the phash path ends here; the checks below launch on their own
     log(f"[5] kernel launches on the phash path: {json.dumps(counts)}")
-    for n in ("hamming_threshold_collect", "hamming_chunk_topk", "lex_topk_segments"):
+    for n in ("hamming_threshold_collect", "hamming_chunk_topk", "lex_topk_select"):
         check(counts[n] > 0, f"kernel {n} was not launched on the phash path")
 
     check(res[0].path == probe and res[0].distance_from_query == 0.0, "query_by_phash: self-match")
@@ -1434,7 +1519,7 @@ def phase_int4_engine(fs, scan, smi, tmp, ckpt):
     dstats = timing.get_stats()
     counts = fs.launch_counts()  # the int4 path ends here; the checks below launch on their own
     log(f"[6] kernel launches on the int4 path: {json.dumps(counts)}")
-    for n in ("cosine4_threshold_collect", "cosine4_chunk_topk", "lex_topk_segments"):
+    for n in ("cosine4_threshold_collect", "cosine4_chunk_topk", "lex_topk_select"):
         check(counts[n] > 0, f"kernel {n} was not launched on the int4 path")
 
     check(rerank_res[0][1] == 0.0 and eng.catalog.get_image(rerank_res[0][0])["path"] == paths[9],
@@ -1734,11 +1819,11 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
             f"every result = the dist-path scan; {smi}")
         return full_q, got
 
-    def served_in_turns(s, full_q, got, tag, rounds=6):
-        """The full bucket through the u8 service again, on the distance
-        (what it serves) and on the cos key (K1d + K1e: the service's scan
-        call wrapped to pass epilogue="cos") in turns, the first of each
-        round alternating, uncounted: every result = the counted burst's.
+    def served_in_turns(s, full_q, got, tag, auto_name, rounds=6):
+        """The full bucket through a service again, on the distance (K1a /
+        K4a) and on the cos key (K1d / K4d + K1e), the service's scan call
+        ``auto_name`` wrapped to pass each epilogue, in turns, the first of
+        each round alternating, uncounted: every result = the counted burst's.
         The service's batching window is widened meanwhile, so that each
         burst forms one batch of 256 (its 256 submits outlast the 2 ms
         window now and then).  Per run: the burst's wall, and its split at
@@ -1747,7 +1832,7 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
         collector's time within it, and the kernels it launched."""
         import pixelbox_tpu_torch.serving.service as service_mod
 
-        auto = service_mod.cosine_scan_topk_auto
+        auto = getattr(service_mod, auto_name)
         run_group = s._run_group
         marks = []
 
@@ -1756,8 +1841,8 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
             run_group(kind, batch)
             marks.append(time.perf_counter())
 
-        def cos_key(*args, **kwargs):
-            return auto(*args, **{**kwargs, "epilogue": "cos"})
+        def forced(epi):
+            return lambda *args, **kwargs: auto(*args, **{**kwargs, "epilogue": epi})
 
         split = {"dist": [], "cos": []}
         s._run_group = marked
@@ -1765,13 +1850,13 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
         try:
             for r in range(rounds):
                 for epi in ("dist", "cos") if r % 2 == 0 else ("cos", "dist"):
-                    service_mod.cosine_scan_topk_auto = cos_key if epi == "cos" else auto
+                    setattr(service_mod, auto_name, forced(epi))
                     marks.clear()
                     before = fs.launch_counts()
                     t0 = time.perf_counter()
                     out, gc_ms, _ = with_gc_ms(lambda: service_burst(s, full_q))
                     t1 = time.perf_counter()
-                    service_mod.cosine_scan_topk_auto = auto
+                    setattr(service_mod, auto_name, auto)
                     in_batches = sum(marks[j + 1] - marks[j] for j in range(0, len(marks), 2))
                     split[epi].append(((t1 - t0) * 1e3, (marks[0] - t0) * 1e3, in_batches * 1e3,
                                        (t1 - marks[-1]) * 1e3, gc_ms, len(marks) // 2))
@@ -1782,7 +1867,7 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
                     if len(split[epi]) == 1:
                         log(f"{tag} full bucket on the {epi} path: launches {json.dumps(launched)}")
         finally:
-            service_mod.cosine_scan_topk_auto = auto
+            setattr(service_mod, auto_name, auto)
             s._run_group = run_group
             s.max_wait_s = window
         med = {e: [statistics.median(x[j] for x in v) for j in range(5)] for e, v in split.items()}
@@ -1800,9 +1885,9 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
         return med
 
     full_q, got = full_bucket(svc, sem_eng, "[7] u8")
-    served_in_turns(svc, full_q, got, "[7] u8")
+    served_in_turns(svc, full_q, got, "[7] u8", "cosine_scan_topk_auto")
 
-    # The int4 engine (exact-u8 rerank on): K4d on a serving path.
+    # The int4 engine (exact-u8 rerank on), served on the distance (K4a).
     i4_svc, i4_url = counted(lambda: start(i4_eng))
     i4_ids = [int(x) for x in rng.choice(i4_eng._sem_image_ids, 32, replace=False)]
     res3, wall3 = counted(lambda: http_burst(
@@ -1813,17 +1898,20 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
     check(i4_svc.batches_run < len(i4_ids), "int4 service: no coalescing")
     log(f"[7] int4 burst: 32 responses = direct calls; {i4_svc.queries_served} queries in "
         f"{i4_svc.batches_run} batches")
-    full_bucket(i4_svc, i4_eng, "[7] int4")  # the cos key at the full bucket
+    full_q, got = full_bucket(i4_svc, i4_eng, "[7] int4")
+    served_in_turns(i4_svc, full_q, got, "[7] int4", "cosine4_scan_topk_auto")
 
     for srv, s in servers:
         srv.shutdown()
         srv.server_close()
         s.close()
     log(f"[7] kernel launches on the serving path: {json.dumps(counts)}")
-    # (u8 batches select on the distance at every bucket: no K1d here)
-    for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "coskey_rescore",
-              "cosine4_coskey_collect", "hamming_threshold_collect", "lex_topk_segments"):
+    for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "hamming_threshold_collect",
+              "lex_topk_select"):
         check(counts[n] > 0, f"kernel {n} was not launched on the serving path")
+    # Every batch selects on the distance: no served path takes the cos key.
+    for n in ("cosine_coskey_collect", "cosine4_coskey_collect", "coskey_rescore"):
+        check(counts[n] == 0, f"the service launched {n}")
     return counts
 
 
@@ -1923,16 +2011,15 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
     shard_k1a = next(c for c in rec.calls if c[0] == "cosine_threshold_collect"
                      and c[1][5].shape[0] == mirror.local_rows)
     merge = rec.calls[-1]
-    check(merge[0] == "lex_topk_segments" and merge[1][0].shape[1] == n_shards * K, "the merge call")
+    check(merge[0] == "lex_topk_select" and merge[1][0].shape[1] == n_shards * K, "the merge call")
     st = {"pass_ms": pass_ms, "shard_k1a": time_kernel(fs, shard_k1a, smi, "[8] one shard's"),
-          "merge": time_kernel(fs, merge, smi, "[8] merge")}
-    keys = fs._keys(merge[1][0], merge[1][1], None)
-    st["merge"]["sort_ms"] = median_ms(lambda: torch.sort(keys, dim=1))
+          "merge": time_k1c(fs, merge, smi, "[8] merge", err)}
     row_bytes = index.capacity * (DIM + 12)  # meta rows 0-2: row 3 is padding no kernel reads
     log(f"[8] the sharded threshold pass at Q={MAIN_Q} ({n_shards} x θ stage + K1a + K1c, "
         f"merge): {pass_ms:.4f} ms; bound {row_bytes / HBM_BPS * 1e3:.4f} ms (bytes: every row "
-        f"and its meta read once, {row_bytes:,} B); merge K1c {st['merge']['ms']:.4f} ms against "
-        f"torch.sort of its (dist, id) keys {st['merge']['sort_ms']:.4f} ms; {smi}")
+        f"and its meta read once, {row_bytes:,} B); merge K1c {st['merge']['ms']:.4f} ms a call, "
+        f"{st['merge']['gpu_ms']:.4f} device, against torch.sort of its (dist, id) keys "
+        f"{st['merge']['sort_ms']:.4f} / {st['merge']['sort_gpu_ms']:.4f} ms; {smi}")
     del mirror, rec
     torch.cuda.empty_cache()
 
@@ -1953,7 +2040,7 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
         f"duplicate cuts in {t_dup:.2f}s; {smi}")
     log(f"[8] kernel launches on the mesh path: {json.dumps(counts)}")
     for n in ("cosine_threshold_collect", "cosine_chunk_topk", "cosine4_threshold_collect",
-              "hamming_chunk_topk", "lex_topk_segments"):
+              "hamming_chunk_topk", "lex_topk_select"):
         check(counts[n] > 0, f"kernel {n} was not launched on the mesh path")
 
     for key, want in ref.items():
@@ -1987,7 +2074,7 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
         e.scan_mesh = None
         e._sem_mirror.index = e._ph_mirror.index = None
     torch.cuda.empty_cache()
-    return counts, {"mesh": mesh, "q_id": sem_ids[3]}
+    return counts, {"mesh": mesh, "q_id": sem_ids[3], "k1c_merge": st["merge"]}
 
 
 def replay_recorded(fs, err, rec, replayed):
@@ -2059,7 +2146,7 @@ def phase_mesh_mutations(fs, err, smi, sem_eng, mesh, q_id):
         counts = fs.launch_counts()  # and ends here
     replay_recorded(fs, err, rec, replayed)
     log(f"[8b] kernel launches on the mesh path: {json.dumps(counts)}")
-    check(counts["cosine_threshold_collect"] > 0 and counts["lex_topk_segments"] > 0,
+    check(counts["cosine_threshold_collect"] > 0 and counts["lex_topk_select"] > 0,
           "the sharded threshold pass did not run")
 
     check(reshard_rm == 1 and reshard_app == 0 and store.device_index.capacity == cap0,
@@ -2179,11 +2266,14 @@ def main() -> int:
         log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
         lines = kern.ptxas.splitlines()
         for j, line in enumerate(lines):
-            if "Compiling entry" in line and "tc_" in line:  # the tensor-core kernels, by name
+            named = ("tc_cosine", "tc_hamming", "lex_topk_select")
+            if "Compiling entry" in line and any(n in line for n in named):  # by name
                 name = line.split("'")[1]
+                at = min(name.find(n) for n in named if n in name)
+                end = name.find("EEv", at)  # the template arguments: NQ, then kind or wrap
                 used = next((x.strip() for x in lines[j:j + 5] if "registers" in x), "")
                 spill = next((x.strip() for x in lines[j:j + 5] if "spill" in x), "")
-                log(f"[2] ptxas {name[name.find('tc_'):name.find('tc_') + 40]}: {used}; {spill}")
+                log(f"[2] ptxas {name[at:end + 1] if end > 0 else name[at:at + 22]}: {used}; {spill}")
             elif "tc_" not in kern.path and ("registers" in line or "spill" in line):
                 log(f"[2] ptxas: {line.strip()}")
         for warn in sorted({x.split(" in function")[0].split("info    : ")[-1] for x in lines if "(C75" in x}):
@@ -2191,7 +2281,7 @@ def main() -> int:
     log(f"[2] {len(loads)} builds in {time.perf_counter() - t0:.2f}s (in parallel)")
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
-    err = {n: 0.0 for n in (*Recorder.NAMES, *PREVIOUS.values())}
+    err = {n: 0.0 for n in (*Recorder.NAMES, *PREVIOUS.values(), "lex_topk_segments")}
     t0 = time.perf_counter()
     stats, db = phase_kernels(fs, scan, smi, err)
     t0 = phase_time("3", t0)
@@ -2200,6 +2290,7 @@ def main() -> int:
     stats["cosine_threshold_collect"]["by_q"][BIG_Q] = by_q(phase_big_batch(fs, scan, smi, err, db))
     t0 = phase_time("3c", t0)
     stats.update(phase_int4_kernels(fs, scan, smi, err, db))
+    stats["lex_topk_select"]["by_shape"]["int4"] = stats.pop("k1c_int4")
     t0 = phase_time("3d", t0)
     del db
 
@@ -2212,6 +2303,7 @@ def main() -> int:
         counts6, i4_eng = phase_int4_engine(fs, scan, smi, tmp, ckpt)
         t0 = phase_time("6", t0)
         counts8, carry = phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng)
+        stats["lex_topk_select"]["by_shape"]["mesh_merge"] = carry["k1c_merge"]
         t0 = phase_time("8", t0)
         counts7 = phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng)
         t0 = phase_time("7", t0)
@@ -2225,13 +2317,16 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
     main_counts = (counts4, counts5, counts6, counts7, counts8, counts8b, counts9)
     for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
-                     ("hamming_threshold_collect_popc", "hamming_threshold_collect")):
+                     ("cosine4_threshold_collect_dp4a", "cosine4_threshold_collect"),
+                     ("hamming_threshold_collect_popc", "hamming_threshold_collect"),
+                     ("lex_topk_segments", "lex_topk_select")):
         n_old, n_new = (sum(c[n] for c in main_counts) for n in (old, new))
         check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
-        log(f"main paths (phases 4-9): {new} {n_new} launches on the tensor cores, {old} {n_old}")
+        log(f"main paths (phases 4-9): {new} {n_new} launches, the first port's {old} {n_old}")
     replaces = {
         "cosine_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:979",
         "cosine_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:1074",
+        "lex_topk_select": "pixelbox_tpu/ops/pallas_scan.py:192",
         "lex_topk_segments": "pixelbox_tpu/ops/pallas_scan.py:192",
         "hamming_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:1012",
         "hamming_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:192",
@@ -2242,7 +2337,7 @@ def main() -> int:
         "coskey_rescore": "pixelbox_tpu/ops/pallas_scan.py:747",
     }
     kernels = []
-    for n in Recorder.NAMES:
+    for n in (*Recorder.NAMES, "lex_topk_segments"):
         st = stats[n]
         kernels.append({
             "name": n,
@@ -2252,9 +2347,11 @@ def main() -> int:
             "launches": sum(c[n] for c in main_counts),
             "max_abs_err": err[n],
             **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            **{key: st[key] for key in ("dot_only_ms", "previous_ms", "gpu_ms", "previous_gpu_ms", "by_q")
-               if key in st},
+            **{key: st[key] for key in ("dot_only_ms", "previous_ms", "gpu_ms", "previous_gpu_ms", "by_q",
+                                        "sym_by_q", "library_gpu_ms", "sort_ms", "sort_gpu_ms",
+                                        "by_shape") if key in st},
             **({"previous_max_abs_err": err[PREVIOUS[n]]} if n in PREVIOUS else {}),
+            **({"previous_max_abs_err": err["lex_topk_segments"]} if n == "lex_topk_select" else {}),
         })
     kernels.append({
         "name": "breakdown_ladder",

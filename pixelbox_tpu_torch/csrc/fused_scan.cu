@@ -20,9 +20,18 @@
 //   - its exact finish (_exact_dist_gathered,
 //     _coskey_candidate_postpass)                        -> K1e + K1c
 //
-// K1a and K2a run on the tensor cores (tc_scan.cu) at the main path's
-// widths; their kernels here serve the other widths and are the timing
-// references of the tensor-core ones.
+// K1a, K2a and K4a run on the tensor cores (tc_scan.cu) at the main
+// path's widths; their kernels here serve the other widths and are the
+// timing references of the tensor-core ones.
+//
+// K1c (lex_topk_select_kernel) is the selection half of _threshold_kernel
+// (its sorted carry insertion) and the buffer wrapper's final top-k: the
+// first k of a query's candidates by (dist, id), in one launch for up to
+// 16,384 of them.  It reads only the filled slots and radix-selects the
+// k-th key in shared memory, so it is bound by a launch and the filled
+// entries' bytes, not by the buffer's size.  The first port's segmented
+// bitonic sort (lex_topk_segments_kernel, re-launched until one segment
+// was left) stays as its timing reference.
 //
 // The Hamming kernels here read the packed u8 phash rows and count
 // differing bits with xor + __popc; the TPU kernel multiplied a ±1
@@ -36,14 +45,15 @@
 // round-bound poisoning exist because a TPU vreg has 128 lanes and Mosaic
 // has no sort; a GPU block sorts in shared memory instead.
 //
-// K4a/K4b are K1a/K1b instantiated for the packed int4 rows (two 4-bit
-// codes a byte, column-blocked: byte c holds dim c in its low nibble and
-// dim c + D/2 in its high one, ops/int4.py).  They read D/2 bytes a row
-// instead of D and unpack each 32-bit word into two __dp4a operands with
-// one mask and one shift+mask; only the row dot and the integer affine
-// fix differ from the u8 kind.  Like K1a they are integer-ALU bound at
-// Q >= 32 (the same D/4 __dp4a per query and row, plus the unpack),
-// HBM-read bound below; halving the row bytes matters only there.
+// The __dp4a K4a (widths other than tc_scan.cu's) and K4b are K1a/K1b
+// instantiated for the packed int4 rows (two 4-bit codes a byte,
+// column-blocked: byte c holds dim c in its low nibble and dim c + D/2 in
+// its high one, ops/int4.py).  They read D/2 bytes a row instead of D and
+// unpack each 32-bit word into two __dp4a operands with one mask and one
+// shift+mask; only the row dot and the integer affine fix differ from the
+// u8 kind.  Like the __dp4a K1a they are integer-ALU bound at Q >= 32
+// (the same D/4 __dp4a per query and row, plus the unpack), HBM-read
+// bound below; halving the row bytes matters only there.
 //
 // Distances follow the canonical spec v2 (ops/distances.py) op for op,
 // every f32 op correctly rounded (explicit __fmul_rn / __fdiv_rn, and the
@@ -60,6 +70,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
 
 #include "scan_device.cuh"
 
@@ -344,10 +358,12 @@ hamming_chunk_topk_kernel(const uint8_t* __restrict__ q_bytes,
   }
 }
 
-// K1c: per (query, segment of S candidates), the segment's first k by
-// (dist, id).  Entries at or past lens[q] (when given), non-finite or with
-// a negative id are empty.  Sorting on the id as the second key makes the
-// result independent of K1a's atomic append order.
+// The first port's K1c (lex_topk_segments, kept as the timing reference
+// of lex_topk_select_kernel below): per (query, segment of S candidates),
+// the segment's first k by (dist, id), a bitonic sort of all S slots.
+// Entries at or past lens[q] (when given), non-finite or with a negative
+// id are empty.  Sorting on the id as the second key makes the result
+// independent of K1a's atomic append order.
 __global__ void __launch_bounds__(kThreads)
 lex_topk_segments_kernel(const float* __restrict__ in_d,
                          const int* __restrict__ in_i,
@@ -378,6 +394,205 @@ lex_topk_segments_kernel(const float* __restrict__ in_d,
                              : __uint_as_float(static_cast<unsigned>(key >> 32));
     out_i[o] = key == kNoKey ? -1 : static_cast<int>(key & 0xffffffffu);
   }
+}
+
+// ---- K1c: the top-k by (dist, id) in one launch (lex_topk_select)
+//
+// One block per (query, segment of at most kSelectSlots entries; the
+// wrapper's lex_topk passes the whole row up to that, and cuts a longer
+// one into slices whose top-k a second launch selects from).
+// 1. The block reads only the positions below lens[q], coalesced, and
+//    appends the valid entries' 64-bit keys to shared memory (one shared
+//    atomic a warp): the work follows the filled slots, not the buffer.
+// 2. More than k keys: radix select of the k-th smallest key, MSB first,
+//    8-bit digits over a 256-bin shared histogram (warp-aggregated
+//    atomics), each pass over the keys whose higher digits match the
+//    prefix found so far.  dist >= 0, so its f32 bits order like it; a
+//    tie plateau in dist carries the select into the id bits (up to 8
+//    passes).  It stops once the k-th key's bin holds exactly the rest.
+// 3. The keys at or below the k-th (k of them; a key repeated past k
+//    fills the rest) are compacted and bitonic-sorted, next_pow2(k) <=
+//    1,024 of them; at most k keys are sorted as they are.
+
+constexpr int kSelectThreads = 256;  // one thread a histogram bin
+constexpr int kSelectSlots = 16384;  // entries a block holds in shared memory
+constexpr int kSelectMaxK = 1024;
+
+__host__ __device__ constexpr int next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// Dynamic shared memory of a select block: the keys, the sorted top, the
+// histogram, the warps' scan sums and a few block-wide scalars.
+__host__ __device__ constexpr size_t select_smem(int slots, int k) {
+  return static_cast<size_t>(slots + next_pow2(k)) * 8 + (256 + 8 + 8) * 4;
+}
+
+// Appends the key of every lane whose `ok` is set to dst at a slot from
+// the block-wide counter *n (one shared atomic a warp; every lane calls).
+__device__ __forceinline__ void warp_append(bool ok, unsigned long long key,
+                                            unsigned long long* dst, int* n) {
+  const unsigned m = __ballot_sync(0xffffffffu, ok);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(n, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (ok) dst[base + __popc(m & ((1u << lane) - 1u))] = key;
+}
+
+// Ascending bitonic sort of keys[0:n], n a power of two (no divides).
+__device__ void bitonic_sort_pow2(unsigned long long* keys, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
+        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+        const int j = i + stride;
+        const unsigned long long a = keys[i];
+        const unsigned long long b = keys[j];
+        if ((a > b) == ((i & size) == 0)) {
+          keys[i] = b;
+          keys[j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Exclusive sum of v over the block's kSelectThreads threads.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[w] = x;
+  __syncthreads();
+  int before = x - v;
+  for (int i = 0; i < w; ++i) before += warp_sums[i];
+  return before;
+}
+
+__global__ void __launch_bounds__(kSelectThreads)
+lex_topk_select_kernel(const float* __restrict__ in_d,
+                       const int* __restrict__ in_i,
+                       const int* __restrict__ lens, int M, int S, int k,
+                       int n_seg, float* __restrict__ out_d,
+                       int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned long long sel_smem[];
+  const int slots = min(S, M);
+  unsigned long long* keys = sel_smem;
+  unsigned long long* top = keys + slots;
+  int* hist = reinterpret_cast<int*>(top + next_pow2(k));
+  int* warp_sums = hist + 256;
+  int* scal = warp_sums + 8;  // n, taken, bin, below the bin, in the bin
+  const int tid = threadIdx.x;
+  const int q = blockIdx.x, seg = blockIdx.y;
+  const int len = lens ? min(lens[q], M) : M;
+  const int lo = seg * S, hi = min(lo + S, len);
+  if (tid < 2) scal[tid] = 0;
+  __syncthreads();
+
+  // 1. The valid keys below lens[q] into shared memory.
+  const size_t row = static_cast<size_t>(q) * M;
+  for (int p0 = lo; p0 < hi; p0 += kSelectThreads) {
+    const int p = p0 + tid;
+    bool ok = false;
+    unsigned long long key = 0;
+    if (p < hi) {
+      const float d = in_d[row + p];
+      const int id = in_i[row + p];
+      ok = id >= 0 && fabsf(d) < __int_as_float(0x7f800000);
+      key = make_key(d, id);
+    }
+    warp_append(ok, key, keys, scal);
+  }
+  __syncthreads();
+  const int n = scal[0];
+
+  // 2. Radix select: the k-th key is the rank-th of those matching prefix
+  // on the bits of mask.
+  unsigned long long prefix = 0, mask = 0;
+  int rank = k;
+  bool whole_bin = true;  // the keys matching prefix all belong to the top
+  if (n > k) {
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      hist[tid] = 0;
+      __syncthreads();
+      for (int i0 = 0; i0 < n; i0 += kSelectThreads) {
+        const int i = i0 + tid;
+        int digit = -1;
+        if (i < n) {
+          const unsigned long long key = keys[i];
+          if ((key & mask) == prefix) digit = static_cast<int>(key >> shift) & 255;
+        }
+        const unsigned peers = __match_any_sync(0xffffffffu, digit);
+        if (digit >= 0 && (tid & 31) == __ffs(peers) - 1) atomicAdd(hist + digit, __popc(peers));
+      }
+      __syncthreads();
+      const int h = hist[tid];
+      const int before = block_exclusive_sum(h, warp_sums);
+      if (before < rank && rank <= before + h) {
+        scal[2] = tid;
+        scal[3] = before;
+        scal[4] = h;
+      }
+      __syncthreads();
+      rank -= scal[3];
+      prefix |= static_cast<unsigned long long>(scal[2]) << shift;
+      mask |= 0xffull << shift;
+      whole_bin = scal[4] == rank;
+      if (whole_bin) break;
+    }
+  }
+
+  // 3. The top keys compacted, a repeated k-th key filling the rest, and
+  // sorted.
+  const int total = min(n, k);
+  for (int i0 = 0; i0 < n; i0 += kSelectThreads) {
+    const int i = i0 + tid;
+    bool take = false;
+    unsigned long long key = 0;
+    if (i < n) {
+      key = keys[i];
+      take = n <= k || (whole_bin ? (key & mask) <= prefix : key < prefix);
+    }
+    warp_append(take, key, top, scal + 1);
+  }
+  __syncthreads();
+  const int sorted = next_pow2(max(total, 1));
+  for (int t = scal[1] + tid; t < sorted; t += kSelectThreads) top[t] = t < total ? prefix : kNoKey;
+  __syncthreads();
+  bitonic_sort_pow2(top, sorted);
+  for (int t = tid; t < k; t += kSelectThreads) {
+    const unsigned long long key = t < total ? top[t] : kNoKey;
+    const size_t o = (static_cast<size_t>(q) * n_seg + seg) * k + t;
+    out_d[o] = key == kNoKey ? __int_as_float(0x7f800000)
+                             : __uint_as_float(static_cast<unsigned>(key >> 32));
+    out_i[o] = key == kNoKey ? -1 : static_cast<int>(key & 0xffffffffu);
+  }
+}
+
+// Opts the select kernel into its largest dynamic shared memory once per
+// device (above 48 KB a launch needs it).
+int allow_select_smem() {
+  static std::mutex mu;
+  static std::vector<int> done;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  std::lock_guard<std::mutex> lock(mu);
+  if (std::find(done.begin(), done.end(), dev) != done.end()) return 0;
+  rc = cudaFuncSetAttribute(lex_topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            static_cast<int>(select_smem(kSelectSlots, kSelectMaxK)));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  done.push_back(dev);
+  return 0;
 }
 
 template <int KIND, int EPI = kEpiDist>
@@ -555,6 +770,24 @@ PX_EXPORT int px_lex_topk_segments(const void* in_d, const void* in_i,
       static_cast<const float*>(in_d), static_cast<const int*>(in_i),
       static_cast<const int*>(lens), M, S, k, n_seg,
       static_cast<float*>(out_d), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1c in one launch: per (query, segment of S <= kSelectSlots entries of
+// its row), the first k <= kSelectMaxK by (dist, id) into [Q, n_seg, k].
+PX_EXPORT int px_lex_topk(const void* in_d, const void* in_i, const void* lens, int Q,
+                          int M, int S, int k, int n_seg, void* out_d, void* out_i,
+                          void* stream) {
+  if (k < 1 || k > kSelectMaxK || S < 1 || S > kSelectSlots || n_seg < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Q <= 0) return 0;
+  const int rc = allow_select_smem();
+  if (rc != 0) return rc;
+  lex_topk_select_kernel<<<dim3(Q, n_seg), kSelectThreads, select_smem(min(S, M), k),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in_d), static_cast<const int*>(in_i),
+      static_cast<const int*>(lens), M, S, k, n_seg, static_cast<float*>(out_d),
+      static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,20 @@
 // Hopper (sm_90a) tensor-core collect kernels: K1a (u8 cosine rows,
-// selecting on the spec distance) and K2a (packed phash rows, Hamming) on
-// int8 wgmma.
+// selecting on the spec distance), K4a (packed int4 rows, the asymmetric
+// and symmetric int4 metrics) and K2a (packed phash rows, Hamming) on int8
+// wgmma.
 //
 // They replace pixelbox_tpu/ops/pallas_scan.py:_threshold_kernel with the
-// buffer select (distances in _kind_dist_tile :119) for the u8 "cosine"
-// kind and the "hamming" kind, in the θ stage (_pallas_sample_theta :589)
-// and the main pass (pallas_threshold_scan_topk_v2 :979, the buffer
-// select :951, pallas_hamming_threshold_scan_topk(_v2) :1012 / :1047).
-// The TPU kernel multiplied on its matrix unit; the first port
-// (fused_scan.cu threshold_collect_kernel / hamming_collect_kernel, kept
-// there as timing references and for the widths these kernels do not
-// take) multiplied with __dp4a / __popc, one thread a row against 32
-// staged queries, and was bound by the integer ALU at ~35x its bound.
+// buffer select (distances in _kind_dist_tile :119) for the u8 "cosine",
+// the int4 "cosine4a" / "cosine4" and the "hamming" kinds, in the θ stage
+// (_pallas_sample_theta :589) and the main pass
+// (pallas_threshold_scan_topk_v2 :979, the buffer select :951,
+// pixelbox_tpu/ops/int4.py:pallas_threshold4_scan_topk :376,
+// pallas_hamming_threshold_scan_topk(_v2) :1012 / :1047).  The TPU kernel
+// multiplied on its matrix unit; the first port (fused_scan.cu
+// threshold_collect_kernel / hamming_collect_kernel, kept there as timing
+// references and for the widths these kernels do not take) multiplied
+// with __dp4a / __popc, one thread a row against 32 staged queries, and
+// was bound by the integer ALU at ~35-42x its bound.
 //
 // Design (both kernels):
 // - One warpgroup (128 threads) a block, a persistent grid of about the
@@ -52,6 +55,15 @@
 // product (2·Q·N·D at 1,979 TOP/s) at Q = 256 and up, the row bytes below;
 // phase 1's ~5 operations a pair are the next cost.
 //
+// K4a: K1a over the packed int4 rows (64 rows x 64 B a tile by TMA, D =
+// 128), whose nibbles wgmma cannot take from shared memory: each thread
+// unpacks its A fragment in registers (K2a's route), the queries (u8 - 128
+// codes, or 4-bit codes) staged as K1a's; phase 1 builds each kind's exact
+// centered dot from the accumulator (the kernel's note) and tests K1a's
+// key bound; phase 2 takes the survivors' dot again from the packed tile.
+// Bound: the int8 product at Q = 256 and up (0.0347 ms over 1M rows), the
+// row bytes (32 MB + meta) below.
+//
 // K2a: the ±1 form the TPU multiplied (_kind_dist_tile :134-140) on the
 // published 32-byte hash: each packed row is read from device memory (32 B)
 // and its 256 bits expanded in registers to ±1 int8 as wgmma's A fragment
@@ -88,6 +100,8 @@ namespace {
 constexpr int kTileRows = 64;    // wgmma M: one warpgroup's rows
 constexpr int kTcThreads = 128;  // one warpgroup a block
 constexpr int kStages = 4;       // K1a's row tiles in the TMA ring (8 KB each at D = 128)
+constexpr int kStages4 = 8;      // K4a's (4 KB each)
+constexpr int kDim4 = 128;       // K4a's width: 64-byte packed rows, four k-steps
 constexpr int kHamStages = 8;    // K2a's (2 KB each)
 constexpr int kPhBytes = 32;     // K2a's hash width (the published 16x16 phash)
 constexpr int kPhK = 8 * kPhBytes;  // K2a's ±1 depth
@@ -102,17 +116,22 @@ constexpr int kHits = 1024;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// Bytes of a row tile's row and slots of the TMA ring, by kind: u8 rows of
+// D bytes (K1a), packed int4 rows of D/2 (K4a).
+__host__ __device__ constexpr int row_bytes(int kind, int d) { return kind == kU8 ? d : d / 2; }
+__host__ __device__ constexpr int ring_stages(int kind) { return kind == kU8 ? kStages : kStages4; }
+
 // Shared-memory layouts (byte offsets from a 1024-aligned base).
 struct CosineSmem {
   int q, rows, qk, qx, hits, bars, total;
-  __host__ __device__ CosineSmem(int nq, int d)
+  __host__ __device__ CosineSmem(int nq, int d, int kind)
       : q(0),
         rows(round_up(nq * d, 1024)),
-        qk(rows + kStages * kTileRows * d),
+        qk(rows + ring_stages(kind) * kTileRows * row_bytes(kind, d)),
         qx(qk + nq * 8),
         hits(qx + nq * 16),
         bars(hits + kHits * 12),
-        total(bars + (kStages + 1) * 8 + 8) {}
+        total(bars + (ring_stages(kind) + 1) * 8 + 8) {}
 };
 
 struct HammingSmem {
@@ -298,13 +317,59 @@ __device__ __forceinline__ int tile_dot8(const int8_t* rows, int r, const int8_t
   return acc;
 }
 
-// ---- K1a
+// The int4 dot of packed row r of a staged K4a row tile (64 x 64 B,
+// unswizzled) and staged query c (128 int8 codes, 128B-swizzled): bytes
+// 16u..16u+15 hold dims 16u.. in their low nibbles and 64 + 16u.. in
+// their high ones.
+__device__ __forceinline__ int tile_dot4(const uint8_t* rows, int r, const int8_t* q, int c) {
+  constexpr uint32_t kLo = 0x0F0F0F0Fu;
+  const int8_t* qc = q + c * kDim4;
+  int acc = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const uint4 w = *reinterpret_cast<const uint4*>(rows + r * (kDim4 / 2) + 16 * u);
+    const int4 lo = *reinterpret_cast<const int4*>(qc + 16 * (u ^ (c & 7)));
+    const int4 hi = *reinterpret_cast<const int4*>(qc + 16 * ((u + 4) ^ (c & 7)));
+    acc = __dp4a(static_cast<int>(w.x & kLo), lo.x, acc);
+    acc = __dp4a(static_cast<int>(w.y & kLo), lo.y, acc);
+    acc = __dp4a(static_cast<int>(w.z & kLo), lo.z, acc);
+    acc = __dp4a(static_cast<int>(w.w & kLo), lo.w, acc);
+    acc = __dp4a(static_cast<int>((w.x >> 4) & kLo), hi.x, acc);
+    acc = __dp4a(static_cast<int>((w.y >> 4) & kLo), hi.y, acc);
+    acc = __dp4a(static_cast<int>((w.z >> 4) & kLo), hi.z, acc);
+    acc = __dp4a(static_cast<int>((w.w >> 4) & kLo), hi.w, acc);
+  }
+  return acc;
+}
 
-// Staged per query: (z, u) for the hot filter — z = f32(2·q_sum + D) −
-// kMagic2 (exact: even and within one binade), u the loosened bound of
-// the key test (key_bound) — and (qr, f32(q_mag2), θ, q_sum bits) for the
-// survivors' spec distance.
-template <int NQ>
+// ---- K1a (KIND kU8) and K4a (kInt4Asym, kInt4Sym)
+
+// Staged per query: (z, u) for the hot filter — z the query's part of
+// the phase-1 centered dot (below), u the loosened bound of the key test
+// (key_bound) — and (qr, f32(q_mag2), θ, q_sum bits) for the survivors'
+// spec distance.
+//
+// Phase 1 builds the exact centered dot dot_c in f32 without the
+// quarter-rate int-to-float convert: an int x with |x| < 2^22 added to the
+// bits of kMagic2 = 1.5·2^24 gives the float kMagic2 + 2x exactly, and
+// |dot_c| <= 255²·D < 2^24 at D <= 128, so one f32 add of an exact
+// operand lands on dot_c exactly (the spec's f32(dot_c)).  Per kind:
+//   u8:   x = 2·dot8 + row_sum, then + z = f32(2·q_sum + D) − kMagic2
+//   asym: x = 34·dot8 − 255·q_sum − 255·D/2 (the query part in z's bits;
+//         within [−4,194,240, 4,161,600] at D = 128), then + the row's
+//         f32(34·row_sum) − kMagic2
+//   sym:  x = dot_c / 2 = 578·dot8 − 4335·(q_sum + row_sum) + 65025·D/2
+//         (dot_c is even: a sum of D odd products), then − kMagic2
+// (fused_scan.py's tc_centered_f32 repeats these ops; the CPU tests hold
+// them equal to f32(dot_c) at the extreme codes.)
+//
+// K4a builds its A operand in registers, as K2a does: k-step t < 4 takes
+// dims 32t..32t+31, the low nibbles of packed bytes 32(t % 2).. for t < 2
+// and the high nibbles of the same bytes for t >= 2, so a thread's A
+// fragment (rows r0, r0 + 8 at k = 4tq.. and 16 + 4tq..) is one mask, or
+// one shift and mask, of four 32-bit words of each of its two rows, and
+// the queries stay in natural dim order.
+template <int NQ, int KIND>
 __global__ void __launch_bounds__(kTcThreads)
 tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
                          const __grid_constant__ CUtensorMap q_map,
@@ -316,7 +381,9 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
                          int* __restrict__ count, float* __restrict__ cand_d,
                          int* __restrict__ cand_i) {
   extern __shared__ uint8_t tc_smem_raw[];
-  const CosineSmem L(NQ, D);
+  constexpr int kRing = ring_stages(KIND);
+  const CosineSmem L(NQ, D, KIND);
+  const int rb = row_bytes(KIND, D);
   uint8_t* sm = align_smem(tc_smem_raw);
   int8_t* q_tile = reinterpret_cast<int8_t*>(sm + L.q);
   int8_t* rows = reinterpret_cast<int8_t*>(sm + L.rows);
@@ -324,7 +391,7 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
   float4* qx = reinterpret_cast<float4*>(sm + L.qx);
   Hit* hits = reinterpret_cast<Hit*>(sm + L.hits);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
-  uint64_t* qbar = full + kStages;
+  uint64_t* qbar = full + kRing;
   int* n_hits = reinterpret_cast<int*>(qbar + 1);
 
   const int tid = threadIdx.x;
@@ -334,18 +401,22 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
   const int cb = row_chunk(D);
 
   if (tid == 0) {
-    for (int s = 0; s <= kStages; ++s) mbar_init(full + s, 1);
+    for (int s = 0; s <= kRing; ++s) mbar_init(full + s, 1);
     *n_hits = 0;
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   auto issue = [&](int it) {
-    const int s = it % kStages;
+    const int s = it % kRing;
     const int tile = blockIdx.x + (it % my_tiles) * gridDim.x;
-    mbar_expect_tx(full + s, kTileRows * D);
-    for (int c = 0; c < D / cb; ++c)
-      tma_load_2d(rows + s * kTileRows * D + c * kTileRows * cb, &rows_map, full + s, c * cb,
-                  tile * kTileRows);
+    mbar_expect_tx(full + s, kTileRows * rb);
+    if constexpr (KIND == kU8) {
+      for (int c = 0; c < D / cb; ++c)
+        tma_load_2d(rows + s * kTileRows * D + c * kTileRows * cb, &rows_map, full + s, c * cb,
+                    tile * kTileRows);
+    } else {
+      tma_load_2d(rows + s * kTileRows * rb, &rows_map, full + s, 0, tile * kTileRows);
+    }
   };
   // Meta rows 0-2 (row_sum, mag2, rr) of this thread's two rows of a tile,
   // read one item ahead into registers (a TMA box of a meta row would start
@@ -364,7 +435,7 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
   int meta_next[2][3];
   if (n_items > 0) load_meta(0, meta_next);
   if (tid == 0)
-    for (int it = 0; it < min(kStages, n_items); ++it) issue(it);
+    for (int it = 0; it < min(kRing, n_items); ++it) issue(it);
 
   const int tq = tid & 3;
   const uint32_t layout = cb == 128 ? 1u : 0u;
@@ -389,7 +460,12 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
         if (q < Q) {
           const int qs = q_sum[q];
           const float th = theta[q];
-          k.x = __fsub_rn(__int2float_rn(2 * qs + D), kMagic2);
+          if constexpr (KIND == kU8)
+            k.x = __fsub_rn(__int2float_rn(2 * qs + D), kMagic2);
+          else if constexpr (KIND == kInt4Asym)
+            k.x = __int_as_float(kMagic2Bits - 255 * qs - 255 * (D / 2));
+          else
+            k.x = __int_as_float(kMagic2Bits - 4335 * qs + 65025 * (D / 2));
           k.y = key_bound(th, qr[q], key_scale, saturation, key_loose);
           x = make_float4(qr[q], __int2float_rn(q_mag2[q]), th, __int_as_float(qs));
         }
@@ -399,7 +475,7 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
       __syncthreads();
       mbar_wait(qbar, qt & 1);
     }
-    int rsum[2], rmag[2], rs_bits[2];
+    int rsum[2], rmag[2], rc[2];
     float rr[2], rr_key[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -408,26 +484,55 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
       rr[h] = __int_as_float(meta_next[h][2]);
       // NaN for padding / tombstones / rows past N: every key test fails.
       rr_key[h] = rmag[h] > 0 ? rr[h] : nan;
-      rs_bits[h] = kMagic2Bits + rsum[h];
+      // The row's part of the phase-1 centered dot (int bits or f32).
+      if constexpr (KIND == kU8)
+        rc[h] = kMagic2Bits + rsum[h];
+      else if constexpr (KIND == kInt4Asym)
+        rc[h] = __float_as_int(__fsub_rn(__int2float_rn(34 * rsum[h]), kMagic2));
+      else
+        rc[h] = -4335 * rsum[h];
     }
     if (it + 1 < n_items) load_meta(it + 1, meta_next);
-    const int s = it % kStages;
-    mbar_wait(full + s, (it / kStages) & 1);
-    wgmma_fence();
-    const uint32_t a0 = rows_addr + s * kTileRows * D;
-    for (int k = 0; k < D / 32; ++k) {
-      const int c = 32 * k / cb, off = 32 * k % cb;  // k-step k: chunk c, byte off
-      Wgmma<NQ>::ss(acc, smem_desc(a0 + c * kTileRows * cb + off, kTileRows * cb, 8 * cb, layout),
-                    smem_desc(q_addr + c * NQ * cb + off, NQ * cb, 8 * cb, layout), k > 0);
+    const int s = it % kRing;
+    mbar_wait(full + s, (it / kRing) & 1);
+    if constexpr (KIND == kU8) {
+      wgmma_fence();
+      const uint32_t a0 = rows_addr + s * kTileRows * D;
+      for (int k = 0; k < D / 32; ++k) {
+        const int c = 32 * k / cb, off = 32 * k % cb;  // k-step k: chunk c, byte off
+        Wgmma<NQ>::ss(acc, smem_desc(a0 + c * kTileRows * cb + off, kTileRows * cb, 8 * cb, layout),
+                      smem_desc(q_addr + c * NQ * cb + off, NQ * cb, 8 * cb, layout), k > 0);
+      }
+    } else {
+      // A fragments from the packed rows: words 8m + tq and 8m + 4 + tq of
+      // rows r0 and r0 + 8 give k-step m (low nibbles) and m + 2 (high).
+      constexpr uint32_t kLo = 0x0F0F0F0Fu;
+      const uint32_t* rw = reinterpret_cast<const uint32_t*>(rows + s * kTileRows * rb);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t* w = rw + (r0 + 8 * h) * (kDim4 / 8) + 8 * m + tq;
+          const uint32_t w0 = w[0], w1 = w[4];
+          a[m][h] = w0 & kLo;
+          a[m][2 + h] = w1 & kLo;
+          a[m + 2][h] = (w0 >> 4) & kLo;
+          a[m + 2][2 + h] = (w1 >> 4) & kLo;
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        Wgmma<NQ>::rs(acc, a[t], smem_desc(q_addr + 32 * t, NQ * 128, 1024, 1), t > 0);
     }
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
 
     // Phase 1, branch-free and the only reader of the accumulators: the
-    // key test of every (row, query) pair into a bit mask (bit p = pair p).
-    // The bits 2·dot8 + row_sum + kMagic2Bits are the float kMagic2 +
-    // 4·dot8 + 2·row_sum exactly; adding z gives the centered dot.
+    // key test of every (row, query) pair into a bit mask (bit p = pair p),
+    // on the exact centered dot (see the kernel's note).
     uint32_t pass[(NQ + 63) / 64] = {};
 #pragma unroll
     for (int j = 0; j < NQ / 8; ++j) {
@@ -437,7 +542,13 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int p = 4 * j + 2 * h + e;
-          const float dc = __fadd_rn(__int_as_float(2 * acc[p] + rs_bits[h]), k.x);
+          float dc;
+          if constexpr (KIND == kU8)
+            dc = __fadd_rn(__int_as_float(2 * acc[p] + rc[h]), k.x);
+          else if constexpr (KIND == kInt4Asym)
+            dc = __fadd_rn(__int_as_float(34 * acc[p] + __float_as_int(k.x)), __int_as_float(rc[h]));
+          else
+            dc = __fadd_rn(__int_as_float(578 * acc[p] + __float_as_int(k.x) + rc[h]), -kMagic2);
           pass[p / 32] |= static_cast<uint32_t>(__fmul_rn(dc, rr_key[h]) > k.y) << (p % 32);
         }
       }
@@ -452,9 +563,14 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
         const int p = 32 * pw + __ffs(m) - 1;
         const int h = (p >> 1) & 1, c = 8 * (p >> 2) + 2 * tq + (p & 1);
         const float4 x = qx[c];
-        const int dot8 = tile_dot8(rows + s * kTileRows * D, r0 + 8 * h, q_tile, NQ, c, D, cb);
+        int dot8;
+        if constexpr (KIND == kU8)
+          dot8 = tile_dot8(rows + s * kTileRows * D, r0 + 8 * h, q_tile, NQ, c, D, cb);
+        else
+          dot8 = tile_dot4(reinterpret_cast<const uint8_t*>(rows) + s * kTileRows * rb, r0 + 8 * h,
+                           q_tile, c);
         const float dist =
-            spec_dist(centered_dot<kU8>(dot8, __float_as_int(x.w), h ? rsum[1] : rsum[0], D),
+            spec_dist(centered_dot<KIND>(dot8, __float_as_int(x.w), h ? rsum[1] : rsum[0], D),
                       x.x, h ? rr[1] : rr[0], x.y, __int2float_rn(h ? rmag[1] : rmag[0]));
         if (dist < x.z)
           last = gather_hit(Hit{qt * NQ + c, tile * kTileRows + r0 + 8 * h, dist}, hits, n_hits,
@@ -464,7 +580,7 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
     // The slot is read (wgmma, phase 2): refill it.  Append the gathered
     // rows once the list is half full (a block-uniform vote).
     const bool full_list = __syncthreads_or(last >= kHits / 2 - 1);
-    if (tid == 0 && it + kStages < n_items) issue(it + kStages);
+    if (tid == 0 && it + kRing < n_items) issue(it + kRing);
     if (full_list) flush_hits(hits, n_hits, cap, count, cand_d, cand_i);
   }
   __syncthreads();
@@ -729,18 +845,18 @@ int persistent_grid(Kernel kernel, size_t smem, int n_tiles, int* grid) {
   return 0;
 }
 
-template <int NQ>
+template <int NQ, int KIND>
 int launch_tc_cosine(const CUtensorMap& rows, const CUtensorMap& qm, const void* q_codes,
                      const void* q_sum, const void* q_mag2, const void* qr, const void* theta,
                      const void* data, const void* meta, int Q, int N, int D, int cap,
                      float key_scale, float saturation, float key_loose, void* count,
                      void* cand_d, void* cand_i, cudaStream_t stream) {
-  const size_t smem = CosineSmem(NQ, D).total + 1024;
+  const size_t smem = CosineSmem(NQ, D, KIND).total + 1024;
   int grid = 0;
-  const int rc = persistent_grid(tc_cosine_collect_kernel<NQ>, smem,
+  const int rc = persistent_grid(tc_cosine_collect_kernel<NQ, KIND>, smem,
                                  (N + kTileRows - 1) / kTileRows, &grid);
   if (rc != 0) return rc;
-  tc_cosine_collect_kernel<NQ><<<grid, kTcThreads, smem, stream>>>(
+  tc_cosine_collect_kernel<NQ, KIND><<<grid, kTcThreads, smem, stream>>>(
       rows, qm, static_cast<const int8_t*>(q_codes), static_cast<const int*>(q_sum),
       static_cast<const int*>(q_mag2), static_cast<const float*>(qr),
       static_cast<const float*>(theta), static_cast<const int8_t*>(data),
@@ -770,34 +886,48 @@ int query_tile(int Q) { return Q <= 8 ? 8 : Q <= 32 ? 32 : Q <= 64 ? 64 : Q <= 1
 
 }  // namespace
 
-// K1a on the tensor cores: rows int8 [N, D] (D = 32, 64 or 128; 16-byte
-// aligned), meta int32 [4, N], queries int8 [Q, D] (16-byte aligned).
+// K1a (kind 0) on the tensor cores: rows int8 [N, D] (D = 32, 64 or 128;
+// 16-byte aligned), meta int32 [4, N], queries int8 [Q, D] (16-byte
+// aligned).  K4a (kind 1 asym, 2 sym): packed int4 rows uint8 [N, D/2]
+// (D = 128), the queries as K1a's (u8 - 128 codes, or 4-bit codes).
 PX_EXPORT int px_tc_cosine_collect(const void* q_codes, const void* q_sum, const void* q_mag2,
                                    const void* qr, const void* theta, const void* data,
-                                   const void* meta, int Q, int N, int D, int cap,
+                                   const void* meta, int Q, int N, int D, int kind, int cap,
                                    float key_scale, float saturation, float key_loose,
                                    void* count, void* cand_d, void* cand_i, void* stream) {
-  if (D != 32 && D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = kind == kU8 ? (D == 32 || D == 64 || D == 128)
+                              : (kind == kInt4Asym || kind == kInt4Sym) && D == kDim4;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || Q <= 0) return 0;
   const int nq = query_tile(Q);
   const int cb = row_chunk(D);
   const CUtensorMapSwizzle sw = cb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const int rb = row_bytes(kind, D);
   CUtensorMap rows, qm;
-  int rc = encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, D, N, D, cb, kTileRows, sw);
+  int rc = kind == kU8
+               ? encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, D, N, D, cb, kTileRows, sw)
+               : encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, rb, N, rb, rb, kTileRows,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc == 0) rc = encode_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q_codes, D, Q, D, cb, nq, sw);
   if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (nq) {
-#define PX_TC_COS(n)                                                                              \
-  case n:                                                                                         \
-    return launch_tc_cosine<n>(rows, qm, q_codes, q_sum, q_mag2, qr, theta, data, meta, Q, N, D,   \
-                               cap, key_scale, saturation, key_loose, count, cand_d, cand_i, st);
+  switch (nq * 4 + kind) {
+#define PX_TC_COS_KIND(n, kd)                                                                     \
+  case n * 4 + kd:                                                                                \
+    return launch_tc_cosine<n, kd>(rows, qm, q_codes, q_sum, q_mag2, qr, theta, data, meta, Q, N, \
+                                   D, cap, key_scale, saturation, key_loose, count, cand_d,       \
+                                   cand_i, st);
+#define PX_TC_COS(n)           \
+  PX_TC_COS_KIND(n, kU8)       \
+  PX_TC_COS_KIND(n, kInt4Asym) \
+  PX_TC_COS_KIND(n, kInt4Sym)
     PX_TC_COS(8)
     PX_TC_COS(32)
     PX_TC_COS(64)
     PX_TC_COS(128)
     PX_TC_COS(256)
 #undef PX_TC_COS
+#undef PX_TC_COS_KIND
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,10 +14,16 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
 - **K1b** :func:`cosine_chunk_topk` — the same dot and epilogue with
   θ = max_distance; each block sorts its row chunk by (dist, id) in shared
   memory and keeps the chunk's first k.
-- **K1c** :func:`lex_topk_segments` — per (query, segment) bitonic sort on
-  (dist, id), keeping k; re-launched until one segment per query remains.
-  It finishes K1a's buffer and K1b's partials, and sorting on the id as
-  the second key makes both independent of atomic order.
+- **K1c** :func:`lex_topk` through :func:`lex_topk_select` — the first k
+  of each query's candidates by (dist, id) in one launch for up to
+  :data:`SELECT_SLOTS` of them (a longer row: its slices' top-k, then a
+  second launch): only the filled slots are read, a radix select finds
+  the k-th key in shared memory and the k at or below it are sorted.  It
+  finishes K1a's buffer and K1b's partials, and the id as the second key
+  makes both independent of atomic order.  The first port's segmented
+  bitonic sort, :func:`lex_topk_segments` (re-launched until one segment
+  was left, :func:`lex_topk_segments_chain`), stays as its timing
+  reference.
 - **K2a** :func:`hamming_threshold_collect` and **K2b**
   :func:`hamming_chunk_topk` — K1a and K1b for the Hamming kind: the
   differing bits over the first ``byte_limit`` bytes of the packed u8
@@ -29,10 +35,12 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
 - **K4a** :func:`cosine4_threshold_collect` and **K4b**
   :func:`cosine4_chunk_topk` — K1a and K1b over the packed int4 rows
   (``ops/int4.py``: two 4-bit codes a byte, column-blocked), unpacked in
-  registers (mask, shift + mask) into two ``__dp4a`` operands per word;
-  the affine fix of the asymmetric (u8 query, kind "cosine4a") or the
-  symmetric (4-bit query, kind "cosine4") metric, then K1a's epilogue.
-  K1c finishes both.
+  registers (mask, shift + mask); the affine fix of the asymmetric (u8
+  query, kind "cosine4a") or the symmetric (4-bit query, kind "cosine4")
+  metric, then K1a's epilogue.  K4a runs on the tensor cores at
+  :data:`TC_COSINE4_DIMS` (the rows unpacked into ``wgmma``'s A
+  fragment), on the first port's ``__dp4a`` kernel at other widths; K4b
+  on ``__dp4a``.  K1c finishes both.
 - **K1d** :func:`cosine_coskey_collect` and **K4d**
   :func:`cosine4_coskey_collect` — K1a and K4a selecting on the key
   ``-cos`` (the JAX ``epilogue="cos"``, ``_kind_dist_tile`` and
@@ -73,21 +81,22 @@ float64 matmul of int8 codes is exact for any realistic D) and select
 with a (dist, id) sort; the CPU tests hold them bit-identical to the JAX
 package, and ``chip_smoke.py`` holds the kernels bit-identical to them.
 
-What bounds the kernels on the card: the tensor-core K1a and K2a read
-the rows once per 256 queries and multiply on the tensor cores; past the
-product, a branch-free filter of every (query, row) pair on the
+What bounds the kernels on the card: the tensor-core K1a, K4a and K2a
+read the rows once per 256 queries and multiply on the tensor cores;
+past the product, a branch-free filter of every (query, row) pair on the
 accumulators (a few f32 / integer operations a pair) is their cost, and
 only its survivors take the exact distance (ops bound at Q >= 256, HBM
-read bound below).  K1b reads the int8 index once per 4 queries and
-spends ~D/4 ``__dp4a`` per (query, row) plus one correctly-rounded
-divide — integer-ALU and divide bound; K4a/K4b read half the bytes and
-spend the same ``__dp4a`` plus one mask and one shift + mask per packed
-word (32 queries a block for K4a); K1d/K4d are K4a's loop without the
-divide, clamp and pin; K1e is bound by its gathered rows; K2b spends
-byte_limit/4 ``__popc`` per (query, row).  The design keeps distances
-out of device memory (only θ-passing rows or each chunk's top-k are
-written); the tensor-core skeleton for K4a/K1d/K4d and K1b/K4b/K2b, and
-fusing the collects with K1c, are later work (ROADMAP.md).
+read bound below).  K1c is bound by its launch and the filled entries'
+bytes.  K1b reads the int8 index once per 4 queries and spends ~D/4
+``__dp4a`` per (query, row) plus one correctly-rounded divide —
+integer-ALU and divide bound; K4b reads half the bytes and spends the
+same ``__dp4a`` plus one mask and one shift + mask per packed word;
+K1d/K4d are the ``__dp4a`` K4a's loop without the divide, clamp and pin;
+K1e is bound by its gathered rows; K2b spends byte_limit/4 ``__popc``
+per (query, row).  The design keeps distances out of device memory (only
+θ-passing rows or each chunk's top-k are written); the tensor-core
+skeleton for K1b/K4b/K2b, and fusing the collects with K1c, are later
+work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -124,20 +133,28 @@ NVCC_FLAGS = (
 )
 
 #: Queries staged per block of the ``__dp4a`` / ``__popc`` collect kernels
-#: (K1d, K4a, K4d, and K1a / K2a at the widths the tensor-core kernels do
+#: (K1d, K4d, and K1a / K4a / K2a at the widths the tensor-core kernels do
 #: not take); they stage ``_COLLECT_Q * D`` bytes of shared memory (must
 #: stay under the 48 KB static-launch limit).
 _COLLECT_Q = 32
 #: Row widths (bytes) the tensor-core K1a takes (TMA-fed K-major tiles).
 TC_COSINE_DIMS = (32, 64, 128)
+#: Widths (dims; D/2 packed bytes a row) the tensor-core K4a takes.
+TC_COSINE4_DIMS = (128,)
 #: Hash width (bytes) the tensor-core K2a takes: the published 16x16 phash.
 TC_HAMMING_BYTES = 32
 #: Rows per K1b chunk (power of two); the chunk keeps its first k.
 CHUNK_ROWS = 1024
-#: Candidates per K1c segment (power of two, >= 2k so each pass shrinks).
+#: Candidates per segment of the first port's K1c (power of two, >= 2k
+#: so each pass of its chain shrinks).
 SEGMENT = 2048
 #: Largest k the kernels take (K1b keeps k of CHUNK_ROWS, K1c k of SEGMENT/2).
 MAX_K = 1024
+#: Entries of a query's row one block of K1c's select kernel takes (its
+#: keys in shared memory); :func:`lex_topk` cuts a longer row into slices.
+SELECT_SLOTS = 16384
+#: The narrowest slice :func:`lex_topk` cuts a long row into.
+_MIN_SLICE = 4096
 #: Row block of the plain versions (bounds their [Q, block] temporaries).
 _PLAIN_BLOCK = 65536
 #: Element budget of the plain Hamming versions' [Q, rows, bytes] xor.
@@ -193,7 +210,7 @@ def load_kernels() -> _Kernels:
 
 
 def load_tc_kernels() -> _Kernels:
-    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a and K2a) for
+    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a and K2a) for
     sm_90a into its own library, beside :func:`load_kernels`'s, so the
     two build in parallel.  Raises on any failure."""
     global _TC_KERNELS
@@ -202,7 +219,7 @@ def load_tc_kernels() -> _Kernels:
             kern = build_library(_TC_SOURCES, "libpixelbox_tc_scan")
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             kern.lib.px_tc_cosine_collect.restype = ci
-            kern.lib.px_tc_cosine_collect.argtypes = [vp] * 7 + [ci] * 4 + [cf] * 3 + [vp] * 4
+            kern.lib.px_tc_cosine_collect.argtypes = [vp] * 7 + [ci] * 5 + [cf] * 3 + [vp] * 4
             kern.lib.px_tc_hamming_collect.restype = ci
             kern.lib.px_tc_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
             _TC_KERNELS = kern
@@ -246,6 +263,8 @@ def _build_and_load() -> _Kernels:
     lib.px_chunk_topk.argtypes = [vp] * 4 + [cf, vp, vp] + [ci] * 6 + [vp] * 3
     lib.px_lex_topk_segments.restype = ci
     lib.px_lex_topk_segments.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
+    lib.px_lex_topk.restype = ci
+    lib.px_lex_topk.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
     lib.px_hamming_collect.restype = ci
     lib.px_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
     lib.px_hamming_chunk_topk.restype = ci
@@ -316,11 +335,13 @@ LAUNCHES = {
     "cosine_threshold_collect": 0,
     "cosine_threshold_collect_dp4a": 0,
     "cosine_chunk_topk": 0,
+    "lex_topk_select": 0,
     "lex_topk_segments": 0,
     "hamming_threshold_collect": 0,
     "hamming_threshold_collect_popc": 0,
     "hamming_chunk_topk": 0,
     "cosine4_threshold_collect": 0,
+    "cosine4_threshold_collect_dp4a": 0,
     "cosine4_chunk_topk": 0,
     "cosine_coskey_collect": 0,
     "cosine4_coskey_collect": 0,
@@ -476,6 +497,17 @@ def cosine_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap:
         )
     if d not in TC_COSINE_DIMS:
         return cosine_threshold_collect_dp4a(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap)
+    return _tc_collect(
+        "cosine_threshold_collect", "cosine", q_codes, q_sum, q_mag2, qr, theta, data, meta, cap
+    )
+
+
+def _tc_collect(name, kind, q_codes, q_sum, q_mag2, qr, theta, data, meta, cap):
+    """Launch the tensor-core K1a (kind "cosine") or K4a ("cosine4a",
+    "cosine4") through ``px_tc_cosine_collect``.  Returns (count, cand_d
+    [Q, cap] f32, cand_i [Q, cap] i32)."""
+    dev = data.device
+    qn, d = q_codes.shape
     if q_codes.data_ptr() % 16:  # a TMA source: copy an unaligned view
         q_codes = q_codes.clone()
     kern = load_tc_kernels()
@@ -485,11 +517,12 @@ def cosine_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, cap:
     with torch.cuda.device(dev):
         rc = kern.lib.px_tc_cosine_collect(
             _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2), _ptr(qr), _ptr(theta),
-            _ptr(data), _ptr(meta), qn, n, d, cap, _KEY_SCALE, DIST_SATURATION, KEY_LOOSE,
+            _ptr(data), _ptr(meta), qn, data.shape[0], d, _KIND_CODES[kind], cap,
+            _KEY_SCALE, DIST_SATURATION, KEY_LOOSE,
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
-    _check(rc, "cosine_threshold_collect")
-    LAUNCHES["cosine_threshold_collect"] += 1
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return count, cand_d, cand_i
 
 
@@ -647,18 +680,38 @@ def cosine4_threshold_collect(q_codes, q_sum, q_mag2, qr, theta, data, meta, sym
 
     Replaces ``pallas_scan.py:_threshold_kernel`` for the int4 kinds, as
     ``int4.py:pallas_threshold4_scan_topk`` launched it (θ stage and main
-    pass).  On the card: K1a's dot over half the row bytes, each packed
-    word unpacked in registers into two ``__dp4a`` operands — the same
-    integer-ALU bound as K1a at Q >= 32, half its HBM reads below.
+    pass).  On the card, widths of :data:`TC_COSINE4_DIMS` (the main
+    path's 128) go to the tensor-core K4a (``csrc/tc_scan.cu``: the packed
+    rows by TMA, unpacked in registers into ``wgmma``'s A fragment, K1a's
+    key prefilter on the exact centered dot, the spec distance and strict
+    θ for its survivors); other widths to the ``__dp4a`` kernel
+    (:func:`cosine4_threshold_collect_dp4a`, its own launch count).
     """
-    dev, qn, _, _ = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
+    dev, qn, _, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
     _require(theta, "theta", torch.float32, (qn,), dev)
     if dev.type != "cuda":
         return cosine4_threshold_collect_plain(
             q_codes, q_sum, q_mag2, qr, theta, data, meta, sym, cap
         )
+    if d not in TC_COSINE4_DIMS:
+        return cosine4_threshold_collect_dp4a(
+            q_codes, q_sum, q_mag2, qr, theta, data, meta, sym, cap
+        )
+    return _tc_collect(
+        "cosine4_threshold_collect", "cosine4" if sym else "cosine4a",
+        q_codes, q_sum, q_mag2, qr, theta, data, meta, cap,
+    )
+
+
+def cosine4_threshold_collect_dp4a(q_codes, q_sum, q_mag2, qr, theta, data, meta, sym: bool, cap: int):
+    """K4a on the ``__dp4a`` kernel of the first port (``fused_scan.cu``
+    ``threshold_collect_kernel``: one thread a packed row against 32
+    staged queries, each word unpacked into two ``__dp4a`` operands), for
+    CUDA tensors only: :func:`cosine4_threshold_collect`'s path for widths
+    outside :data:`TC_COSINE4_DIMS`, and the timing reference of the
+    tensor-core kernel.  Same contract and outputs."""
     return _collect_on_card(
-        "cosine4_threshold_collect", "px_cosine4_collect",
+        "cosine4_threshold_collect_dp4a", "px_cosine4_collect",
         q_codes, q_sum, q_mag2, qr, theta, data, meta, cap, int(sym),
     )
 
@@ -771,6 +824,34 @@ def key_bound(theta: torch.Tensor, qr: torch.Tensor) -> torch.Tensor:
     c = -cos_key_threshold(theta)
     u = (c * _f32(KEY_LOOSE, c)) / qr
     return torch.where(c <= 0, torch.full_like(u, float("-inf")), u).contiguous()
+
+
+#: ``kMagic2`` of ``csrc/tc_scan.cu``: 1.5·2^24, and its f32 bits.
+_MAGIC2 = 1.5 * 2.0**24
+_MAGIC2_BITS = 0x4BC00000
+
+
+def tc_centered_f32(kind: str, dot8, q_sum, row_sum, d: int) -> torch.Tensor:
+    """[Q, B] f32 centered dot of the tensor-core collects' phase 1, op for
+    op the kernel's construction (``csrc/tc_scan.cu``) from the int8 code
+    dot ``dot8`` [Q, B] int32, ``q_sum`` [Q] and ``row_sum`` [B]: an int x
+    added to the bits of 1.5·2^24 is the float 1.5·2^24 + 2x, then one f32
+    add.  Equal to ``f32(dot_c)`` (:func:`_centered`) for D <= 128 at every
+    code — what the CPU tests hold."""
+    qs = q_sum.to(torch.int32)[:, None]
+    rs = row_sum.to(torch.int32)[None, :]
+    magic = torch.tensor(_MAGIC2, dtype=torch.float32)
+
+    def bits_f32(x):
+        return x.to(torch.int32).contiguous().view(torch.float32)
+
+    if kind == "cosine":
+        z = (2 * qs + d).to(torch.float32) - magic
+        return bits_f32(2 * dot8 + (rs + _MAGIC2_BITS)) + z
+    if kind == "cosine4a":
+        z = (34 * rs).to(torch.float32) - magic
+        return bits_f32(34 * dot8 + (_MAGIC2_BITS - 255 * qs - 255 * (d // 2))) + z
+    return bits_f32(578 * dot8 + (_MAGIC2_BITS - 4335 * qs + 65025 * (d // 2)) + (-4335 * rs)) - magic
 
 
 def hamming_pass_count(theta: torch.Tensor, byte_limit: int, wrap_u8: bool) -> torch.Tensor:
@@ -906,7 +987,7 @@ def coskey_rescore_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind, le
 
 
 # --------------------------------------------------------------------- #
-# K1c: segmented lexicographic top-k
+# K1c: the top-k by (dist, id)
 
 
 def _keys(dist, idx, lens):
@@ -921,24 +1002,98 @@ def _keys(dist, idx, lens):
     return torch.where(valid, key, torch.full_like(key, torch.iinfo(torch.int64).max))
 
 
-def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
-    """Per (query, segment of ``segment`` candidates), the segment's first k
-    by (dist, id): ([Q, n_seg, k] f32, [Q, n_seg, k] i32), empty entries
-    +inf / -1.  ``lens[q]`` (optional) marks how many leading entries of
-    query q's row are meaningful.
-
-    Replaces the selection half of ``pallas_scan.py:_threshold_kernel``
-    (its sorted carry insertion and the buffer wrapper's final top-k).
-    Bound on the card by the shared-memory bitonic sort (S·log²S/4 compare-
-    exchanges per segment); one block per (query, segment).
-    """
+def _check_topk_args(dist, idx, lens):
     dev = dist.device
     qn, m = dist.shape
     _require(dist, "dist", torch.float32, (qn, m), dev)
     _require(idx, "idx", torch.int32, (qn, m), dev)
     if lens is not None:
         _require(lens, "lens", torch.int32, (qn,), dev)
-    if k > segment // 2:  # each pass must shrink the pool (lex_topk's loop)
+    return dev, qn, m
+
+
+def lex_topk(dist, idx, k: int, lens=None):
+    """Exact top-k by (dist, id) of each query's candidates: ([Q, k] f32,
+    [Q, k] i32), empty entries +inf / -1; ``lens[q]`` (optional) marks
+    how many leading entries of query q's row are meaningful.
+
+    K1c's select kernel (:func:`lex_topk_select`) in one launch for rows
+    of up to :data:`SELECT_SLOTS` entries; a longer row (the exact scans'
+    chunk partials) is first cut into slices whose top-k a second launch
+    selects from (rows past ``SELECT_SLOTS² / k`` entries take a third)."""
+    qn, m = dist.shape
+    if k > SEGMENT // 2:
+        raise ValueError(f"k={k} exceeds half the segment ({SEGMENT})")
+    while m > SELECT_SLOTS:
+        d, i = lex_topk_select(dist, idx, k, lens, segment=_slice(m, k))
+        dist, idx, lens = d.reshape(qn, -1), i.reshape(qn, -1), None
+        m = dist.shape[1]
+    d, i = lex_topk_select(dist, idx, k, lens)
+    return d[:, 0], i[:, 0]
+
+
+def _slice(m: int, k: int) -> int:
+    """The slice of a row of m > SELECT_SLOTS entries: the narrowest power
+    of two from :data:`_MIN_SLICE` whose slices' top-k fit one block."""
+    s = _MIN_SLICE
+    while s < SELECT_SLOTS and -(-m // s) * k > SELECT_SLOTS:
+        s *= 2
+    return s
+
+
+def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None):
+    """Per (query, segment of ``segment`` entries of its row; the whole
+    row by default) the segment's first k by (dist, id): ([Q, n_seg, k]
+    f32, [Q, n_seg, k] i32), empty entries +inf / -1; entries at or past
+    ``lens[q]``, non-finite or with a negative id are empty.
+
+    Replaces the selection half of ``pallas_scan.py:_threshold_kernel``
+    (its sorted carry insertion) and the buffer wrapper's final top-k.  On
+    the card one block a (query, segment) (``csrc/fused_scan.cu``
+    ``lex_topk_select_kernel``): it reads only the positions below
+    ``lens[q]`` and keeps the valid (dist, id) keys in shared memory,
+    radix-selects the k-th (8-bit digits, MSB first, into the id bits on a
+    tie plateau) and sorts the k at or below it — bound by the launch and
+    the filled entries' bytes, not by the row's length."""
+    dev, qn, m = _check_topk_args(dist, idx, lens)
+    seg = max(m, 1) if segment is None else int(segment)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside the select kernel's 1..{MAX_K}")
+    if not 1 <= seg <= SELECT_SLOTS:
+        raise ValueError(f"segment {seg} outside the select kernel's 1..{SELECT_SLOTS}")
+    if dev.type != "cuda":
+        return lex_topk_select_plain(dist, idx, k, lens, seg)
+    kern = load_kernels()
+    n_seg = max(1, -(-m // seg))
+    out_d = torch.empty((qn, n_seg, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, n_seg, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_lex_topk(
+            _ptr(dist), _ptr(idx),
+            ctypes.c_void_p(None if lens is None else lens.data_ptr()),
+            qn, m, seg, k, n_seg, _ptr(out_d), _ptr(out_i), _stream(dev),
+        )
+    _check(rc, "lex_topk_select")
+    LAUNCHES["lex_topk_select"] += 1
+    return out_d, out_i
+
+
+def lex_topk_select_plain(dist, idx, k, lens=None, segment=None):
+    """Plain PyTorch version of K1c's select kernel: one ``torch.sort`` of
+    each segment's int64 (dist, id) keys, the first k."""
+    seg = max(dist.shape[1], 1) if segment is None else segment
+    return lex_topk_segments_plain(dist, idx, k, lens, seg)
+
+
+def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
+    """The first port's K1c, the timing reference of
+    :func:`lex_topk_select`: per (query, segment of ``segment``
+    candidates) the segment's first k by (dist, id), ([Q, n_seg, k] f32,
+    [Q, n_seg, k] i32), empty entries +inf / -1, ``lens`` as there.  On
+    the card one block a (query, segment) bitonic-sorts every slot
+    (S·log²S/4 compare-exchanges, filled or not)."""
+    dev, qn, m = _check_topk_args(dist, idx, lens)
+    if k > segment // 2:  # each pass must shrink the pool (the chain's loop)
         raise ValueError(f"k={k} exceeds half the segment ({segment})")
     if dev.type != "cuda":
         return lex_topk_segments_plain(dist, idx, k, lens, segment)
@@ -958,15 +1113,17 @@ def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
 
 
 def lex_topk_segments_plain(dist, idx, k, lens=None, segment: int = SEGMENT):
-    """Plain PyTorch version of K1c."""
+    """Plain PyTorch version of both K1c kernels: per segment one sort of
+    the int64 keys, the first k (a segment narrower than k padded)."""
     qn, m = dist.shape
-    n_seg = -(-m // segment)
+    n_seg = max(1, -(-m // segment))
     key = _keys(dist, idx, lens)
     big = torch.iinfo(torch.int64).max
-    pad = n_seg * segment - m
-    if pad:
-        key = torch.cat([key, key.new_full((qn, pad), big)], 1)
-    key = torch.sort(key.reshape(qn, n_seg, segment), dim=-1).values[..., :k]
+    key = torch.cat([key, key.new_full((qn, n_seg * segment - m), big)], 1)
+    key = key.reshape(qn, n_seg, segment)
+    if segment < k:
+        key = torch.cat([key, key.new_full((qn, n_seg, k - segment), big)], 2)
+    key = torch.sort(key, dim=-1).values[..., :k]
     empty = key == big
     d = (key >> 32).to(torch.int32).contiguous().view(torch.float32)
     i = (key & 0xFFFFFFFF).to(torch.int32)
@@ -976,9 +1133,10 @@ def lex_topk_segments_plain(dist, idx, k, lens=None, segment: int = SEGMENT):
     )
 
 
-def lex_topk(dist, idx, k: int, lens=None):
-    """Exact top-k by (dist, id) of each query's candidates: K1c re-launched
-    over its own output until one segment remains.  ([Q, k], [Q, k])."""
+def lex_topk_segments_chain(dist, idx, k: int, lens=None):
+    """The first port's ``lex_topk``: :func:`lex_topk_segments` re-launched
+    over its own output until one segment remains — the timing reference
+    of :func:`lex_topk`.  ([Q, k], [Q, k])."""
     qn = dist.shape[0]
     d, i = lex_topk_segments(dist, idx, k, lens)
     while d.shape[1] > 1:

@@ -37,15 +37,12 @@ from pixelbox_tpu_torch.ops.int4 import (
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto
 from pixelbox_tpu_torch.utils.timing import timed
 
+#: Batch shapes of the semantic scans.  Every batch selects on the
+#: distance (``epilogue="dist"``): the tensor-core K1a and K4a filter on
+#: the cos key inside their one launch, and on the H100 the cos-key pass
+#: (K1d / K4d + K1e) is slower at every bucket (chip_smoke.py's "auto
+#: dist vs cos" and "full bucket" lines, PERF.md §6).
 _BUCKETS = (1, 8, 32, 128, 256)
-#: The smallest bucket whose int4 semantic scan selects on the cos key
-#: (K4d + K1e) instead of the distance (K4a); the results are the same.
-#: K4a and K4d share the ``__dp4a`` loop: on the H100 (chip_smoke.py's
-#: "auto dist vs cos" lines, PERF.md §6) the cos key's extra launch and
-#: key-θ ops cost more than K4d saves below 256, and at 256 it is as fast
-#: or faster.  u8 batches select on the distance at every bucket: the
-#: tensor-core K1a filters on the cos key inside its one launch.
-_INT4_COSKEY_MIN_BUCKET = 256
 
 
 def _bucket(n: int) -> int:
@@ -110,10 +107,7 @@ class BatchingScanService:
         ``rerank_rows_provider``: zero-arg callable returning the u8 host
         mirror [N, D] — when set and the index is int4, batched scans
         retrieve the top-C int4 candidates and rescore them with the exact
-        u8 metric (the engine's ``int4_rerank``).  An int4 batch's
-        threshold pass selects on the cos key from the bucket
-        ``_INT4_COSKEY_MIN_BUCKET`` on, on the distance below it; a u8
-        batch always on the distance."""
+        u8 metric (the engine's ``int4_rerank``)."""
         self._provider = index_provider
         self._rerank_rows = rerank_rows_provider
         self.k = k
@@ -251,12 +245,10 @@ class BatchingScanService:
                 q, index, k=self.k, max_distance=self.max_distance,
                 sample=sample, row_meta=meta,
             )
-        epilogue = "cos" if len(queries) >= _INT4_COSKEY_MIN_BUCKET else "dist"
 
         def scan(c, md):
             d, i = cosine4_scan_topk_auto(
                 q, index, k=c, max_distance=md, sample=sample, meta=meta,
-                epilogue=epilogue,
             )
             return _host(d), _host(i)
 

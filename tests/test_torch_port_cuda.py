@@ -73,7 +73,7 @@ def test_main_path_goes_through_the_kernels():
     fs.reset_launch_counts()
     got = tscan.cosine_scan_topk_auto(q, idx, k=100)
     counts = fs.launch_counts()
-    assert counts["cosine_threshold_collect"] > 0 and counts["lex_topk_segments"] > 0
+    assert counts["cosine_threshold_collect"] > 0 and counts["lex_topk_select"] > 0
     cpu = PackedSemanticIndex(*(t.cpu() for t in idx))
     want = tscan.cosine_scan_topk_auto(q.cpu(), cpu, k=100)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
@@ -187,7 +187,7 @@ def test_int4_main_path_goes_through_the_kernels(mode):
     fs.reset_launch_counts()
     got = int4.cosine4_scan_topk_auto(q, idx, k=400, max_distance=int4.UNBOUNDED_DISTANCE, query_mode=mode)
     counts = fs.launch_counts()
-    assert counts["cosine4_threshold_collect"] > 0 and counts["lex_topk_segments"] > 0
+    assert counts["cosine4_threshold_collect"] > 0 and counts["lex_topk_select"] > 0
     cpu = int4.PackedSemantic4Index(*(t.cpu() for t in idx))
     exact = int4.cosine4a_scan_topk if mode == "asym" else int4.cosine4_scan_topk
     want = exact(q.cpu(), cpu, k=400, max_distance=int4.UNBOUNDED_DISTANCE)
@@ -293,7 +293,7 @@ def test_sharded_auto_on_the_card_matches_one_device():
     fs.reset_launch_counts()
     got = ss.sharded_cosine_scan_topk_auto(q, mirror, mesh, k=50, block_rows=16384)
     counts = fs.launch_counts()
-    assert counts["cosine_threshold_collect"] >= 8 and counts["lex_topk_segments"] >= 9
+    assert counts["cosine_threshold_collect"] >= 8 and counts["lex_topk_select"] >= 9
     want = tscan.cosine_scan_topk(q, idx, k=50)
     assert torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(got[1].cpu(), want[1].cpu())
     ph = PackedHammingIndex(idx.data.view(torch.uint8)[:, :32].contiguous(), idx.valid)
@@ -457,3 +457,119 @@ def test_tc_hamming_other_width_takes_the_popc_kernel():
     assert fs.launch_counts()["hamming_threshold_collect_popc"] == 1
     assert fs.launch_counts()["hamming_threshold_collect"] == 0
     _collect_agrees(got, fs.hamming_threshold_collect_plain(q, theta, idx.data, meta, 18, False, 4096), 4096)
+
+
+# --------------------------------------------------------------------- #
+# K1c in one launch (lex_topk_select) and the tensor-core K4a
+
+
+def _select_inputs(qn, m, fill, seed, dev):
+    """[Q, M] candidates as a collect buffer holds them: the first
+    ``fill`` a query valid (query 1: none; query 2: a plateau of 3k equal
+    distances), lens per query (one past M), the rest garbage."""
+    rng = np.random.default_rng(seed)
+    dist = torch.from_numpy((2 * rng.random((qn, m))).astype(np.float32))
+    idx = torch.from_numpy(np.stack([rng.permutation(4 * m)[:m] for _ in range(qn)]).astype(np.int32))
+    lens = torch.from_numpy(rng.integers(fill // 2, fill + 1, qn).astype(np.int32))
+    lens[0] = m + 1
+    if qn > 1:
+        lens[1] = 0
+    if qn > 2:
+        dist[2, : min(m, 3 * fill)] = 0.25
+        lens[2] = min(m, 3 * fill)
+    return dist.to(dev), idx.to(dev), lens.to(dev)
+
+
+@pytest.mark.parametrize(
+    "qn,m,k,fill",
+    [(256, 4096, 100, 320), (256, 2048, 20, 80), (256, 400, 100, 400), (256, 16384, 400, 1280),
+     (8, 102400, 100, 102400), (3, 5000, 1024, 5000), (2, 100, 400, 100)],
+    ids=["main_pass", "theta_stage", "mesh_merge", "int4", "k1b_partials", "k1024", "m_below_k"],
+)
+def test_lex_topk_select_matches_plain(qn, m, k, fill):
+    """K1c's select kernel against its plain version at the main path's
+    shapes, with and without lens; one launch a call, and lex_topk one
+    launch up to SELECT_SLOTS entries a row, two past it."""
+    dev = _card()
+    dist, idx, lens = _select_inputs(qn, m, fill, seed=m + k, dev=dev)
+    for ln in (lens, None):
+        if m <= fs.SELECT_SLOTS:
+            fs.reset_launch_counts()
+            got = fs.lex_topk_select(dist, idx, k, ln)
+            torch.cuda.synchronize()
+            assert fs.launch_counts()["lex_topk_select"] == 1
+            want = fs.lex_topk_select_plain(dist, idx, k, ln)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        fs.reset_launch_counts()
+        got = fs.lex_topk(dist, idx, k, ln)
+        assert fs.launch_counts()["lex_topk_select"] == (1 if m <= fs.SELECT_SLOTS else 2)
+        assert fs.launch_counts()["lex_topk_segments"] == 0
+        want = fs.lex_topk_select_plain(dist.cpu(), idx.cpu(), k, None if ln is None else ln.cpu())
+        assert torch.equal(got[0].cpu(), want[0][:, 0]) and torch.equal(got[1].cpu(), want[1][:, 0])
+        if k <= fs.SEGMENT // 2:
+            old = fs.lex_topk_segments_chain(dist, idx, k, ln)
+            assert torch.equal(old[0], got[0]) and torch.equal(old[1], got[1])
+
+
+@pytest.mark.parametrize("qn", [1, 8, 256, 300])
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+def test_tc_cosine4_collect_matches_plain(mode, qn):
+    """The tensor-core K4a against its plain version at N = 65,537 (not a
+    multiple of the 64-row tile), 1% invalid rows, a tie flood, Q > 256 and
+    an overflowing buffer; each launch counted under the tensor-core
+    kernel."""
+    dev = _card()
+    idx, _ = _int4_index(65537, 128, seed=qn + (mode == "sym"), dev=dev)
+    idx = int4.PackedSemantic4Index(*(t[:65537] for t in idx))  # N % 4 != 0: no padding rows
+    data = idx.data.clone()
+    data[100:3100] = data[7]  # 3,000 copies of row 7
+    for name in ("row_sum", "row_mag2"):
+        col = getattr(idx, name).clone()
+        col[100:3100] = col[7]
+        idx = idx._replace(**{name: col})
+    valid = idx.valid.clone()
+    valid[7] = True
+    valid[100:3100] = True
+    idx = idx._replace(data=data, valid=valid)
+    rng = np.random.default_rng(qn)
+    rows = torch.from_numpy(rng.integers(0, 65537, qn)).to(dev)
+    q = _dequantized_u8(idx.data[rows]).contiguous()
+    if qn > 1:
+        q[0] = _dequantized_u8(idx.data[7:8])[0]
+    meta = int4.build_semantic4_meta(idx)
+    qk = fs.Int4Queries.from_u8(q, mode)
+    args = (qk.q_codes, qk.q_sum, qk.q_mag2, qk.qr)
+    cases = [("mid", 0.2, 4096), ("max_distance", 1e3, 4096), ("saturated", 2 * fs.DIST_SATURATION, 4096),
+             ("overflow", 0.5, 64), ("flood", 0.05, 2048)]
+    for label, th, cap in cases:
+        theta = torch.full((qn,), th, device=dev)
+        fs.reset_launch_counts()
+        got = fs.cosine4_threshold_collect(*args, theta, idx.data, meta, qk.sym, cap)
+        torch.cuda.synchronize()
+        assert fs.launch_counts()["cosine4_threshold_collect"] == 1, label
+        assert fs.launch_counts()["cosine4_threshold_collect_dp4a"] == 0, label
+        want = fs.cosine4_threshold_collect_plain(*args, theta, idx.data, meta, qk.sym, cap)
+        _collect_agrees(got, want, cap)
+        old = fs.cosine4_threshold_collect_dp4a(*args, theta, idx.data, meta, qk.sym, cap)
+        _collect_agrees(old, want, cap)
+    if qn > 1:
+        assert int(got[0][0]) > 2048  # the tie flood overflowed and was still counted
+
+
+def _dequantized_u8(packed):
+    """Packed int4 rows → the u8 rows they dequantize to (v4 · 17)."""
+    return (fs.unpack_u4(packed).to(torch.int32) * 17).to(torch.uint8)
+
+
+def test_tc_cosine4_other_width_takes_the_dp4a_kernel():
+    dev = _card()
+    idx, q = _int4_index(65537, 64, seed=64, dev=dev)
+    idx = int4.PackedSemantic4Index(*(t[:65537] for t in idx))
+    meta = int4.build_semantic4_meta(idx)
+    qk = fs.Int4Queries.from_u8(q, "asym")
+    theta = torch.full((q.shape[0],), 0.2, device=dev)
+    fs.reset_launch_counts()
+    got = fs.cosine4_threshold_collect(*qk[:4], theta, idx.data, meta, False, 4096)
+    assert fs.launch_counts()["cosine4_threshold_collect_dp4a"] == 1
+    assert fs.launch_counts()["cosine4_threshold_collect"] == 0
+    _collect_agrees(got, fs.cosine4_threshold_collect_plain(*qk[:4], theta, idx.data, meta, False, 4096), 4096)

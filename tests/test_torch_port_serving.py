@@ -316,10 +316,10 @@ def test_service_coalesces_into_the_direct_scan(rng, tmp_path, n_queries):
 
 @pytest.mark.parametrize("precision", ["int8", "int4"])
 def test_service_picks_the_epilogue_by_bucket(rng, tmp_path, monkeypatch, precision):
-    """An int4 batch's threshold pass selects on the cos key (K4d + K1e)
-    from the bucket ``_INT4_COSKEY_MIN_BUCKET`` on and on the distance
-    (K4a) below it; a u8 batch on the distance (K1a) at every bucket; the
-    results are the same."""
+    """Every batch's threshold pass selects on the distance (K1a for u8,
+    K4a for int4), a full bucket as well as the bucket below it (the
+    tensor-core collects filter on the cos key inside their one launch);
+    the results are the same."""
     from pixelbox_tpu_torch.serving import BatchingScanService
     from pixelbox_tpu_torch.serving import service as service_mod
 
@@ -339,8 +339,7 @@ def test_service_picks_the_epilogue_by_bucket(rng, tmp_path, monkeypatch, precis
         q = rows[rng.integers(0, len(rows), service_mod._BUCKETS[-1])]
         full = svc._semantic_scan(q)
         below = svc._semantic_scan(q[: service_mod._BUCKETS[-2]])
-        assert service_mod._INT4_COSKEY_MIN_BUCKET == service_mod._BUCKETS[-1]
-        assert seen == ["cos" if precision == "int4" else "dist", "dist"]
+        assert seen == ["dist", "dist"]
         assert_same((full[0][: len(below[0])], full[1][: len(below[0])]), below)
     finally:
         svc.close()

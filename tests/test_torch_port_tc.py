@@ -12,6 +12,12 @@ held here (``key_bound``, ``hamming_pass_count``):
   distance and the strict ``dist < θ`` to the survivors.  On seeded rows
   the bound must keep every ``dist < θ`` row, and the composition must
   select exactly those rows.
+- K4a (the int4 kinds, D = 128) builds its A fragment from the packed
+  nibbles, k-step by k-step: that dot must equal the JAX package's int4
+  dot (its distances bit for bit); its phase-1 centered dot, built from a
+  magic-number float (``tc_centered_f32``), must be exactly f32(dot_c) at
+  the extreme codes; and K1a's bound on it must keep every ``dist < θ``
+  row, so that with the strict θ it selects exactly the JAX rows.
 - K2a multiplies the ±1 form of the hashes (zero past the byte limit):
   ``(8·limit − dot) >> 1`` must equal the popcount distance, its integer
   threshold must select exactly ``dist < θ``, and the top-k those
@@ -23,9 +29,11 @@ import numpy as np
 import pytest
 import torch
 
+from pixelbox_tpu.ops import int4 as jint4
 from pixelbox_tpu.ops import scan as jscan
 from pixelbox_tpu.ops.packed import PackedHammingIndex as JHIndex
 from pixelbox_tpu_torch.ops import fused_scan as fs
+from pixelbox_tpu_torch.ops import int4 as tint4
 from pixelbox_tpu_torch.ops.oracle import quantize_embedding_np
 from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
 
@@ -87,6 +95,132 @@ def test_key_filter_then_strict_theta_selects_the_dist_rows():
     # The kernel's collect composes exactly this: the plain K1a agrees.
     count, _, _ = fs.cosine_threshold_collect_plain(*qk, theta, idx.data, meta, 4096)
     assert torch.equal(count, strict.sum(dim=1, dtype=torch.int32))
+
+
+def _library4(mode, seed=13, n=2048, d=128):
+    """An int4 index of clustered u8 rows with a tie plateau (rows
+    100..399 copies of row 5), 1% invalid rows and the extreme rows (every
+    code 15, every code 0) at 500 and 501; queries: 0-1 a perturbed copy
+    of row 5, 2 an exact copy of row 9, 3-4 every u8 code 255 / 0 (asym
+    codes 127 / -128, sym codes 15 / 0), then others."""
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((16, d)).astype(np.float32)
+    db = quantize_embedding_np(np.tanh(c[rng.integers(0, 16, n)] + 0.35 * rng.standard_normal((n, d))))
+    db[100:400] = db[5]
+    db[500], db[501] = 255, 0
+    valid = rng.uniform(size=n) > 0.01
+    valid[[5, 9, 500, 501]] = True
+    valid[100:400] = True
+    q = db[rng.integers(0, n, 8)].copy()
+    q[0] = db[5]
+    q[0, :3] = np.clip(q[0, :3].astype(int) + 30, 0, 255)
+    q[1] = q[0]
+    q[2] = db[9]
+    q[3], q[4] = 255, 0
+    idx = tint4.build_semantic4_index(db, block_rows=n, device="cpu")
+    idx = idx._replace(valid=torch.from_numpy(valid))
+    return idx, fs.Int4Queries.from_u8(torch.from_numpy(q), mode)
+
+
+def _nibble_dot8(q_codes: np.ndarray, packed: np.ndarray) -> np.ndarray:
+    """The tensor-core K4a's int8 product at D = 128 as its threads build
+    it: k-step t takes words 8m + tq (k = 4tq..4tq+3) and 8m + 4 + tq (k =
+    16 + 4tq..) of each packed row, m = t % 2, masked (t < 2) or shifted
+    by 4 and masked (t >= 2), against query dims 32t..32t+31."""
+    words = packed.view("<u4").astype(np.int64)  # [N, 16]
+    acc = np.zeros((q_codes.shape[0], packed.shape[0]), np.int64)
+    for t in range(4):
+        m, sh = t % 2, 4 * (t // 2)
+        a = np.empty((packed.shape[0], 32), np.int64)
+        for kp in range(32):
+            half, tq, e = kp // 16, (kp % 16) // 4, kp % 4
+            w = (words[:, 8 * m + 4 * half + tq] >> sh) & 0x0F0F0F0F
+            a[:, kp] = (w >> (8 * e)) & 0xFF
+        acc += q_codes[:, 32 * t : 32 * t + 32].astype(np.int64) @ a.T
+    return acc
+
+
+def _jax_dist4(qk, idx, max_distance):
+    """The JAX package's int4 block distances (``_cosine4a_block_dist`` /
+    ``_cosine4_block_dist``) on the same queries and rows."""
+    fn = jint4._cosine4_block_dist if qk.sym else jint4._cosine4a_block_dist
+    out = fn(
+        jnp.asarray(qk.q_codes.numpy()), jnp.asarray(qk.q_sum.numpy()),
+        jnp.asarray(qk.q_mag2.numpy().astype(np.float32)[:, None]), jnp.asarray(idx.data.numpy()),
+        jnp.asarray(idx.row_sum.numpy()), jnp.asarray(idx.row_mag2.numpy()),
+        jnp.asarray(idx.valid.numpy()), max_distance, qk.q_codes.shape[1],
+    )
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+def test_int4_nibble_dot_matches_jax(mode):
+    idx, qk = _library4(mode)
+    meta = fs.build_row_meta(idx)
+    kind = "cosine4" if qk.sym else "cosine4a"
+    dot8 = _nibble_dot8(qk.q_codes.numpy(), idx.data.numpy())
+    assert np.array_equal(dot8, fs._dot8(qk.q_codes, fs.unpack_u4(idx.data)).numpy())
+    dot_c = fs._centered(kind, torch.from_numpy(dot8).to(torch.int32), qk.q_sum[:, None], meta[0][None, :], 128)
+    dist, valid = fs._spec_dist(dot_c, qk.q_mag2, qk.qr, meta)
+    dist = torch.where(valid, dist, torch.full_like(dist, float("inf"))).numpy()
+    want = _jax_dist4(qk, idx, np.float32(np.inf))
+    assert np.array_equal(dist.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["cosine", "cosine4a", "cosine4"])
+def test_phase1_centered_dot_is_exact_at_the_extremes(kind):
+    """The magic-number f32 of phase 1 equals f32(dot_c) for every pair of
+    extreme and random codes at D = 128 (u8: codes -128..127 both sides;
+    asym: u8 - 128 queries against 4-bit rows; sym: 4-bit both sides)."""
+    rng = np.random.default_rng(7)
+    d = 128
+    q_lo, q_hi = (0, 15) if kind == "cosine4" else (-128, 127)
+    r_lo, r_hi = (-128, 127) if kind == "cosine" else (0, 15)
+    q = np.concatenate([np.full((1, d), q_lo), np.full((1, d), q_hi),
+                        rng.integers(q_lo, q_hi + 1, (30, d))]).astype(np.int64)
+    r = np.concatenate([np.full((1, d), r_lo), np.full((1, d), r_hi),
+                        np.where(np.arange(d) % 2, r_lo, r_hi)[None, :],
+                        rng.integers(r_lo, r_hi + 1, (61, d))]).astype(np.int64)
+    dot8 = torch.from_numpy(q @ r.T).to(torch.int32)
+    q_sum, row_sum = torch.from_numpy(q.sum(1)), torch.from_numpy(r.sum(1))
+    want = fs._centered(kind, dot8, q_sum[:, None].to(torch.int32), row_sum[None, :].to(torch.int32), d)
+    assert int(want.abs().max()) >= 8_000_000  # the extremes reach |dot_c| = 255²·128
+    got = fs.tc_centered_f32(kind, dot8, q_sum, row_sum, d)
+    assert torch.equal(got, want.to(torch.float32))
+
+
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+def test_int4_key_filter_then_strict_theta_selects_the_jax_rows(mode):
+    idx, qk = _library4(mode)
+    meta = fs.build_row_meta(idx)
+    kind = "cosine4" if qk.sym else "cosine4a"
+    dist, valid = fs._tile_dist4(*qk[:4], idx.data, meta, qk.sym)
+    dot8 = fs._dot8(qk.q_codes, fs.unpack_u4(idx.data))
+    dc = fs.tc_centered_f32(kind, dot8, qk.q_sum, meta[0], 128)
+    rr = meta[2].contiguous().view(torch.float32)
+    plateau = dist[0, 5]
+    assert bool((dist[0, 100:400] == plateau).all())
+    qn = qk.q_codes.shape[0]
+    for theta_of in (
+        lambda: torch.full((qn,), float(plateau)),
+        lambda: torch.full((qn,), float(torch.nextafter(plateau, torch.tensor(np.inf)))),
+        lambda: torch.zeros(qn), lambda: torch.full((qn,), 1e-7),
+        lambda: torch.full((qn,), fs.DIST_SATURATION), lambda: torch.full((qn,), 2 * fs.DIST_SATURATION),
+        lambda: torch.full((qn,), 0.05), lambda: torch.full((qn,), 0.3),
+        lambda: torch.linspace(0.0, 2.0, qn),
+    ):
+        theta = theta_of().to(torch.float32)
+        strict = valid & (dist < theta[:, None])
+        rr_key = torch.where(valid[0], rr, torch.full_like(rr, float("nan")))
+        bound = (dc * rr_key[None, :]) > fs.key_bound(theta, qk.qr)[:, None]
+        assert bool((strict <= bound).all()), f"the bound drops a dist < θ row at θ {theta[:2]}"
+        assert torch.equal(bound & (dist < theta[:, None]), strict)
+        jax_rows = np.isfinite(_jax_dist4(qk, idx, jnp.asarray(theta.numpy())[:, None]))
+        assert np.array_equal(strict.numpy(), jax_rows)
+        count, _, _ = fs.cosine4_threshold_collect_plain(*qk[:4], theta, idx.data, meta, qk.sym, 4096)
+        assert torch.equal(count, strict.sum(dim=1, dtype=torch.int32))
+    # The extreme rows and queries: every code 15 / 0 against u8 255 / 0.
+    assert float(dist[3, 500]) < float(dist[3, 501]) and float(dist[4, 501]) <= float(dist[4, 500])
 
 
 def _pm1(x: np.ndarray, limit: int) -> np.ndarray:
