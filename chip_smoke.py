@@ -9,7 +9,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``nvidia-smi`` name/power limit; holds the exact numerics (TF32 off,
    cuDNN deterministic, benchmark off).
 2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
-   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a and K2a) and
+   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K2b and K4b) and
    ``csrc/breakdown.cu`` for sm_90a, one nvcc each, in parallel; logs the
    tensor-core and select kernels' registers and spills and ptxas's wgmma
    warnings.
@@ -35,7 +35,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    tie flood that must defeat the proof and be repaired.  Replayed and
    checked as in phase 3, with the proof rate and the repaired count
    printed per Q; the tensor-core K2a timed at every Q in turns against the
-   ``__popc`` kernel it replaced.
+   ``__popc`` kernel it replaced; the tensor-core K2b at a mesh shard's
+   duplicate batch (256 stored rows × 262,144 rows, k = 8, max_distance
+   0.1) and at Q ∈ {8, 256} over the 1M rows (k = 100), in turns against
+   the first port's ``__popc`` chunk kernel (their exact scans held equal),
+   per call and device-only, and the exact scan as a whole (+ K1c, its
+   launches counted).
 3c. Large batches (the JAX package's buffer-select kernel, Q > 1024):
    cosine ``auto`` at Q = 2048 over phase 3's 1,048,576 × 128 rows, every
    launch replayed through its plain version.
@@ -52,6 +57,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    256} the cos-key pass (K4d + K1e) runs too, with the same checks.  The
    tensor-core K4a is timed in turns against the ``__dp4a`` kernel it
    replaced at Q ∈ {1, 8, 256, 2048}, both modes, and K4d against K4a;
+   the tensor-core K4b at the int4 duplicates batch (256 stored rows ×
+   the 65,536-row cut, k = 400, unbounded) and at Q = 8 over the 1M rows
+   (k = 400), both modes, as K2b in 3b;
    K1c on the 256 × 16,384 → 400 buffer against the chain; the whole
    auto scan (asym, k = 400) with ``epilogue="dist"`` against ``"cos"``
    at the batching service's buckets 1/8/32/128/256.
@@ -124,10 +132,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    launches from zero around it — then each rung once at that shape on
    rows planted near the queries, bit-identical to its plain version.
 
-Phases 4-9 must run every u8 and int4 collect at D = 128 and every
-Hamming collect at 32 B on the tensor-core kernels, and every top-k on
-the select kernel (their ``__dp4a`` / ``__popc`` predecessors and the
-first port's ``lex_topk_segments`` launched no time).  The last lines are
+Phases 4-9 must run every u8 and int4 collect and int4 chunk top-k at
+D = 128 and every Hamming collect and chunk top-k at 32 B on the
+tensor-core kernels, and every top-k on the select kernel (their
+``__dp4a`` / ``__popc`` predecessors and the first port's
+``lex_topk_segments`` launched no time).  The last lines are
 the card's nvidia-smi line, the kernels' JSON summary (time, plain time,
 bound, library time per kernel; the tensor-core collects with their
 predecessor's time and error against their outputs and a per-Q table,
@@ -166,6 +175,7 @@ INT4_DUP_ROWS = 1 << 16  # the int4 duplicates library: a cut of the 1M one
 APPEND_ROWS = 1024       # phases 7 and 8: the append between their queries
 MESH_SHARDS = 4          # phase 8: shards over the visible cards (4 on one card)
 DUP_BATCHES = 64         # phase 8: duplicate batches of 256 compared on the mesh
+MESH_SHARD_ROWS = N_ROWS // MESH_SHARDS  # phase 8: a shard's rows on one card
 
 
 def log(msg: str) -> None:
@@ -394,11 +404,13 @@ def gpu_ms(fns, reps=20, rounds=3):
     return best
 
 
-#: The tensor-core collects and the kernels they replaced, kept as timing
+#: The tensor-core kernels and the ones they replaced, kept as timing
 #: references (ops/fused_scan.py).
 PREVIOUS = {"cosine_threshold_collect": "cosine_threshold_collect_dp4a",
             "cosine4_threshold_collect": "cosine4_threshold_collect_dp4a",
-            "hamming_threshold_collect": "hamming_threshold_collect_popc"}
+            "hamming_threshold_collect": "hamming_threshold_collect_popc",
+            "hamming_chunk_topk": "hamming_chunk_topk_popc",
+            "cosine4_chunk_topk": "cosine4_chunk_topk_dp4a"}
 
 
 def time_against_previous(fs, call, smi, tag, err, reps=10):
@@ -424,6 +436,60 @@ def time_against_previous(fs, call, smi, tag, err, reps=10):
         f"{st['gpu_ms']:.4f} / {st['previous_gpu_ms']:.4f} ms ({st['previous_gpu_ms'] / st['gpu_ms']:.2f}x); "
         f"bound {st['bound_ms']:.4f} ms ({smi})")
     return st
+
+
+def time_chunk_against_previous(fs, call, smi, tag, err, reps=10):
+    """A tensor-core chunk top-k's call (K2b / K4b): the first port's
+    kernel on the same inputs, the exact scan from its partials (K1c)
+    held equal to the one from the new kernel's (its error under its own
+    name); time_kernel's numbers (single calls; the bound of the exact
+    scan's own work); then in turns, per call and device-only, the kernel
+    against the first port's, and the exact scan as a whole (chunk kernel
+    + K1c, K1c's launches counted) against the first port's."""
+    import torch
+
+    name, args, kwargs, out = call
+    prev = PREVIOUS[name]
+    new, old = getattr(fs, name), getattr(fs, prev)
+    qn, k = args[0].shape[0], args[-1]
+
+    def finish(part):
+        return fs.lex_topk(part[0].reshape(qn, -1), part[1].reshape(qn, -1), k)
+
+    def k1c_launches(part):
+        before = fs.launch_counts()["lex_topk_select"]
+        finish(part)
+        return fs.launch_counts()["lex_topk_select"] - before
+
+    old_out = old(*args, **kwargs)
+    a, b = finish(out), finish(old_out)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          f"{tag} {name}: the exact scan from {prev}'s partials differs")
+    err[prev] = max(err[prev], max_abs_err(a[0], b[0]))
+    st = time_kernel(fs, call, smi, tag, reps=reps)
+    st["k1c_launches"], st["previous_k1c_launches"] = k1c_launches(out), k1c_launches(old_out)
+    st["chunks"], st["previous_chunks"] = out[0].shape[1], old_out[0].shape[1]
+    fns = [lambda: new(*args, **kwargs), lambda: old(*args, **kwargs)]
+    scans = [lambda: finish(new(*args, **kwargs)), lambda: finish(old(*args, **kwargs))]
+    st["ms"], st["previous_ms"] = interleaved_ms(fns, reps)
+    st["gpu_ms"], st["previous_gpu_ms"] = gpu_ms(fns, reps=max(2, 2 * reps))
+    st["scan_ms"], st["previous_scan_ms"] = interleaved_ms(scans, reps)
+    st["scan_gpu_ms"], st["previous_scan_gpu_ms"] = gpu_ms(scans, reps=max(2, 2 * reps))
+    log(f"{tag} {name} Q={qn} x {args[2 if name.startswith('hamming') else 5].shape[0]:,} k={k} vs {prev} "
+        f"(same exact scan) in turns: {st['ms']:.4f} / {st['previous_ms']:.4f} ms a call, device only "
+        f"{st['gpu_ms']:.4f} / {st['previous_gpu_ms']:.4f} ms ({st['previous_gpu_ms'] / st['gpu_ms']:.2f}x); "
+        f"the exact scan (+ K1c: {st['k1c_launches']} / {st['previous_k1c_launches']} launches over "
+        f"{st['chunks']} / {st['previous_chunks']} chunks) {st['scan_ms']:.4f} / {st['previous_scan_ms']:.4f} "
+        f"ms a call, device {st['scan_gpu_ms']:.4f} / {st['previous_scan_gpu_ms']:.4f} ms; bound "
+        f"{st['bound_ms']:.4f} ms ({st['bound_by']}); dot only {st['dot_only_ms']:.4f} ms ({smi})")
+    return st
+
+
+def chunk_by_shape(st):
+    return {key: st[key] for key in (
+        "ms", "previous_ms", "gpu_ms", "previous_gpu_ms", "scan_ms", "previous_scan_ms", "scan_gpu_ms",
+        "previous_scan_gpu_ms", "k1c_launches", "previous_k1c_launches", "chunks", "previous_chunks",
+        "plain_ms", "bound_ms", "bound_by", "dot_only_ms")}
 
 
 def k1c_args(call):
@@ -771,11 +837,24 @@ def phase_hamming(fs, scan, hg, smi, err):
         del idx, meta, smp, ref
         torch.cuda.empty_cache()
 
-    stats = {}
-    for n, qn in (("hamming_chunk_topk", REPAIR_Q), ("hamming_chunk_topk", MAIN_Q)):
-        call = next(c for c in timed_calls[(n, qn)] if c[1][2].shape[0] == N_ROWS)
-        st = time_kernel(fs, call, smi, "[3b]", reps=10 if qn <= MAIN_Q else 3)
-        stats.setdefault(n, st)  # the main-path shape (listed first) goes in the kernels line
+    # K2b at the main paths' shapes, each replayed bit-identical through its
+    # plain version and held against the first port's kernel: a mesh shard's
+    # duplicate batch (256 stored rows against 262,144 rows, k = 8,
+    # max_distance 0.1; phase 8's launches), the repair bucket and a full
+    # batch over the 1M rows (k = 100).
+    data = torch.from_numpy(db).to(dev)
+    meta = torch.ones(N_ROWS, dtype=torch.uint8, device=dev)
+    q = torch.from_numpy(db[rng.choice(MESH_SHARD_ROWS, MAIN_Q, replace=False)]).to(dev)
+    args = (q, 0.1, data[:MESH_SHARD_ROWS], meta[:MESH_SHARD_ROWS], PH_BYTES, False, 8)
+    dup = ("hamming_chunk_topk", args, {}, fs.hamming_chunk_topk(*args))
+    err["hamming_chunk_topk"] = max(err["hamming_chunk_topk"], replay(fs, dup))
+    k2b = {"mesh_dup": time_chunk_against_previous(fs, dup, smi, "[3b] mesh shard dup", err)}
+    for qn in (REPAIR_Q, MAIN_Q):
+        call = next(c for c in timed_calls[("hamming_chunk_topk", qn)] if c[1][2].shape[0] == N_ROWS)
+        k2b[f"{qn}x1M"] = time_chunk_against_previous(fs, call, smi, "[3b]", err, reps=10 if qn < MAIN_Q else 5)
+    del data, meta
+    stats = {"hamming_chunk_topk": {**k2b["mesh_dup"],
+                                    "by_shape": {n: chunk_by_shape(st) for n, st in k2b.items()}}}
     k2a = {}
     for qn in PH_QS:  # the tensor-core K2a against the __popc kernel it replaced
         call = next(c for c in timed_calls[("hamming_threshold_collect", qn)]
@@ -982,11 +1061,30 @@ def phase_int4_kernels(fs, scan, smi, err, db):
     stats["cosine4_threshold_collect"] = {
         **k4a["asym", MAIN_Q], "by_q": {q: by_q(k4a["asym", q]) for q in PH_QS},
         "sym_by_q": {q: by_q(k4a["sym", q]) for q in PH_QS}}
-    for n, qn in (("cosine4_chunk_topk", REPAIR_Q), ("cosine4_coskey_collect", MAIN_Q)):
-        for mode in ("asym", "sym"):
-            st = time_kernel(fs, main_call(n, mode, qn), smi, f"[3d] {mode} k={kmax}")
-            if mode == "asym":
-                stats.setdefault(n, st)
+    # K4b at the main paths' shapes, both modes, each replayed bit-identical
+    # through its plain version and held against the first port's kernel:
+    # the int4 duplicates batch (256 stored rows against the 65,536-row cut,
+    # k = 400, unbounded; phase 6's launches) and the repair bucket over the
+    # 1M rows (k = 400).
+    idx = int4.build_semantic4_index(db[:INT4_DUP_ROWS], device=dev)
+    meta = int4.build_semantic4_meta(idx)
+    dup_q = torch.from_numpy(db[rng.choice(INT4_DUP_ROWS, MAIN_Q, replace=False)]).to(dev)
+    k4b = {}
+    for mode in ("asym", "sym"):
+        qk = fs.Int4Queries.from_u8(dup_q, mode)
+        args = (*qk[:4], int4.UNBOUNDED_DISTANCE, idx.data, meta, qk.sym, kmax)
+        dup = ("cosine4_chunk_topk", args, {}, fs.cosine4_chunk_topk(*args))
+        err["cosine4_chunk_topk"] = max(err["cosine4_chunk_topk"], replay(fs, dup))
+        k4b[f"dup_{mode}"] = time_chunk_against_previous(fs, dup, smi, f"[3d] int4 dup {mode}", err)
+        k4b[f"{REPAIR_Q}x1M_{mode}"] = time_chunk_against_previous(
+            fs, main_call("cosine4_chunk_topk", mode, REPAIR_Q), smi, f"[3d] {mode} k={kmax}", err)
+    del idx, meta
+    stats["cosine4_chunk_topk"] = {**k4b["dup_asym"],
+                                   "by_shape": {n: chunk_by_shape(st) for n, st in k4b.items()}}
+    for mode in ("asym", "sym"):
+        st = time_kernel(fs, main_call("cosine4_coskey_collect", mode, MAIN_Q), smi, f"[3d] {mode} k={kmax}")
+        if mode == "asym":
+            stats.setdefault("cosine4_coskey_collect", st)
     k1c = next(c for c in timed_calls[("lex_topk_select", "asym", kmax, MAIN_Q)]
                if k1c_args(c)[2] == kmax and k1c_args(c)[3] is not None
                and k1c_args(c)[0].shape[1] == fs.SELECT_SLOTS)
@@ -1075,8 +1173,8 @@ def work_of(name, args, out):
     if name.endswith("collect"):
         cap = args[-1]
         outb = int(torch.clamp(out[0], max=cap).sum()) * 8 + 4 * qn
-    else:
-        outb = out[0].numel() * 8
+    else:  # a chunk top-k: the exact scan's [Q, k] result (its partials are the design's)
+        outb = qn * args[-1] * 8
     return rows + qbytes + outb, ops, INT8_OPS
 
 
@@ -2266,7 +2364,7 @@ def main() -> int:
         log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
         lines = kern.ptxas.splitlines()
         for j, line in enumerate(lines):
-            named = ("tc_cosine", "tc_hamming", "lex_topk_select")
+            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "lex_topk_select")
             if "Compiling entry" in line and any(n in line for n in named):  # by name
                 name = line.split("'")[1]
                 at = min(name.find(n) for n in named if n in name)
@@ -2319,6 +2417,8 @@ def main() -> int:
     for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
                      ("cosine4_threshold_collect_dp4a", "cosine4_threshold_collect"),
                      ("hamming_threshold_collect_popc", "hamming_threshold_collect"),
+                     ("hamming_chunk_topk_popc", "hamming_chunk_topk"),
+                     ("cosine4_chunk_topk_dp4a", "cosine4_chunk_topk"),
                      ("lex_topk_segments", "lex_topk_select")):
         n_old, n_new = (sum(c[n] for c in main_counts) for n in (old, new))
         check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
@@ -2329,9 +2429,9 @@ def main() -> int:
         "lex_topk_select": "pixelbox_tpu/ops/pallas_scan.py:192",
         "lex_topk_segments": "pixelbox_tpu/ops/pallas_scan.py:192",
         "hamming_threshold_collect": "pixelbox_tpu/ops/pallas_scan.py:1012",
-        "hamming_chunk_topk": "pixelbox_tpu/ops/pallas_scan.py:192",
+        "hamming_chunk_topk": "pixelbox_tpu/ops/hamming_gemm.py:156",
         "cosine4_threshold_collect": "pixelbox_tpu/ops/int4.py:376",
-        "cosine4_chunk_topk": "pixelbox_tpu/ops/int4.py:376",
+        "cosine4_chunk_topk": "pixelbox_tpu/ops/int4.py:265",
         "cosine_coskey_collect": "pixelbox_tpu/ops/pallas_scan.py:171",
         "cosine4_coskey_collect": "pixelbox_tpu/ops/pallas_scan.py:171",
         "coskey_rescore": "pixelbox_tpu/ops/pallas_scan.py:747",

@@ -10,26 +10,31 @@
 //   - the exact cosine repair (pallas_cosine_scan_topk)  -> K1b + K1c
 //   - the Hamming main pass
 //     (pallas_hamming_threshold_scan_topk(_v2))          -> K2a + K1c
-//   - the exact Hamming scan and repair                  -> K2b + K1c
+//   - the exact Hamming scan and repair (where the JAX package ran its
+//     XLA hamming_gemm_scan_topk / hamming_scan_topk)     -> K2b + K1c
 //   - the int4 main pass (ops/int4.py:pallas_threshold4_scan_topk,
 //     kinds cosine4a / cosine4)                          -> K4a + K1c
-//   - the exact int4 scan and repair                     -> K4b + K1c
+//   - the exact int4 scan and repair (the JAX package's XLA
+//     cosine4a_scan_topk / cosine4_scan_topk)            -> K4b + K1c
 //   - the cos-key main pass (epilogue="cos": _kind_dist_tile
 //     :171-174 and _cos_key_threshold, kinds cosine /
 //     cosine4a / cosine4)                                -> K1d/K4d
 //   - its exact finish (_exact_dist_gathered,
 //     _coskey_candidate_postpass)                        -> K1e + K1c
 //
-// K1a, K2a and K4a run on the tensor cores (tc_scan.cu) at the main
-// path's widths; their kernels here serve the other widths and are the
-// timing references of the tensor-core ones.
+// K1a, K2a, K4a, K2b and K4b run on the tensor cores (tc_scan.cu) at the
+// main path's widths; their kernels here serve the other widths and are
+// the timing references of the tensor-core ones.  K1b, and the K2b / K4b
+// here, sort every slot of each 1,024-row chunk (bitonic, 4 queries a
+// block): bound by that sort, not by the rows or the product.
 //
 // K1c (lex_topk_select_kernel) is the selection half of _threshold_kernel
 // (its sorted carry insertion) and the buffer wrapper's final top-k: the
 // first k of a query's candidates by (dist, id), in one launch for up to
 // 16,384 of them.  It reads only the filled slots and radix-selects the
-// k-th key in shared memory, so it is bound by a launch and the filled
-// entries' bytes, not by the buffer's size.  The first port's segmented
+// k-th key in shared memory (select_device.cuh, shared with tc_scan.cu's
+// chunk top-k), so it is bound by a launch and the filled entries' bytes,
+// not by the buffer's size.  The first port's segmented
 // bitonic sort (lex_topk_segments_kernel, re-launched until one segment
 // was left) stays as its timing reference.
 //
@@ -45,7 +50,7 @@
 // round-bound poisoning exist because a TPU vreg has 128 lanes and Mosaic
 // has no sort; a GPU block sorts in shared memory instead.
 //
-// The __dp4a K4a (widths other than tc_scan.cu's) and K4b are K1a/K1b
+// The __dp4a K4a and K4b (widths other than tc_scan.cu's) are K1a/K1b
 // instantiated for the packed int4 rows (two 4-bit codes a byte,
 // column-blocked: byte c holds dim c in its low nibble and dim c + D/2 in
 // its high one, ops/int4.py).  They read D/2 bytes a row instead of D and
@@ -76,6 +81,7 @@
 #include <vector>
 
 #include "scan_device.cuh"
+#include "select_device.cuh"
 
 #define PX_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -207,11 +213,12 @@ coskey_rescore_kernel(const int8_t* __restrict__ q_codes,
   out_d[static_cast<size_t>(q) * cap + slot] = out;
 }
 
-// K1b (KIND kU8) / K4b (kInt4Asym, kInt4Sym): per (row chunk, query
-// tile), the chunk's exact top-k of {valid rows with dist < max_distance}
-// by (dist, row id).  Distances go to shared memory as keys, a bitonic
-// sort orders each query's chunk, and the first k land in the
-// [Q, n_chunks, k] partial (finished by K1c).
+// K1b (KIND kU8) / the first port's K4b (kInt4Asym, kInt4Sym): per (row
+// chunk, query tile), the chunk's exact top-k of {valid rows with dist <
+// max_distance} by (dist, row id).  Distances go to shared memory as keys,
+// a bitonic sort orders each query's chunk (55 barrier-separated stages,
+// filled slots or not), and the first k land in the [Q, n_chunks, k]
+// partial (finished by K1c).
 template <int QB, int KIND>
 __global__ void __launch_bounds__(kThreads)
 chunk_topk_kernel(const int8_t* __restrict__ q_codes,
@@ -311,9 +318,10 @@ hamming_collect_kernel(const uint8_t* __restrict__ q_bytes,
   }
 }
 
-// K2b: K1b for the Hamming kind — per (row chunk, query tile) the chunk's
-// exact top-k of {row_ok rows with dist < max_distance} by (dist, row id),
-// sorted in shared memory; K1c finishes the [Q, n_chunks, k] partials.
+// The first port's K2b: K1b for the Hamming kind — per (row chunk, query
+// tile) the chunk's exact top-k of {row_ok rows with dist < max_distance}
+// by (dist, row id), sorted in shared memory; K1c finishes the
+// [Q, n_chunks, k] partials.
 template <int QB>
 __global__ void __launch_bounds__(kThreads)
 hamming_chunk_topk_kernel(const uint8_t* __restrict__ q_bytes,
@@ -418,64 +426,10 @@ constexpr int kSelectThreads = 256;  // one thread a histogram bin
 constexpr int kSelectSlots = 16384;  // entries a block holds in shared memory
 constexpr int kSelectMaxK = 1024;
 
-__host__ __device__ constexpr int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
 // Dynamic shared memory of a select block: the keys, the sorted top, the
 // histogram, the warps' scan sums and a few block-wide scalars.
 __host__ __device__ constexpr size_t select_smem(int slots, int k) {
   return static_cast<size_t>(slots + next_pow2(k)) * 8 + (256 + 8 + 8) * 4;
-}
-
-// Appends the key of every lane whose `ok` is set to dst at a slot from
-// the block-wide counter *n (one shared atomic a warp; every lane calls).
-__device__ __forceinline__ void warp_append(bool ok, unsigned long long key,
-                                            unsigned long long* dst, int* n) {
-  const unsigned m = __ballot_sync(0xffffffffu, ok);
-  if (m == 0) return;
-  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(n, __popc(m));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  if (ok) dst[base + __popc(m & ((1u << lane) - 1u))] = key;
-}
-
-// Ascending bitonic sort of keys[0:n], n a power of two (no divides).
-__device__ void bitonic_sort_pow2(unsigned long long* keys, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
-        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
-        const int j = i + stride;
-        const unsigned long long a = keys[i];
-        const unsigned long long b = keys[j];
-        if ((a > b) == ((i & size) == 0)) {
-          keys[i] = b;
-          keys[j] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Exclusive sum of v over the block's kSelectThreads threads.
-__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[w] = x;
-  __syncthreads();
-  int before = x - v;
-  for (int i = 0; i < w; ++i) before += warp_sums[i];
-  return before;
 }
 
 __global__ void __launch_bounds__(kSelectThreads)
@@ -515,41 +469,9 @@ lex_topk_select_kernel(const float* __restrict__ in_d,
   __syncthreads();
   const int n = scal[0];
 
-  // 2. Radix select: the k-th key is the rank-th of those matching prefix
-  // on the bits of mask.
-  unsigned long long prefix = 0, mask = 0;
-  int rank = k;
-  bool whole_bin = true;  // the keys matching prefix all belong to the top
-  if (n > k) {
-    for (int shift = 56; shift >= 0; shift -= 8) {
-      hist[tid] = 0;
-      __syncthreads();
-      for (int i0 = 0; i0 < n; i0 += kSelectThreads) {
-        const int i = i0 + tid;
-        int digit = -1;
-        if (i < n) {
-          const unsigned long long key = keys[i];
-          if ((key & mask) == prefix) digit = static_cast<int>(key >> shift) & 255;
-        }
-        const unsigned peers = __match_any_sync(0xffffffffu, digit);
-        if (digit >= 0 && (tid & 31) == __ffs(peers) - 1) atomicAdd(hist + digit, __popc(peers));
-      }
-      __syncthreads();
-      const int h = hist[tid];
-      const int before = block_exclusive_sum(h, warp_sums);
-      if (before < rank && rank <= before + h) {
-        scal[2] = tid;
-        scal[3] = before;
-        scal[4] = h;
-      }
-      __syncthreads();
-      rank -= scal[3];
-      prefix |= static_cast<unsigned long long>(scal[2]) << shift;
-      mask |= 0xffull << shift;
-      whole_bin = scal[4] == rank;
-      if (whole_bin) break;
-    }
-  }
+  // 2. Radix select of the k-th key (select_device.cuh).
+  RadixBin bin{0, 0, k, true};
+  if (n > k) bin = radix_select<kSelectThreads>(keys, n, k, 56, 0, hist, scal + 2, warp_sums);
 
   // 3. The top keys compacted, a repeated k-th key filling the rest, and
   // sorted.
@@ -560,15 +482,15 @@ lex_topk_select_kernel(const float* __restrict__ in_d,
     unsigned long long key = 0;
     if (i < n) {
       key = keys[i];
-      take = n <= k || (whole_bin ? (key & mask) <= prefix : key < prefix);
+      take = n <= k || (bin.whole_bin ? (key & bin.mask) <= bin.prefix : key < bin.prefix);
     }
     warp_append(take, key, top, scal + 1);
   }
   __syncthreads();
   const int sorted = next_pow2(max(total, 1));
-  for (int t = scal[1] + tid; t < sorted; t += kSelectThreads) top[t] = t < total ? prefix : kNoKey;
+  for (int t = scal[1] + tid; t < sorted; t += kSelectThreads) top[t] = t < total ? bin.prefix : kNoKey;
   __syncthreads();
-  bitonic_sort_pow2(top, sorted);
+  bitonic_sort_pow2<kSelectThreads>(top, sorted);
   for (int t = tid; t < k; t += kSelectThreads) {
     const unsigned long long key = t < total ? top[t] : kNoKey;
     const size_t o = (static_cast<size_t>(q) * n_seg + seg) * k + t;

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) tensor-core collect kernels: K1a (u8 cosine rows,
-// selecting on the spec distance), K4a (packed int4 rows, the asymmetric
-// and symmetric int4 metrics) and K2a (packed phash rows, Hamming) on int8
-// wgmma.
+// Hopper (sm_90a) tensor-core kernels on int8 wgmma: the collects K1a (u8
+// cosine rows, selecting on the spec distance), K4a (packed int4 rows, the
+// asymmetric and symmetric int4 metrics) and K2a (packed phash rows,
+// Hamming), and the exact chunk top-k K2b (Hamming) and K4b (int4), below.
 //
 // They replace pixelbox_tpu/ops/pallas_scan.py:_threshold_kernel with the
 // buffer select (distances in _kind_dist_tile :119) for the u8 "cosine",
@@ -76,6 +76,12 @@
 // Bound: the ±1 product (2·Q·N·256 at 1,979 TOP/s), 0.0694 ms at Q = 256
 // over 1M rows; the byte floor (32 B a row) is 0.0106 ms.
 //
+// K2b and K4b replace the first port's chunk kernels (fused_scan.cu, kept
+// as timing references and for the other widths) behind the exact scans
+// where the JAX package ran its XLA hamming_gemm_scan_topk /
+// hamming_scan_topk and cosine4a_scan_topk / cosine4_scan_topk; their
+// design is at their kernel.
+//
 // Plain C interface, bound with ctypes; every entry point returns
 // cudaGetLastError() (or kTensorMapError + the driver's code when a TMA
 // descriptor cannot be encoded) so the Python wrapper can raise.  The
@@ -91,6 +97,7 @@
 #include <vector>
 
 #include "scan_device.cuh"
+#include "select_device.cuh"
 #include "wgmma_s8.cuh"
 
 #define PX_EXPORT extern "C" __attribute__((visibility("default")))
@@ -342,6 +349,123 @@ __device__ __forceinline__ int tile_dot4(const uint8_t* rows, int r, const int8_
   return acc;
 }
 
+// ---- Operand paths shared by the collects (K4a, K2a) and the chunk
+// top-k (K4b, K2b)
+
+// The A fragments of the int4 product from a staged tile of packed rows
+// (64 x 64 B, unswizzled): k-step t < 4 takes dims 32t..32t+31, the low
+// nibbles of packed bytes 32(t % 2).. for t < 2 and the high nibbles of the
+// same bytes for t >= 2, so words 8m + tq and 8m + 4 + tq of rows r0 and
+// r0 + 8 give k-step m (masked) and m + 2 (shifted and masked).
+__device__ __forceinline__ void nibble_fragments(const uint8_t* tile, int r0, int tq,
+                                                 uint32_t (&a)[4][4]) {
+  constexpr uint32_t kLo = 0x0F0F0F0Fu;
+  const uint32_t* rw = reinterpret_cast<const uint32_t*>(tile);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t* w = rw + (r0 + 8 * h) * (kDim4 / 8) + 8 * m + tq;
+      const uint32_t w0 = w[0], w1 = w[4];
+      a[m][h] = w0 & kLo;
+      a[m][2 + h] = w1 & kLo;
+      a[m + 2][h] = (w0 >> 4) & kLo;
+      a[m + 2][2 + h] = (w1 >> 4) & kLo;
+    }
+  }
+}
+
+// The int4 product of a row tile against NQ staged queries (int8 codes
+// [NQ][128], 128B-swizzled, in natural dim order).
+template <int NQ>
+__device__ __forceinline__ void nibble_product(int (&acc)[NQ / 2], const uint32_t (&a)[4][4],
+                                               uint32_t q_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    Wgmma<NQ>::rs(acc, a[t], smem_desc(q_addr + 32 * t, NQ * 128, 1024, 1), t > 0);
+}
+
+// The ±1 B operand of the Hamming product: queries q0.. of q_bytes
+// [Q, 32] expanded once per block into a 128B-swizzled tile
+// [kPhK / 128][NQ][128], 16 k values (two bytes) a 16-byte unit; the
+// bytes at or past `limit`, and the queries past Q, are 0, so they add
+// nothing.  q_raw (may be null): the packed copy [NQ][32] (zeros past Q).
+template <int NQ>
+__device__ void stage_pm1_queries(const uint8_t* __restrict__ q_bytes, int q0, int Q, int limit,
+                                  uint8_t* q_pm1, uint8_t* q_raw) {
+  for (int t = threadIdx.x; t < NQ * (kPhK / 16); t += blockDim.x) {
+    const int n = t / (kPhK / 16), ch = t % (kPhK / 16);
+    const int q = q0 + n;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q_raw != nullptr && ch < kPhBytes / 16) {
+      const uint4* src = reinterpret_cast<const uint4*>(q_bytes + static_cast<size_t>(q) * kPhBytes);
+      *reinterpret_cast<uint4*>(q_raw + n * kPhBytes + 16 * ch) = q < Q ? src[ch] : v;
+    }
+    if (q < Q) {
+      const uint8_t* qb = q_bytes + static_cast<size_t>(q) * kPhBytes + 2 * ch;
+      if (2 * ch < limit) {
+        v.x = pm1_nibble(qb[0]);
+        v.y = pm1_nibble(qb[0] >> 4);
+      }
+      if (2 * ch + 1 < limit) {
+        v.z = pm1_nibble(qb[1]);
+        v.w = pm1_nibble(qb[1] >> 4);
+      }
+    }
+    const int blk = ch / 8, c8 = ch % 8;
+    *reinterpret_cast<uint4*>(q_pm1 + (blk * NQ + n) * 128 + ((c8 ^ (n & 7)) << 4)) = v;
+  }
+}
+
+// The A fragments of the ±1 product from a staged tile of packed 32-byte
+// rows, each bit expanded in registers: k-step s (bits 32s..32s+31 = word
+// s) for rows r0 and r0 + 8 at k = 4tq..4tq+3 and 16+4tq..16+4tq+3.
+__device__ __forceinline__ void pm1_fragments(const uint8_t* tile, int r0, int tq,
+                                              uint32_t (&a)[kPhK / 32][4]) {
+  uint32_t w[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint8_t* row = tile + (r0 + 8 * h) * kPhBytes;
+    const uint4 lo4 = *reinterpret_cast<const uint4*>(row);
+    const uint4 hi4 = *reinterpret_cast<const uint4*>(row + 16);
+    w[h][0] = lo4.x; w[h][1] = lo4.y; w[h][2] = lo4.z; w[h][3] = lo4.w;
+    w[h][4] = hi4.x; w[h][5] = hi4.y; w[h][6] = hi4.z; w[h][7] = hi4.w;
+  }
+#pragma unroll
+  for (int ks = 0; ks < kPhK / 32; ++ks) {
+    a[ks][0] = pm1_nibble(w[0][ks] >> (4 * tq));
+    a[ks][1] = pm1_nibble(w[1][ks] >> (4 * tq));
+    a[ks][2] = pm1_nibble(w[0][ks] >> (16 + 4 * tq));
+    a[ks][3] = pm1_nibble(w[1][ks] >> (16 + 4 * tq));
+  }
+}
+
+// The ±1 product of a row tile against the staged ±1 queries: dot = 8·limit
+// − 2·diff for each (row, query).
+template <int NQ>
+__device__ __forceinline__ void pm1_product(int (&acc)[NQ / 2], const uint32_t (&a)[kPhK / 32][4],
+                                            uint32_t q_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kPhK / 32; ++ks)
+    Wgmma<NQ>::rs(acc, a[ks], smem_desc(q_addr + (ks / 4) * NQ * 128 + (ks % 4) * 32, NQ * 128, 1024, 1),
+                  ks > 0);
+}
+
+// T = #{d in [0, dmax] : fl(d · scale) < th}: the distance is monotone in
+// d, so dist < th ⟺ d < T (fused_scan.py's hamming_pass_count counts the
+// same predicate).
+__device__ __forceinline__ int hamming_pass_count(float th, int dmax, float scale) {
+  int lo = 0, hi = dmax + 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__fmul_rn(__int2float_rn(mid), scale) < th) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
 // ---- K1a (KIND kU8) and K4a (kInt4Asym, kInt4Sym)
 
 // Staged per query: (z, u) for the hot filter — z the query's part of
@@ -363,12 +487,8 @@ __device__ __forceinline__ int tile_dot4(const uint8_t* rows, int r, const int8_
 // (fused_scan.py's tc_centered_f32 repeats these ops; the CPU tests hold
 // them equal to f32(dot_c) at the extreme codes.)
 //
-// K4a builds its A operand in registers, as K2a does: k-step t < 4 takes
-// dims 32t..32t+31, the low nibbles of packed bytes 32(t % 2).. for t < 2
-// and the high nibbles of the same bytes for t >= 2, so a thread's A
-// fragment (rows r0, r0 + 8 at k = 4tq.. and 16 + 4tq..) is one mask, or
-// one shift and mask, of four 32-bit words of each of its two rows, and
-// the queries stay in natural dim order.
+// K4a builds its A operand in registers (nibble_fragments), as K2a does
+// (pm1_fragments), and the queries stay in natural dim order.
 template <int NQ, int KIND>
 __global__ void __launch_bounds__(kTcThreads)
 tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
@@ -504,27 +624,9 @@ tc_cosine_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
                       smem_desc(q_addr + c * NQ * cb + off, NQ * cb, 8 * cb, layout), k > 0);
       }
     } else {
-      // A fragments from the packed rows: words 8m + tq and 8m + 4 + tq of
-      // rows r0 and r0 + 8 give k-step m (low nibbles) and m + 2 (high).
-      constexpr uint32_t kLo = 0x0F0F0F0Fu;
-      const uint32_t* rw = reinterpret_cast<const uint32_t*>(rows + s * kTileRows * rb);
       uint32_t a[4][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t* w = rw + (r0 + 8 * h) * (kDim4 / 8) + 8 * m + tq;
-          const uint32_t w0 = w[0], w1 = w[4];
-          a[m][h] = w0 & kLo;
-          a[m][2 + h] = w1 & kLo;
-          a[m + 2][h] = (w0 >> 4) & kLo;
-          a[m + 2][2 + h] = (w1 >> 4) & kLo;
-        }
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        Wgmma<NQ>::rs(acc, a[t], smem_desc(q_addr + 32 * t, NQ * 128, 1024, 1), t > 0);
+      nibble_fragments(reinterpret_cast<const uint8_t*>(rows) + s * kTileRows * rb, r0, tq, a);
+      nibble_product<NQ>(acc, a, q_addr);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -642,30 +744,7 @@ tc_hamming_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
     const int tile = blockIdx.x + (it % my_tiles) * gridDim.x;
     if (it % my_tiles == 0) {  // a new query tile: expand it to ±1, and its thresholds
       __syncthreads();
-      // 16 k values (two bytes) a chunk; bytes at or past the limit are 0.
-      for (int t = tid; t < NQ * (kPhK / 16); t += kTcThreads) {
-        const int n = t / (kPhK / 16), ch = t % (kPhK / 16);
-        const int q = qt * NQ + n;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (ch < kPhBytes / 16) {  // the packed copy, for the survivors' bit counts
-          const uint4* src =
-              reinterpret_cast<const uint4*>(q_bytes + static_cast<size_t>(q) * kPhBytes);
-          *reinterpret_cast<uint4*>(q_raw + n * kPhBytes + 16 * ch) = q < Q ? src[ch] : v;
-        }
-        if (q < Q) {
-          const uint8_t* qb = q_bytes + static_cast<size_t>(q) * kPhBytes + 2 * ch;
-          if (2 * ch < limit) {
-            v.x = pm1_nibble(qb[0]);
-            v.y = pm1_nibble(qb[0] >> 4);
-          }
-          if (2 * ch + 1 < limit) {
-            v.z = pm1_nibble(qb[1]);
-            v.w = pm1_nibble(qb[1] >> 4);
-          }
-        }
-        const int blk = ch / 8, c8 = ch % 8;
-        *reinterpret_cast<uint4*>(q_pm1 + (blk * NQ + n) * 128 + ((c8 ^ (n & 7)) << 4)) = v;
-      }
+      stage_pm1_queries<NQ>(q_bytes, qt * NQ, Q, limit, q_pm1, q_raw);
       // Per query: T = #{d in [0, dmax] : fl(d · scale) < θ} (monotone in d;
       // dmax = 8·limit, or 255 under the wrap; fused_scan.py's
       // hamming_pass_count counts the same predicate).  Unwrapped,
@@ -677,12 +756,7 @@ tc_hamming_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
         float th = 0.0f;
         if (q < Q) {
           th = theta[q];
-          int lo = 0, hi = (WRAP ? min(bits, 255) : bits) + 1;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (__fmul_rn(__int2float_rn(mid), scale) < th) lo = mid + 1;
-            else hi = mid;
-          }
+          const int lo = hamming_pass_count(th, WRAP ? min(bits, 255) : bits, scale);
           thr = WRAP ? lo : bits - 2 * lo;
         }
         thr_s[n] = thr;
@@ -694,34 +768,15 @@ tc_hamming_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
     const int s = it % kHamStages;
     mbar_wait(full + s, (it / kHamStages) & 1);
     const uint8_t* rs = rows + s * kTileRows * kPhBytes;
-    uint32_t w[2][8];
     bool ok[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
-      const uint4 lo4 = *reinterpret_cast<const uint4*>(rs + r * kPhBytes);
-      const uint4 hi4 = *reinterpret_cast<const uint4*>(rs + r * kPhBytes + 16);
-      w[h][0] = lo4.x; w[h][1] = lo4.y; w[h][2] = lo4.z; w[h][3] = lo4.w;
-      w[h][4] = hi4.x; w[h][5] = hi4.y; w[h][6] = hi4.z; w[h][7] = hi4.w;
       ok[h] = ok_s[s * 128 + r] != 0 && tile * kTileRows + r < N;
     }
-
-    // A fragment of k-step s (bits 32s..32s+31 = word s): rows r0, r0 + 8
-    // at k = 4tq..4tq+3 and 16+4tq..16+4tq+3.
     uint32_t a[kPhK / 32][4];
-#pragma unroll
-    for (int ks = 0; ks < kPhK / 32; ++ks) {
-      a[ks][0] = pm1_nibble(w[0][ks] >> (4 * tq));
-      a[ks][1] = pm1_nibble(w[1][ks] >> (4 * tq));
-      a[ks][2] = pm1_nibble(w[0][ks] >> (16 + 4 * tq));
-      a[ks][3] = pm1_nibble(w[1][ks] >> (16 + 4 * tq));
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kPhK / 32; ++ks)
-      Wgmma<NQ>::rs(acc, a[ks],
-                    smem_desc(q_addr + (ks / 4) * NQ * 128 + (ks % 4) * 32, NQ * 128, 1024, 1),
-                    ks > 0);
+    pm1_fragments(rs, r0, tq, a);
+    pm1_product<NQ>(acc, a, q_addr);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
@@ -769,6 +824,502 @@ tc_hamming_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
   flush_hits(hits, n_hits, cap, count, cand_d, cand_i);
 }
 
+// ---- K2b and K4b: the exact chunk top-k
+//
+// Per (query, chunk of R rows) the first k by (dist, row id) of the valid
+// rows with dist < max_distance, listed in row order (K1c, which finishes
+// the [Q, n_chunks, k] partials, reads them in any order).  A block of two
+// warpgroups takes NQ queries (8..64, as many as its buffers' shared
+// memory allows) and a chunk, a tile pair at a time: each warpgroup's
+// product of one tile on int8 wgmma through K2a's / K4a's TMA ring and
+// operand paths (the ±1 product of the packed hash bits, or the unpacked
+// int4 nibbles), issued a pair ahead so that it runs under the previous
+// pair's selection.  Phase 1 stores the accumulators branch-free into a
+// shared stage.  Phase 2, one warp a query and a lane a row: a cheap
+// filter on the integer product that passes every row able to enter (K2b:
+// the diff against a per-query limit, exact; K4b: K1a's key bound of the
+// k-th distance so far), the exact spec distance and (dist, row) key of
+// its survivors only, and a warp-ballot append, in row order, of the keys
+// below τ to the query's buffer in shared memory.  A buffer that could
+// overflow on the next pair keeps its k smallest — the radix select of
+// select_device.cuh from the highest bit where its keys differ, the ties
+// at the k-th taken in row order — and τ becomes the k-th: rows arrive in
+// ascending order, so a later row enters only with a distance below it,
+// and the filter tightens to that.  The block votes at each pair's
+// barrier, and every buffer well past k prunes in the same pair: one
+// warp's prune would hold the others at the next barrier, so the prunes
+// are made to overlap.  Past the product the work follows the
+// rows below the k-th and k, not the chunk's length; no slot is sorted.
+//
+// Few queries over many rows would leave SMs idle at a block a chunk: the
+// launch plan then splits each chunk over up to 8 blocks, each publishes
+// its k smallest, and the last of them to finish (a ticket a chunk)
+// merges the parts in row order.  The chunk length (ops/fused_scan.py
+// tc_chunk_rows) grows until K1c takes the partials in one launch.
+//
+// Bound: the product (2·Q·N·depth at 1,979 TOP/s) over the rows read once;
+// what the kernel spends past it is the selection — the prunes' radix
+// passes, one warp a query, and the exact distances of the rows that
+// enter before τ tightens (PERF.md §6).
+
+constexpr int kHamming = 3;  // the chunk kernel's kind of K2b (beside kInt4Asym, kInt4Sym)
+// Pitch (ints) of the stage's query rows: 64 + 4 puts the four query pairs
+// of a warp's phase-1 store 8 banks apart.
+constexpr int kStagePitch = kTileRows + 4;
+// Shared memory a chunk block aims at: two blocks an SM.
+constexpr int kChunkSmemTarget = 113 * 1024;
+// A chunk block: two warpgroups, each the product of one tile of a pair.
+constexpr int kChunkThreads = 256;
+constexpr int kChunkWarps = kChunkThreads / 32;
+
+__host__ __device__ constexpr int chunk_row_bytes(int kind) {
+  return kind == kHamming ? kPhBytes : kDim4 / 2;
+}
+__host__ __device__ constexpr int chunk_stages(int kind) {
+  return kind == kHamming ? kHamStages : 6;  // 2 KB or 4 KB a tile: three pairs ahead
+}
+
+// A query's state in a chunk block.
+struct ChunkQuery {
+  unsigned long long tau;  // a row enters the buffer when its key is below τ
+  int n;                   // keys in the buffer
+  int lim;                 // K2b: the largest diff the filter admits
+  float u;                 // K4b: the filter's bound (key_bound)
+  float qr, qm2f;          // K4b: the query's rsqrt and f32(mag2)
+  int qs;                  // K4b: the query's code sum
+};
+
+// Shared-memory layout of a chunk block (byte offsets from a 1024-aligned
+// base): the queries' B operand, the ring of row tiles, the stages
+// [2][2][NQ][68] of two tile pairs' products, the queries' state, their buffers
+// [NQ][cap] of 64-bit keys, and per warp a 256-bin histogram and select
+// scalars; the mbarriers.
+struct ChunkSmem {
+  int q, rows, stage, qv, bufs, sel, bars, flag, total;
+  __host__ __device__ ChunkSmem(int kind, int nq, int cap)
+      : q(0),
+        rows(round_up(nq * (kind == kHamming ? kPhK : kDim4), 1024)),
+        stage(rows + chunk_stages(kind) * kTileRows * chunk_row_bytes(kind)),
+        qv(stage + 4 * nq * kStagePitch * 4),
+        bufs(qv + nq * static_cast<int>(sizeof(ChunkQuery))),
+        sel(bufs + nq * cap * 8),
+        bars(sel + kChunkWarps * (256 + 4) * 4),
+        flag(bars + (chunk_stages(kind) + 1) * 8),
+        total(flag + 8) {}
+};
+
+// Arguments of a chunk launch (the tensor maps go apart, as
+// __grid_constant__ parameters).
+struct ChunkArgs {
+  const uint8_t* q_bytes;  // K2b: queries [Q, 32]
+  const uint8_t* row_ok;   // K2b: row mask [N] (validity AND the width group)
+  const int* q_sum;        // K4b: the queries' code sums, mag2 and rsqrt [Q]
+  const int* q_mag2;
+  const float* qr;
+  const int* meta;         // K4b: row meta [4, N]
+  float max_distance;
+  int Q, N;
+  int limit, wrap;         // K2b: the byte limit and the u8 wrap
+  float scale;             // K2b: f32(1 / (8 · limit))
+  int R, k, cap, n_chunks;
+  float key_scale, saturation, key_loose;  // K4b: key_bound's constants
+  float* out_d;
+  int* out_i;
+  // A chunk split over `splits` blocks (splits > 1): each block's k
+  // smallest [Q, n_chunks, splits, k] and their counts, and a ticket a
+  // (query tile, chunk) that elects the last block to finish.
+  int splits;
+  unsigned long long* part_keys;
+  int* part_n;
+  int* tickets;
+};
+
+// A lane's rows of a tile pair (tile 2i + g, row 32h + lane): validity
+// and, for K4b, what the distance needs.
+struct ChunkRows {
+  bool ok[2][2];
+  int rs[2][2];
+  float rr[2][2], m2f[2][2];
+};
+
+// A warpgroup's product of tile t of the ring (once it has landed) into
+// acc, issued asynchronously: the caller waits for it (wgmma_wait0).
+template <int NQ, int KIND>
+__device__ __forceinline__ void chunk_product(int (&acc)[NQ / 2], const uint8_t* rows, uint64_t* full,
+                                              int t, int r0, int tq, uint32_t q_addr) {
+  constexpr int kRing = chunk_stages(KIND);
+  const int s = t % kRing;
+  const uint8_t* tile = rows + s * kTileRows * chunk_row_bytes(KIND);
+  mbar_wait(full + s, (t / kRing) & 1);
+  if constexpr (KIND == kHamming) {
+    uint32_t af[kPhK / 32][4];
+    pm1_fragments(tile, r0, tq, af);
+    pm1_product<NQ>(acc, af, q_addr);
+  } else {
+    uint32_t af[4][4];
+    nibble_fragments(tile, r0, tq, af);
+    nibble_product<NQ>(acc, af, q_addr);
+  }
+  wgmma_commit();
+}
+
+template <int NQ, int KIND>
+__global__ void __launch_bounds__(kChunkThreads)
+tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
+                     const __grid_constant__ CUtensorMap q_map, const ChunkArgs a) {
+  extern __shared__ uint8_t tc_smem_raw[];
+  constexpr bool kHam = KIND == kHamming;
+  constexpr int kRing = chunk_stages(KIND);
+  constexpr int kRowB = chunk_row_bytes(KIND);
+  constexpr int kQW = NQ / kChunkWarps;  // queries a warp owns in phase 2
+  const ChunkSmem L(KIND, NQ, a.cap);
+  uint8_t* sm = align_smem(tc_smem_raw);
+  uint8_t* q_tile = sm + L.q;
+  uint8_t* rows = sm + L.rows;
+  int* stage = reinterpret_cast<int*>(sm + L.stage);
+  ChunkQuery* qv = reinterpret_cast<ChunkQuery*>(sm + L.qv);
+  unsigned long long* bufs = reinterpret_cast<unsigned long long*>(sm + L.bufs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* qbar = full + kRing;
+  int* last = reinterpret_cast<int*>(sm + L.flag);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  int* hist = reinterpret_cast<int*>(sm + L.sel) + warp * (256 + 4);
+  int* scal = hist + 256;
+  const int q0 = blockIdx.x * NQ;
+  const int chunk = blockIdx.y / a.splits, part = blockIdx.y % a.splits;
+  const int part_rows = a.R / a.splits;  // a multiple of the 128-row tile pair
+  const int row_begin = chunk * a.R + part * part_rows;
+  const int tile0 = row_begin / kTileRows;
+  const int nt = (max(0, min(part_rows, a.N - row_begin)) + kTileRows - 1) / kTileRows;
+  const int bits = 8 * a.limit;
+
+  if (tid == 0) {
+    for (int s = 0; s <= kRing; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int t) {
+    const int s = t % kRing;
+    mbar_expect_tx(full + s, kTileRows * kRowB);
+    tma_load_2d(rows + s * kTileRows * kRowB, &rows_map, full + s, 0, (tile0 + t) * kTileRows);
+  };
+  if (tid == 0) {
+    if constexpr (!kHam) {
+      mbar_expect_tx(qbar, NQ * kDim4);
+      tma_load_2d(q_tile, &q_map, qbar, 0, q0);
+    }
+    for (int t = 0; t < min(kRing, nt); ++t) issue(t);
+  }
+  // The queries' B operand (K2b: expanded to ±1 here; K4b: by TMA) and
+  // their state: empty buffers, no τ, the filter of dist < max_distance.
+  if constexpr (kHam) stage_pm1_queries<NQ>(a.q_bytes, q0, a.Q, a.limit, q_tile, nullptr);
+  for (int c = tid; c < NQ; c += kChunkThreads) {
+    const int q = q0 + c;
+    ChunkQuery v{kNoKey, 0, -1, 0.0f, 0.0f, 0.0f, 0};
+    if (q < a.Q) {
+      if constexpr (kHam) {
+        v.lim = hamming_pass_count(a.max_distance, a.wrap ? min(bits, 255) : bits, a.scale) - 1;
+      } else {
+        v.qr = a.qr[q];
+        v.qm2f = __int2float_rn(a.q_mag2[q]);
+        v.qs = a.q_sum[q];
+        v.u = key_bound(a.max_distance, v.qr, a.key_scale, a.saturation, a.key_loose);
+      }
+    }
+    qv[c] = v;
+  }
+  if constexpr (kHam) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // ±1 tile -> wgmma
+  __syncthreads();
+  if constexpr (!kHam) mbar_wait(qbar, 0);
+
+  auto load_rows = [&](int i, ChunkRows& rv) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = (tile0 + 2 * i + g) * kTileRows + 32 * h + lane;
+        const bool in = 2 * i + g < nt && row < a.N;
+        if constexpr (kHam) {
+          rv.ok[g][h] = in && __ldg(a.row_ok + row) != 0;
+        } else {
+          const int mag2 = in ? __ldg(a.meta + static_cast<size_t>(a.N) + row) : 0;
+          rv.ok[g][h] = mag2 > 0;
+          rv.rs[g][h] = in ? __ldg(a.meta + row) : 0;
+          rv.rr[g][h] = in ? __int_as_float(__ldg(a.meta + 2 * static_cast<size_t>(a.N) + row)) : 0.0f;
+          rv.m2f[g][h] = __int2float_rn(mag2);
+        }
+      }
+    }
+  };
+  // Keeps the k smallest of query c's n > k buffered keys (one warp; the
+  // buffer is in row order and stays so), sets τ to the k-th and tightens
+  // the filter to its distance: the radix select decides the k-th's
+  // distance bits, from the highest bit where the keys differ (their min
+  // and max), and the ties at it are taken in row order.  Rows come in
+  // ascending order, so a later row beats τ only with a smaller distance.
+  auto prune = [&](int c, int n) {
+    constexpr int kBatch = 4;
+    ChunkQuery& v = qv[c];
+    unsigned long long* buf = bufs + static_cast<size_t>(c) * a.cap;
+    const unsigned below = (1u << lane) - 1u;
+    unsigned long long lo = kNoKey, hi = 0;
+    for (int i0 = 0; i0 < n; i0 += 32 * kBatch) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u + lane;
+        if (i < n) {
+          const unsigned long long key = buf[i];
+          lo = min(lo, key);
+          hi = max(hi, key);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    const int shift0 = max(32, (63 - __clzll(static_cast<long long>(lo ^ hi))) & ~7);
+    RadixBin bin = radix_select<32>(buf, n, a.k, shift0, 32, hist, scal, nullptr);
+    if (shift0 < 56) {  // the bits above the first digit, common to every key
+      const unsigned long long common = ~((1ull << (shift0 + 8)) - 1ull);
+      bin.prefix |= lo & common;
+      bin.mask |= common;
+    }
+    const unsigned dk = static_cast<unsigned>(bin.prefix >> 32);
+    const bool ties_in_order = !bin.whole_bin;
+    int kept = 0, ties = 0;
+    unsigned long long top = 0;
+    for (int i0 = 0; i0 < n; i0 += 32 * kBatch) {  // in place: a batch writes below its end
+      unsigned long long key[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u + lane;
+        key[u] = i < n ? buf[i] : kNoKey;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u + lane;
+        bool take = false, tie = false;
+        if (i < n) {
+          if (ties_in_order) {
+            const unsigned khi = static_cast<unsigned>(key[u] >> 32);
+            take = khi < dk, tie = khi == dk;
+          } else {
+            take = (key[u] & bin.mask) <= bin.prefix;
+          }
+        }
+        const unsigned tm = __ballot_sync(0xffffffffu, tie);
+        if (tie) take = ties + __popc(tm & below) < bin.rank;
+        ties += __popc(tm);
+        const unsigned km = __ballot_sync(0xffffffffu, take);
+        if (take) {
+          buf[kept + __popc(km & below)] = key[u];
+          top = max(top, key[u]);
+        }
+        kept += __popc(km);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) top = max(top, __shfl_xor_sync(0xffffffffu, top, o));
+    if (lane == 0) {
+      v.n = kept;
+      v.tau = top;
+      const unsigned dist = static_cast<unsigned>(top >> 32);
+      if constexpr (kHam) v.lim = min(v.lim, static_cast<int>(dist) - 1);
+      else v.u = key_bound(__uint_as_float(dist), v.qr, a.key_scale, a.saturation, a.key_loose);
+    }
+    __syncwarp();
+  };
+
+  const int r0 = 16 * (warp & 3) + (lane >> 2), tq = lane & 3;
+  const uint32_t q_addr = smem_u32(q_tile);
+  int acc[NQ / 2];
+  ChunkRows cur, nxt;
+  load_rows(0, nxt);
+  const int n_pairs = (nt + 1) / 2;
+  if (wg < nt) chunk_product<NQ, KIND>(acc, rows, full, wg, r0, tq, q_addr);
+  bool full_buf = false;  // one of this warp's buffers could overflow on the next pair
+  for (int i = 0; i < n_pairs; ++i) {
+    const int t = 2 * i + wg;  // this warpgroup's tile
+    const int npt = min(2, nt - 2 * i);
+    int* st_pair = stage + (i & 1) * 2 * NQ * kStagePitch;  // two pairs' stages alternate
+    cur = nxt;
+    if (i + 1 < n_pairs) load_rows(i + 1, nxt);
+    // Phase 1, branch-free and the only reader of the accumulators.
+    if (t < nt) {  // uniform over the warpgroup
+      wgmma_wait0();
+      fence_regs(acc);
+      int* st = st_pair + wg * NQ * kStagePitch;
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            st[(8 * j + 2 * tq + e) * kStagePitch + r0 + 8 * h] = acc[4 * j + 2 * h + e];
+        }
+      }
+    }
+    // The pair's products are staged and its slots read: refill them.  A
+    // buffer that could overflow prunes now, and then every buffer well past
+    // k prunes with it: a prune holds the block at the next barrier, so the
+    // warps' prunes overlap.
+    const bool prune_round = __syncthreads_or(full_buf);
+    if (tid == 0) {
+      for (int g = 0; g < npt; ++g)
+        if (2 * i + g + kRing < nt) issue(2 * i + g + kRing);
+    }
+    // The next pair's products run on the tensor cores under phase 2.
+    if (t + 2 < nt) chunk_product<NQ, KIND>(acc, rows, full, t + 2, r0, tq, q_addr);
+    if (prune_round) {
+      for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps)
+        if (qv[c].n > min(a.k, a.cap - 4 * kTileRows) + 2 * kTileRows) prune(c, qv[c].n);
+    }
+    // Phase 2: one warp a query, a lane a row.  First the cheap filter of
+    // every (query, row) the warp owns, all loads together; the keys only
+    // where it passes.
+    unsigned cheap = 0;  // bit 4j + 2g + h
+    int val[kQW][4];     // K2b: the diff; K4b: the centered dot
+#pragma unroll
+    for (int j = 0; j < kQW; ++j) {
+      const int c = warp + kChunkWarps * j;
+      if (q0 + c < a.Q) {
+        const ChunkQuery& v = qv[c];
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            bool pass = false;
+            if (g < npt) {
+              const int x = st_pair[(g * NQ + c) * kStagePitch + 32 * h + lane];
+              if constexpr (kHam) {
+                int diff = (bits - x) >> 1;  // the ±1 product is bits − 2·diff
+                if (a.wrap) diff &= 255;
+                val[j][2 * g + h] = diff;
+                pass = cur.ok[g][h] && diff <= v.lim;
+              } else {
+                const int dot_c = centered_dot<KIND>(x, v.qs, cur.rs[g][h], kDim4);
+                val[j][2 * g + h] = dot_c;
+                pass = cur.ok[g][h] && __fmul_rn(__int2float_rn(dot_c), cur.rr[g][h]) > v.u;
+              }
+            }
+            cheap |= static_cast<unsigned>(pass) << (4 * j + 2 * g + h);
+          }
+        }
+      }
+    }
+    if (__any_sync(0xffffffffu, cheap != 0)) {
+#pragma unroll
+      for (int j = 0; j < kQW; ++j) {
+        const int c = warp + kChunkWarps * j;
+        if (q0 + c >= a.Q) break;
+        if (!__any_sync(0xffffffffu, ((cheap >> (4 * j)) & 15u) != 0)) continue;
+        ChunkQuery& v = qv[c];
+        unsigned long long* buf = bufs + static_cast<size_t>(c) * a.cap;
+        int n = v.n;
+        const unsigned long long tau = v.tau;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows in order: the buffer stays in row order
+            const bool pre = (cheap >> (4 * j + 2 * g + h)) & 1u;
+            if (!__any_sync(0xffffffffu, pre)) continue;
+            const int row = (tile0 + 2 * i + g) * kTileRows + 32 * h + lane;
+            bool pass = false;
+            unsigned long long key = 0;
+            if (pre) {
+              if constexpr (kHam) {
+                key = (static_cast<unsigned long long>(val[j][2 * g + h]) << 32) | static_cast<unsigned>(row);
+                pass = key < tau;
+              } else {
+                const float dist = spec_dist(val[j][2 * g + h], v.qr, cur.rr[g][h], v.qm2f, cur.m2f[g][h]);
+                key = make_key(dist, row);
+                pass = dist < a.max_distance && key < tau;
+              }
+            }
+            warp_append_owned(pass, key, buf, n);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) v.n = n;
+        __syncwarp();
+      }
+    }
+    full_buf = false;
+    for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps)
+      full_buf |= qv[c].n > a.cap - 2 * kTileRows;
+  }
+
+  // Each query's k smallest of the block's rows.  A chunk split over
+  // several blocks: each publishes them, and the last to finish merges
+  // every part's, in row order, into its buffers.
+  for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps)
+    if (qv[c].n > a.k) prune(c, qv[c].n);
+  if (a.splits > 1) {
+    for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps) {
+      const size_t p = (static_cast<size_t>(q0 + c) * a.n_chunks + chunk) * a.splits + part;
+      const int n = qv[c].n;
+      const unsigned long long* buf = bufs + static_cast<size_t>(c) * a.cap;
+      for (int i = lane; i < n; i += 32) a.part_keys[p * a.k + i] = buf[i];
+      if (lane == 0) a.part_n[p] = n;
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last = atomicAdd(a.tickets + blockIdx.x * a.n_chunks + chunk, 1) == a.splits - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps) {
+      ChunkQuery& v = qv[c];
+      unsigned long long* buf = bufs + static_cast<size_t>(c) * a.cap;
+      unsigned long long tau = kNoKey;
+      int n = 0;
+      for (int s = 0; s < a.splits; ++s) {
+        const size_t p = (static_cast<size_t>(q0 + c) * a.n_chunks + chunk) * a.splits + s;
+        const int m = __ldcg(a.part_n + p);
+        for (int i0 = 0; i0 < m; i0 += 32) {
+          const int i = i0 + lane;
+          const unsigned long long key = i < m ? __ldcg(a.part_keys + p * a.k + i) : kNoKey;
+          warp_append_owned(i < m && key < tau, key, buf, n);
+        }
+        __syncwarp();
+        if (n > a.cap - a.k) {  // room for the next part's k
+          prune(c, n);
+          n = v.n;
+          tau = v.tau;
+        }
+      }
+      if (lane == 0) v.n = n;
+      __syncwarp();
+      if (n > a.k) prune(c, n);
+    }
+  }
+
+  // The chunk's k smallest of each query, in row order, into [Q, n_chunks,
+  // k] (missing entries +inf / -1 after them; K2b keys carry the diff, the
+  // distance is fl(diff · scale)).  K1c, which finishes the partials,
+  // reads them in any order.
+  for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps) {
+    const int n = qv[c].n;
+    const unsigned long long* buf = bufs + static_cast<size_t>(c) * a.cap;
+    const size_t o = (static_cast<size_t>(q0 + c) * a.n_chunks + chunk) * a.k;
+    for (int i = lane; i < a.k; i += 32) {
+      const unsigned long long key = i < n ? buf[i] : kNoKey;
+      float d = __int_as_float(0x7f800000);
+      int id = -1;
+      if (key != kNoKey) {
+        const unsigned hi = static_cast<unsigned>(key >> 32);
+        d = kHam ? __fmul_rn(__int2float_rn(static_cast<int>(hi)), a.scale) : __uint_as_float(hi);
+        id = static_cast<int>(key & 0xffffffffu);
+      }
+      a.out_d[o + i] = d;
+      a.out_i[o + i] = id;
+    }
+  }
+}
+
 // ---- Host side: TMA descriptors and launches
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -809,6 +1360,33 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void*
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
 }
 
+// Opts a kernel into the device's largest dynamic shared memory, once per
+// (kernel, device), so that every launch of it may take what its layout
+// needs (an opt-in per size would let a smaller launch lower the limit
+// under a larger one's).
+template <typename Kernel>
+int allow_smem(Kernel kernel) {
+  struct Opt {
+    const void* kernel;
+    int dev;
+  };
+  static std::mutex mu;
+  static std::vector<Opt> done;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Opt& o : done)
+    if (o.kernel == key && o.dev == dev) return 0;
+  int optin = 0;
+  rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc == cudaSuccess) rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  done.push_back(Opt{key, dev});
+  return 0;
+}
+
 // Persistent grid: as many blocks as fit on the SMs, at most one a tile.
 // The shared-memory opt-in and the occupancy query are host calls of some
 // microseconds; each (kernel, device, bytes) asks once.
@@ -831,9 +1409,8 @@ int persistent_grid(Kernel kernel, size_t smem, int n_tiles, int* grid) {
     return f.kernel == key && f.dev == dev && f.smem == smem;
   });
   if (it == fits.end()) {
-    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
+    const int opt = allow_smem(kernel);
+    if (opt != 0) return opt;
     int sms = 0, per_sm = 0;
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc == cudaSuccess)
@@ -883,6 +1460,78 @@ int launch_tc_hamming(const CUtensorMap& rows, const CUtensorMap& ok, const void
 
 // The query tile: Q padded up to a wgmma N of 8, 32, 64, 128 or 256.
 int query_tile(int Q) { return Q <= 8 ? 8 : Q <= 32 ? 32 : Q <= 64 ? 64 : Q <= 128 ? 128 : 256; }
+
+// A chunk buffer: past its k kept keys, room for a tile pair and, up to
+// 2,048 keys, for k more (a merged part) and a pair.
+int chunk_cap(int k) {
+  return std::max(next_pow2(k + 2 * kTileRows), std::min(next_pow2(2 * k + 2 * kTileRows), 2048));
+}
+
+// The query tile of a chunk block: the widest of 8..64 (Q padded up) whose
+// shared memory stays within kChunkSmemTarget, else 8.
+int chunk_query_tile(int kind, int Q, int cap) {
+  int nq = Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
+  while (nq > 8 && ChunkSmem(kind, nq, cap).total + 1024 > kChunkSmemTarget) nq /= 2;
+  return nq;
+}
+
+// The blocks a chunk is split over: doubled (up to 8, parts of 2,048 rows
+// or more) while the grid has fewer blocks than SMs.
+int chunk_splits(int q_tiles, int n_chunks, int R) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  int splits = 1;
+  while (splits < 8 && static_cast<long long>(q_tiles) * n_chunks * splits < sms &&
+         R / (2 * splits) >= 2048)
+    splits *= 2;
+  return splits;
+}
+
+bool chunk_args_ok(int kind, const ChunkArgs& a, int nq) {
+  return a.R > 0 && a.k >= 1 && a.k <= 1024 && a.n_chunks == (a.N + a.R - 1) / a.R &&
+         (nq == 8 || nq == 16 || nq == 32 || nq == 64) &&
+         (a.splits == 1 || a.splits == 2 || a.splits == 4 || a.splits == 8) &&
+         a.R % (a.splits * 2 * kTileRows) == 0 &&
+         (a.splits == 1 || (a.part_keys != nullptr && a.part_n != nullptr && a.tickets != nullptr)) &&
+         ChunkSmem(kind, nq, a.cap).total + 1024 <= 227 * 1024;
+}
+
+template <int NQ, int KIND>
+int launch_tc_chunk(const CUtensorMap& rows, const CUtensorMap& qm, const ChunkArgs& a, size_t smem,
+                    cudaStream_t stream) {
+  const int rc = allow_smem(tc_chunk_topk_kernel<NQ, KIND>);
+  if (rc != 0) return rc;
+  // A chunk's query tiles (and parts) run side by side, its rows hot in L2.
+  const dim3 grid((a.Q + NQ - 1) / NQ, a.n_chunks * a.splits);
+  tc_chunk_topk_kernel<NQ, KIND><<<grid, kChunkThreads, smem, stream>>>(rows, qm, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_chunk(int kind, int nq, const CUtensorMap& rows, const CUtensorMap& qm, const ChunkArgs& a,
+                 void* stream) {
+  if (!chunk_args_ok(kind, a, nq)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ChunkSmem(kind, nq, a.cap).total + 1024;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nq * 4 + kind) {
+#define PX_TC_CHUNK_KIND(n, kd) \
+  case n * 4 + kd:              \
+    return launch_tc_chunk<n, kd>(rows, qm, a, smem, st);
+#define PX_TC_CHUNK(n)           \
+  PX_TC_CHUNK_KIND(n, kInt4Asym) \
+  PX_TC_CHUNK_KIND(n, kInt4Sym)  \
+  PX_TC_CHUNK_KIND(n, kHamming)
+    PX_TC_CHUNK(8)
+    PX_TC_CHUNK(16)
+    PX_TC_CHUNK(32)
+    PX_TC_CHUNK(64)
+#undef PX_TC_CHUNK
+#undef PX_TC_CHUNK_KIND
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
@@ -966,4 +1615,102 @@ PX_EXPORT int px_tc_hamming_collect(const void* q_bytes, const void* theta, cons
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+
+// The launch plan of a chunk top-k (kind 1 / 2: K4b asym / sym, 3: K2b)
+// over N rows in chunks of R, for Q queries and k: plan[0] the query tile,
+// plan[1] the blocks a chunk is split over (> 1: the caller passes the
+// parts' buffers [Q, n_chunks, splits, k] keys and [Q, n_chunks, splits]
+// counts, and zeroed tickets [ceil(Q / plan[0]), n_chunks]).
+PX_EXPORT int px_tc_chunk_plan(int kind, int Q, int N, int R, int k, int* plan) {
+  if ((kind != kInt4Asym && kind != kInt4Sym && kind != kHamming) || Q <= 0 || N <= 0 || R <= 0 ||
+      k < 1 || k > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = chunk_query_tile(kind, Q, chunk_cap(k));
+  plan[1] = chunk_splits((Q + plan[0] - 1) / plan[0], (N + R - 1) / R, R);
+  return 0;
+}
+
+// K2b on the tensor cores: packed rows uint8 [N, 32] (16-byte aligned),
+// row_ok uint8 [N], queries uint8 [Q, 32], limit <= 32; per chunk of R
+// rows (a multiple of 128 · splits) the first k <= 1024 by (dist, row) of
+// the rows with row_ok != 0 and dist < max_distance, into [Q, n_chunks,
+// k]; nq, splits and the parts' buffers as px_tc_chunk_plan gives them.
+PX_EXPORT int px_tc_hamming_chunk_topk(const void* q_bytes, float max_distance, const void* data,
+                                       const void* row_ok, int Q, int N, int H, int limit, int wrap,
+                                       float scale, int R, int k, int n_chunks, int nq, int splits,
+                                       void* part_keys, void* part_n, void* tickets, void* out_d,
+                                       void* out_i, void* stream) {
+  if (H != kPhBytes || limit <= 0 || limit > kPhBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || Q <= 0) return 0;
+  CUtensorMap rows;
+  const int rc = encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, kPhBytes, N, kPhBytes,
+                            kPhBytes, kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc != 0) return rc;
+  ChunkArgs a{};
+  a.q_bytes = static_cast<const uint8_t*>(q_bytes);
+  a.row_ok = static_cast<const uint8_t*>(row_ok);
+  a.max_distance = max_distance;
+  a.Q = Q;
+  a.N = N;
+  a.limit = limit;
+  a.wrap = wrap;
+  a.scale = scale;
+  a.R = R;
+  a.k = k;
+  a.cap = chunk_cap(k);
+  a.n_chunks = n_chunks;
+  a.out_d = static_cast<float*>(out_d);
+  a.out_i = static_cast<int*>(out_i);
+  a.splits = splits;
+  a.part_keys = static_cast<unsigned long long*>(part_keys);
+  a.part_n = static_cast<int*>(part_n);
+  a.tickets = static_cast<int*>(tickets);
+  return launch_chunk(kHamming, nq, rows, rows, a, stream);
+}
+
+// K4b on the tensor cores: packed int4 rows uint8 [N, 64] (D = 128;
+// 16-byte aligned), meta int32 [4, N], queries int8 [Q, 128] (16-byte
+// aligned; u8 - 128 codes for kind 1, asym, or 4-bit codes for kind 2,
+// sym); chunks, plan and outputs as px_tc_hamming_chunk_topk.
+PX_EXPORT int px_tc_cosine4_chunk_topk(const void* q_codes, const void* q_sum, const void* q_mag2,
+                                       const void* qr, float max_distance, const void* data,
+                                       const void* meta, int Q, int N, int D, int sym, int R,
+                                       int k, int n_chunks, int nq, int splits, void* part_keys,
+                                       void* part_n, void* tickets, float key_scale,
+                                       float saturation, float key_loose, void* out_d, void* out_i,
+                                       void* stream) {
+  if (D != kDim4 || (nq != 8 && nq != 16 && nq != 32 && nq != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || Q <= 0) return 0;
+  CUtensorMap rows, qm;
+  int rc = encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, kDim4 / 2, N, kDim4 / 2,
+                      kDim4 / 2, kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc == 0)
+    rc = encode_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q_codes, kDim4, Q, kDim4, kDim4, nq,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  ChunkArgs a{};
+  a.q_sum = static_cast<const int*>(q_sum);
+  a.q_mag2 = static_cast<const int*>(q_mag2);
+  a.qr = static_cast<const float*>(qr);
+  a.meta = static_cast<const int*>(meta);
+  a.max_distance = max_distance;
+  a.Q = Q;
+  a.N = N;
+  a.R = R;
+  a.k = k;
+  a.cap = chunk_cap(k);
+  a.n_chunks = n_chunks;
+  a.key_scale = key_scale;
+  a.saturation = saturation;
+  a.key_loose = key_loose;
+  a.out_d = static_cast<float*>(out_d);
+  a.out_i = static_cast<int*>(out_i);
+  a.splits = splits;
+  a.part_keys = static_cast<unsigned long long*>(part_keys);
+  a.part_n = static_cast<int*>(part_n);
+  a.tickets = static_cast<int*>(tickets);
+  return launch_chunk(sym ? kInt4Sym : kInt4Asym, nq, rows, qm, a, stream);
 }

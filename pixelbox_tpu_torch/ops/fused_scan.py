@@ -13,7 +13,7 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
   bytes, on the first port's ``__dp4a`` kernel at other widths.
 - **K1b** :func:`cosine_chunk_topk` — the same dot and epilogue with
   θ = max_distance; each block sorts its row chunk by (dist, id) in shared
-  memory and keeps the chunk's first k.
+  memory and keeps the chunk's first k (the first port's design).
 - **K1c** :func:`lex_topk` through :func:`lex_topk_select` — the first k
   of each query's candidates by (dist, id) in one launch for up to
   :data:`SELECT_SLOTS` of them (a longer row: its slices' top-k, then a
@@ -28,19 +28,26 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
   :func:`hamming_chunk_topk` — K1a and K1b for the Hamming kind: the
   differing bits over the first ``byte_limit`` bytes of the packed u8
   phash rows, the optional u8 wrap of the reference (engine.rs:603), one
-  f32 multiply by ``f32(1 / (8 * byte_limit))``.  K2a multiplies the ±1
+  f32 multiply by ``f32(1 / (8 * byte_limit))``.  Both multiply the ±1
   form of the bits on the tensor cores at :data:`TC_HAMMING_BYTES`-byte
-  hashes (``__popc`` at other widths), K2b counts with xor + ``__popc``.
-  K1c finishes both.
+  hashes (the first port's ``__popc`` kernels at other widths).  K1c
+  finishes both.
 - **K4a** :func:`cosine4_threshold_collect` and **K4b**
   :func:`cosine4_chunk_topk` — K1a and K1b over the packed int4 rows
   (``ops/int4.py``: two 4-bit codes a byte, column-blocked), unpacked in
   registers (mask, shift + mask); the affine fix of the asymmetric (u8
   query, kind "cosine4a") or the symmetric (4-bit query, kind "cosine4")
-  metric, then K1a's epilogue.  K4a runs on the tensor cores at
+  metric, then K1a's epilogue.  Both run on the tensor cores at
   :data:`TC_COSINE4_DIMS` (the rows unpacked into ``wgmma``'s A
-  fragment), on the first port's ``__dp4a`` kernel at other widths; K4b
-  on ``__dp4a``.  K1c finishes both.
+  fragment), on the first port's ``__dp4a`` kernels at other widths.  K1c
+  finishes both.
+- The tensor-core K2b and K4b (``csrc/tc_scan.cu`` ``tc_chunk_topk_kernel``)
+  select instead of sorting: per query a shared buffer of the keys below
+  the k-th so far, a cheap filter on the integer product before the exact
+  distance, and a radix select of the k-th (``csrc/select_device.cuh``)
+  when the buffer fills; their chunk (:func:`tc_chunk_rows`, from
+  :data:`TC_CHUNK_ROWS`) grows until K1c takes the partials in one launch,
+  which list a chunk's first k in row order.
 - **K1d** :func:`cosine_coskey_collect` and **K4d**
   :func:`cosine4_coskey_collect` — K1a and K4a selecting on the key
   ``-cos`` (the JAX ``epilogue="cos"``, ``_kind_dist_tile`` and
@@ -86,17 +93,18 @@ read the rows once per 256 queries and multiply on the tensor cores;
 past the product, a branch-free filter of every (query, row) pair on the
 accumulators (a few f32 / integer operations a pair) is their cost, and
 only its survivors take the exact distance (ops bound at Q >= 256, HBM
-read bound below).  K1c is bound by its launch and the filled entries'
-bytes.  K1b reads the int8 index once per 4 queries and spends ~D/4
-``__dp4a`` per (query, row) plus one correctly-rounded divide —
-integer-ALU and divide bound; K4b reads half the bytes and spends the
-same ``__dp4a`` plus one mask and one shift + mask per packed word;
-K1d/K4d are the ``__dp4a`` K4a's loop without the divide, clamp and pin;
-K1e is bound by its gathered rows; K2b spends byte_limit/4 ``__popc``
-per (query, row).  The design keeps distances out of device memory (only
-θ-passing rows or each chunk's top-k are written); the tensor-core
-skeleton for K1b/K4b/K2b, and fusing the collects with K1c, are later
-work (ROADMAP.md).
+read bound below).  The tensor-core K2b and K4b multiply the same way;
+past the product their cost is the selection (the buffers' radix selects
+and the exact distances of the rows that enter before the k-th
+tightens), not the chunk's length.  K1c is bound by its launch and the
+filled entries' bytes.  K1b (and the first port's K2b / K4b, kept as
+timing references and for other widths) reads the index once per 4
+queries and bitonic-sorts every slot of each :data:`CHUNK_ROWS`-row
+chunk — bound by that sort; K1d/K4d are the ``__dp4a`` K4a's loop
+without the divide, clamp and pin; K1e is bound by its gathered rows.
+The design keeps distances out of device memory (only θ-passing rows or
+each chunk's top-k are written); K1b on the tensor cores, and fusing the
+collects with K1c, are later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -143,8 +151,13 @@ TC_COSINE_DIMS = (32, 64, 128)
 TC_COSINE4_DIMS = (128,)
 #: Hash width (bytes) the tensor-core K2a takes: the published 16x16 phash.
 TC_HAMMING_BYTES = 32
-#: Rows per K1b chunk (power of two); the chunk keeps its first k.
+#: Rows per chunk of K1b and of the first port's K2b / K4b (power of
+#: two); the chunk keeps its first k.
 CHUNK_ROWS = 1024
+#: The least chunk of the tensor-core K2b / K4b (rows, a multiple of the
+#: 64-row tile); :func:`tc_chunk_rows` doubles it until K1c takes the
+#: partials in one launch.
+TC_CHUNK_ROWS = 8192
 #: Candidates per segment of the first port's K1c (power of two, >= 2k
 #: so each pass of its chain shrinks).
 SEGMENT = 2048
@@ -210,9 +223,9 @@ def load_kernels() -> _Kernels:
 
 
 def load_tc_kernels() -> _Kernels:
-    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a and K2a) for
-    sm_90a into its own library, beside :func:`load_kernels`'s, so the
-    two build in parallel.  Raises on any failure."""
+    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K2b and
+    K4b) for sm_90a into its own library, beside :func:`load_kernels`'s,
+    so the two build in parallel.  Raises on any failure."""
     global _TC_KERNELS
     with _TC_KERNELS_LOCK:
         if _TC_KERNELS is None:
@@ -222,6 +235,16 @@ def load_tc_kernels() -> _Kernels:
             kern.lib.px_tc_cosine_collect.argtypes = [vp] * 7 + [ci] * 5 + [cf] * 3 + [vp] * 4
             kern.lib.px_tc_hamming_collect.restype = ci
             kern.lib.px_tc_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
+            kern.lib.px_tc_chunk_plan.restype = ci
+            kern.lib.px_tc_chunk_plan.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+            kern.lib.px_tc_hamming_chunk_topk.restype = ci
+            kern.lib.px_tc_hamming_chunk_topk.argtypes = (
+                [vp, cf, vp, vp] + [ci] * 5 + [cf] + [ci] * 5 + [vp] * 6
+            )
+            kern.lib.px_tc_cosine4_chunk_topk.restype = ci
+            kern.lib.px_tc_cosine4_chunk_topk.argtypes = (
+                [vp] * 4 + [cf, vp, vp] + [ci] * 9 + [vp] * 3 + [cf] * 3 + [vp] * 3
+            )
             _TC_KERNELS = kern
         return _TC_KERNELS
 
@@ -340,9 +363,11 @@ LAUNCHES = {
     "hamming_threshold_collect": 0,
     "hamming_threshold_collect_popc": 0,
     "hamming_chunk_topk": 0,
+    "hamming_chunk_topk_popc": 0,
     "cosine4_threshold_collect": 0,
     "cosine4_threshold_collect_dp4a": 0,
     "cosine4_chunk_topk": 0,
+    "cosine4_chunk_topk_dp4a": 0,
     "cosine_coskey_collect": 0,
     "cosine4_coskey_collect": 0,
     "coskey_rescore": 0,
@@ -632,33 +657,79 @@ def cosine_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta
     """Plain PyTorch version of K1b."""
     return _chunk_topk_plain(
         lambda lo, hi: _tile_dist(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi]),
-        q_codes.shape[0], data.shape[0], max_distance, k, data.device,
+        q_codes.shape[0], data.shape[0], max_distance, k, data.device, CHUNK_ROWS, False,
     )
 
 
-def _chunk_topk_plain(tile, qn, n, max_distance, k, dev):
+#: The tensor-core chunk kernel's kinds (``px_tc_chunk_plan``).
+_CHUNK_KINDS = {"cosine4a": 1, "cosine4": 2, "hamming": 3}
+
+
+def _tc_chunk_launch(kind: str, qn: int, n: int, k: int, dev):
+    """Plan of a tensor-core K2b / K4b launch over n rows: (rows a chunk,
+    its args for the C entry — query tile, splits and the parts' buffers —
+    and the [Q, n_chunks, k] outputs).  A chunk the plan splits over
+    several blocks (few queries: one block a chunk would leave SMs idle)
+    needs each block's k smallest and counts, and zeroed tickets that elect
+    the block merging them."""
+    kern = load_tc_kernels()
+    rows = tc_chunk_rows(n, k)
+    plan = (ctypes.c_int * 2)()
+    _check(kern.lib.px_tc_chunk_plan(_CHUNK_KINDS[kind], qn, n, rows, k, plan), f"{kind} chunk plan")
+    nq, splits = plan[0], plan[1]
+    n_chunks = -(-n // rows)
+    parts = []
+    if splits > 1:
+        parts = [
+            torch.empty((qn, n_chunks, splits, k), dtype=torch.int64, device=dev),
+            torch.empty((qn, n_chunks, splits), dtype=torch.int32, device=dev),
+            torch.zeros((-(-qn // nq), n_chunks), dtype=torch.int32, device=dev),
+        ]
+    ptrs = [_ptr(t) for t in parts] or [ctypes.c_void_p(None)] * 3
+    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
+    return kern, (rows, k, n_chunks, nq, splits, *ptrs), (out_d, out_i, parts)
+
+
+def tc_chunk_rows(n: int, k: int) -> int:
+    """Rows per chunk of the tensor-core K2b / K4b over n rows: the least
+    power of two from :data:`TC_CHUNK_ROWS` at which K1c takes the
+    ``[Q, ceil(n / rows), k]`` partials in one launch (``ceil(n / rows) · k
+    <= SELECT_SLOTS``), or one chunk of all n rows."""
+    rows = TC_CHUNK_ROWS
+    while rows < n and -(-n // rows) * k > SELECT_SLOTS:
+        rows *= 2
+    return rows
+
+
+def _chunk_topk_plain(tile, qn, n, max_distance, k, dev, chunk_rows, row_order):
     """The per-chunk top-k shared by the plain K1b and K4b: ``tile(lo, hi)``
-    gives a row block's [Q, B] distances and [1, B] validity."""
-    n_chunks = -(-n // CHUNK_ROWS)
-    kk = min(k, CHUNK_ROWS)
+    gives a row block's [Q, B] distances and [1, B] validity; a chunk's
+    first k by (dist, id) listed by (dist, id), or with ``row_order`` by
+    row id (the tensor-core kernels' layout)."""
+    n_chunks = -(-n // chunk_rows)
+    kk = min(k, chunk_rows)
     out_d = torch.full((qn, n_chunks, k), float("inf"), dtype=torch.float32, device=dev)
     out_i = torch.full((qn, n_chunks, k), -1, dtype=torch.int32, device=dev)
     md = _f32(max_distance, out_d)
-    block = _PLAIN_BLOCK // CHUNK_ROWS * CHUNK_ROWS
+    block = max(chunk_rows, _PLAIN_BLOCK // chunk_rows * chunk_rows)
     for start in range(0, n, block):
         end = min(n, start + block)
         dist, valid = tile(start, end)
         dist = torch.where(valid & (dist < md), dist, torch.full_like(dist, float("inf")))
-        nc = -(-(end - start) // CHUNK_ROWS)
-        pad = nc * CHUNK_ROWS - (end - start)
+        nc = -(-(end - start) // chunk_rows)
+        pad = nc * chunk_rows - (end - start)
         if pad:
             dist = torch.cat([dist, dist.new_full((qn, pad), float("inf"))], 1)
         # Positions ascend with row id inside a chunk: a stable sort by
         # dist is the (dist, id) order.
-        d_s, order = torch.sort(dist.reshape(qn, nc, CHUNK_ROWS), dim=-1, stable=True)
+        d_s, order = torch.sort(dist.reshape(qn, nc, chunk_rows), dim=-1, stable=True)
         d_s, order = d_s[..., :kk], order[..., :kk]
-        rows = order + (start + torch.arange(nc, device=dev) * CHUNK_ROWS)[None, :, None]
-        c0 = start // CHUNK_ROWS
+        if row_order:
+            by_row = torch.argsort(torch.where(torch.isfinite(d_s), order, chunk_rows), dim=-1)
+            d_s, order = torch.gather(d_s, -1, by_row), torch.gather(order, -1, by_row)
+        rows = order + (start + torch.arange(nc, device=dev) * chunk_rows)[None, :, None]
+        c0 = start // chunk_rows
         out_d[:, c0 : c0 + nc, :kk] = d_s
         out_i[:, c0 : c0 + nc, :kk] = torch.where(
             torch.isfinite(d_s), rows, torch.full_like(rows, -1)
@@ -726,16 +797,23 @@ def cosine4_threshold_collect_plain(q_codes, q_sum, q_mag2, qr, theta, data, met
 
 def cosine4_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym: bool, k: int):
     """K4b: :func:`cosine_chunk_topk` over packed int4 rows (arguments as
-    :func:`cosine4_threshold_collect`): per row chunk of
-    :data:`CHUNK_ROWS`, the exact top-k by (dist, id) of {valid rows with
-    dist < max_distance}; ([Q, n_chunks, k] f32, [Q, n_chunks, k] i32),
-    missing entries +inf / -1.
+    :func:`cosine4_threshold_collect`): per row chunk, the exact top-k by
+    (dist, id) of {valid rows with dist < max_distance}; ([Q, n_chunks, k]
+    f32, [Q, n_chunks, k] i32), missing entries +inf / -1 last.  At
+    :data:`TC_COSINE4_DIMS` the chunk is :func:`tc_chunk_rows` rows and a
+    chunk's k are listed in row order; at other widths :data:`CHUNK_ROWS`
+    rows, by (dist, id) (:func:`int4_chunk_rows`).
 
     The exact int4 scan behind the repair, the small-index gate and the
     duplicate scans, where the JAX package ran its XLA
-    ``cosine4(a)_scan_topk``.  Bound on the card like K1b: the dot, and
-    the shared-memory bitonic sort of each 1024-row chunk (4 queries a
-    block).
+    ``cosine4a_scan_topk`` / ``cosine4_scan_topk`` (``int4.py:265``,
+    ``:317``).  On the card, widths of :data:`TC_COSINE4_DIMS` (the main
+    path's 128) go to the tensor-core K4b (``csrc/tc_scan.cu``
+    ``tc_chunk_topk_kernel``: K4a's product on int8 ``wgmma``, then per
+    query a shared buffer of the keys below the k-th so far, pruned by a
+    radix select; its work past the product follows the rows under the
+    k-th and k); other widths to the first port's ``__dp4a`` kernel
+    (:func:`cosine4_chunk_topk_dp4a`, its own launch count).
     """
     dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
     md = float(np.float32(max_distance))
@@ -743,15 +821,18 @@ def cosine4_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym
         return cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, md, data, meta, sym, k)
     if k > MAX_K:
         raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
-    kern = load_kernels()
-    n_chunks = -(-n // CHUNK_ROWS)
-    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
-    q_mag2f = q_mag2.to(torch.float32)
+    if d not in TC_COSINE4_DIMS:
+        return cosine4_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, md, data, meta, sym, k)
+    if q_codes.data_ptr() % 16:  # a TMA source: copy an unaligned view
+        q_codes = q_codes.clone()
     with torch.cuda.device(dev):
-        rc = kern.lib.px_cosine4_chunk_topk(
-            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), md,
-            _ptr(data), _ptr(meta), qn, n, d, int(sym), CHUNK_ROWS, k, n_chunks,
+        kern, plan, (out_d, out_i, _parts) = _tc_chunk_launch(
+            "cosine4" if sym else "cosine4a", qn, n, k, dev
+        )
+        rc = kern.lib.px_tc_cosine4_chunk_topk(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2), _ptr(qr), md,
+            _ptr(data), _ptr(meta), qn, n, d, int(sym), *plan,
+            _KEY_SCALE, DIST_SATURATION, KEY_LOOSE,
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "cosine4_chunk_topk")
@@ -759,11 +840,50 @@ def cosine4_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym
     return out_d, out_i
 
 
-def cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym, k):
-    """Plain PyTorch version of K4b."""
+def cosine4_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym: bool, k: int):
+    """K4b on the first port's ``__dp4a`` kernel (``fused_scan.cu``
+    ``chunk_topk_kernel``: 4 queries a block, a bitonic sort of every slot
+    of each :data:`CHUNK_ROWS`-row chunk), for CUDA tensors only:
+    :func:`cosine4_chunk_topk`'s path for widths outside
+    :data:`TC_COSINE4_DIMS`, and the timing reference of the tensor-core
+    kernel.  Same contract at a chunk of :data:`CHUNK_ROWS`."""
+    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=True)
+    kern = load_kernels()
+    n_chunks = -(-n // CHUNK_ROWS)
+    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
+    q_mag2f = q_mag2.to(torch.float32)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_cosine4_chunk_topk(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), float(np.float32(max_distance)),
+            _ptr(data), _ptr(meta), qn, n, d, int(sym), CHUNK_ROWS, k, n_chunks,
+            _ptr(out_d), _ptr(out_i), _stream(dev),
+        )
+    _check(rc, "cosine4_chunk_topk_dp4a")
+    LAUNCHES["cosine4_chunk_topk_dp4a"] += 1
+    return out_d, out_i
+
+
+def int4_chunk_rows(d: int, n: int, k: int) -> int:
+    """The chunk of the K4b kernel that int4 rows of d dims take:
+    :func:`tc_chunk_rows` on the tensor cores, :data:`CHUNK_ROWS` on the
+    first port's kernel."""
+    return tc_chunk_rows(n, k) if d in TC_COSINE4_DIMS else CHUNK_ROWS
+
+
+def cosine4_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym, k,
+                             chunk_rows: Optional[int] = None):
+    """Plain PyTorch version of K4b, as the kernel its width takes lays it
+    out: at :data:`TC_COSINE4_DIMS` a chunk of :func:`tc_chunk_rows`, its
+    first k listed in row order; at other widths the first port's chunk of
+    :data:`CHUNK_ROWS`, by (dist, id).  ``chunk_rows`` overrides the
+    length."""
+    n, d = data.shape[0], q_codes.shape[1]
+    if chunk_rows is None:
+        chunk_rows = int4_chunk_rows(d, n, k)
     return _chunk_topk_plain(
         lambda lo, hi: _tile_dist4(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi], sym),
-        q_codes.shape[0], data.shape[0], max_distance, k, data.device,
+        q_codes.shape[0], n, max_distance, k, data.device, chunk_rows, d in TC_COSINE4_DIMS,
     )
 
 
@@ -1288,14 +1408,24 @@ def hamming_threshold_collect_plain(q, theta, data, meta, byte_limit, wrap_u8, c
 
 
 def hamming_chunk_topk(q, max_distance, data, meta, byte_limit: int, wrap_u8: bool, k: int):
-    """K2b: per row chunk of :data:`CHUNK_ROWS`, the exact top-k by
-    (dist, id) of {rows with ``meta != 0`` and dist < max_distance}:
-    ([Q, n_chunks, k] f32, [Q, n_chunks, k] i32), missing entries +inf / -1.
+    """K2b: per row chunk, the exact top-k by (dist, id) of {rows with
+    ``meta != 0`` and dist < max_distance}: ([Q, n_chunks, k] f32,
+    [Q, n_chunks, k] i32), missing entries +inf / -1 last.  At
+    :data:`TC_HAMMING_BYTES`-byte hashes the chunk is :func:`tc_chunk_rows`
+    rows and a chunk's k are listed in row order; at other widths
+    :data:`CHUNK_ROWS` rows, by (dist, id) (:func:`hamming_chunk_rows`).
 
-    The Hamming counterpart of :func:`cosine_chunk_topk` — the exact scan
-    behind the Hamming repair, the mixed-width phash search and the
-    duplicate scans.  Bound on the card by ``__popc`` and by the shared-
-    memory bitonic sort of each 1024-row chunk (4 queries a block).
+    The exact scan behind the Hamming repair, the mixed-width phash search
+    and the duplicate scans, where the JAX package ran its XLA
+    ``hamming_gemm_scan_topk`` / ``hamming_scan_topk``
+    (``hamming_gemm.py:156``, ``scan.py:663``).  On the card, hashes of
+    :data:`TC_HAMMING_BYTES` bytes (any ``byte_limit``) go to the
+    tensor-core K2b (``csrc/tc_scan.cu`` ``tc_chunk_topk_kernel``: K2a's ±1
+    product on int8 ``wgmma``, then per query a shared buffer of the keys
+    below the k-th so far, filtered on the integer diff and pruned by a
+    radix select; its work past the product follows the rows under the
+    k-th and k); other widths to the first port's ``__popc`` kernel
+    (:func:`hamming_chunk_topk_popc`, its own launch count).
     """
     dev, qn, n, h = _check_hamming_args(q, data, meta, byte_limit)
     md = float(np.float32(max_distance))
@@ -1303,16 +1433,13 @@ def hamming_chunk_topk(q, max_distance, data, meta, byte_limit: int, wrap_u8: bo
         return hamming_chunk_topk_plain(q, md, data, meta, byte_limit, wrap_u8, k)
     if k > MAX_K:
         raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
-    if 4 * CHUNK_ROWS * 8 + 4 * h > 48 * 1024:
-        raise ValueError(f"hash width {h} too wide for hamming_chunk_topk")
-    kern = load_kernels()
-    n_chunks = -(-n // CHUNK_ROWS)
-    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
+    if h != TC_HAMMING_BYTES:
+        return hamming_chunk_topk_popc(q, md, data, meta, byte_limit, wrap_u8, k)
     with torch.cuda.device(dev):
-        rc = kern.lib.px_hamming_chunk_topk(
+        kern, plan, (out_d, out_i, _parts) = _tc_chunk_launch("hamming", qn, n, k, dev)
+        rc = kern.lib.px_tc_hamming_chunk_topk(
             _ptr(q), md, _ptr(data), _ptr(meta), qn, n, h, byte_limit,
-            int(wrap_u8), hamming_scale(byte_limit), CHUNK_ROWS, k, n_chunks,
+            int(wrap_u8), hamming_scale(byte_limit), *plan,
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "hamming_chunk_topk")
@@ -1320,31 +1447,74 @@ def hamming_chunk_topk(q, max_distance, data, meta, byte_limit: int, wrap_u8: bo
     return out_d, out_i
 
 
-def hamming_chunk_topk_plain(q, max_distance, data, meta, byte_limit, wrap_u8, k):
-    """Plain PyTorch version of K2b: (dist, id) int64 keys per chunk, the
-    k smallest by ``torch.topk`` (keys are unique, so the order is)."""
+def hamming_chunk_topk_popc(q, max_distance, data, meta, byte_limit: int, wrap_u8: bool, k: int):
+    """K2b on the first port's ``__popc`` kernel (``fused_scan.cu``
+    ``hamming_chunk_topk_kernel``: 4 queries a block, a bitonic sort of
+    every slot of each :data:`CHUNK_ROWS`-row chunk), for CUDA tensors
+    only: :func:`hamming_chunk_topk`'s path for widths other than
+    :data:`TC_HAMMING_BYTES`, and the timing reference of the tensor-core
+    kernel.  Same contract at a chunk of :data:`CHUNK_ROWS`."""
+    dev, qn, n, h = _check_hamming_args(q, data, meta, byte_limit)
+    if 4 * CHUNK_ROWS * 8 + 4 * h > 48 * 1024:
+        raise ValueError(f"hash width {h} too wide for hamming_chunk_topk_popc")
+    kern = load_kernels()
+    n_chunks = -(-n // CHUNK_ROWS)
+    out_d = torch.empty((qn, n_chunks, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, n_chunks, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_hamming_chunk_topk(
+            _ptr(q), float(np.float32(max_distance)), _ptr(data), _ptr(meta), qn, n, h, byte_limit,
+            int(wrap_u8), hamming_scale(byte_limit), CHUNK_ROWS, k, n_chunks,
+            _ptr(out_d), _ptr(out_i), _stream(dev),
+        )
+    _check(rc, "hamming_chunk_topk_popc")
+    LAUNCHES["hamming_chunk_topk_popc"] += 1
+    return out_d, out_i
+
+
+def hamming_chunk_rows(h: int, n: int, k: int) -> int:
+    """The chunk of the K2b kernel that h-byte hashes take:
+    :func:`tc_chunk_rows` on the tensor cores, :data:`CHUNK_ROWS` on the
+    first port's kernel."""
+    return tc_chunk_rows(n, k) if h == TC_HAMMING_BYTES else CHUNK_ROWS
+
+
+def hamming_chunk_topk_plain(q, max_distance, data, meta, byte_limit, wrap_u8, k,
+                             chunk_rows: Optional[int] = None):
+    """Plain PyTorch version of K2b: (dist, id) int64 keys per chunk, the k
+    smallest by ``torch.topk`` (keys are unique, so the order is), laid
+    out as the kernel its width takes does: at :data:`TC_HAMMING_BYTES` a
+    chunk of :func:`tc_chunk_rows`, its first k listed in row order; at
+    other widths the first port's chunk of :data:`CHUNK_ROWS`, by (dist,
+    id).  ``chunk_rows`` overrides the length."""
     dev = data.device
     qn, n = q.shape[0], data.shape[0]
-    n_chunks = -(-n // CHUNK_ROWS)
-    kk = min(k, CHUNK_ROWS)
+    row_order = q.shape[1] == TC_HAMMING_BYTES
+    if chunk_rows is None:
+        chunk_rows = hamming_chunk_rows(q.shape[1], n, k)
+    n_chunks = -(-n // chunk_rows)
+    kk = min(k, chunk_rows)
     out_d = torch.full((qn, n_chunks, k), float("inf"), dtype=torch.float32, device=dev)
     out_i = torch.full((qn, n_chunks, k), -1, dtype=torch.int32, device=dev)
     md = _f32(max_distance, out_d)
     big = torch.iinfo(torch.int64).max
-    per = _PLAIN_BLOCK // CHUNK_ROWS
+    per = max(1, _PLAIN_BLOCK // chunk_rows)
     for c0 in range(0, n_chunks, per):
-        start, end = c0 * CHUNK_ROWS, min(n, (c0 + per) * CHUNK_ROWS)
+        start, end = c0 * chunk_rows, min(n, (c0 + per) * chunk_rows)
         dist, ok = _hamming_tile_dist(q, data[start:end], meta[start:end], byte_limit, wrap_u8)
         rows = torch.arange(start, end, dtype=torch.int64, device=dev)
         key = (dist.contiguous().view(torch.int32).to(torch.int64) << 32) | rows[None, :]
         key = torch.where(ok & (dist < md), key, torch.full_like(key, big))
-        nc = -(-(end - start) // CHUNK_ROWS)
-        pad = nc * CHUNK_ROWS - (end - start)
+        nc = -(-(end - start) // chunk_rows)
+        pad = nc * chunk_rows - (end - start)
         if pad:
             key = torch.cat([key, key.new_full((qn, pad), big)], 1)
         top = torch.topk(
-            key.reshape(qn, nc, CHUNK_ROWS), kk, dim=-1, largest=False, sorted=True
+            key.reshape(qn, nc, chunk_rows), kk, dim=-1, largest=False, sorted=True
         ).values
+        if row_order:
+            by_row = torch.argsort(torch.where(top == big, big, top & 0xFFFFFFFF), dim=-1)
+            top = torch.gather(top, -1, by_row)
         empty = top == big
         d = (top >> 32).to(torch.int32).contiguous().view(torch.float32)
         out_d[:, c0 : c0 + nc, :kk] = torch.where(empty, torch.full_like(d, float("inf")), d)

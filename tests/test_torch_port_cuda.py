@@ -573,3 +573,154 @@ def test_tc_cosine4_other_width_takes_the_dp4a_kernel():
     assert fs.launch_counts()["cosine4_threshold_collect_dp4a"] == 1
     assert fs.launch_counts()["cosine4_threshold_collect"] == 0
     _collect_agrees(got, fs.cosine4_threshold_collect_plain(*qk[:4], theta, idx.data, meta, False, 4096), 4096)
+
+
+# --------------------------------------------------------------------- #
+# The tensor-core chunk top-k (K2b and K4b on int8 wgmma)
+
+
+def _exact_from(part, qn, k):
+    """K1c over a chunk kernel's [Q, n_chunks, k] partials: the exact scan."""
+    return fs.lex_topk(part[0].reshape(qn, -1).contiguous(), part[1].reshape(qn, -1).contiguous(), k)
+
+
+def _chunk_agrees(name, got, want, old, qn, k):
+    """The new kernel's partials equal the plain version's, and the exact
+    scan from them equals the one from the first port's kernel."""
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+    a, b = _exact_from(got, qn, k), _exact_from(old, qn, k)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), name
+
+
+@pytest.mark.parametrize("qn", [1, 5, 70, 256])
+@pytest.mark.parametrize(
+    "limit,wrap,md,group",
+    [(32, False, 1e3, False), (32, False, 0.1, False), (24, False, 1e3, True), (32, True, 1e3, False)],
+    ids=["limit32", "max_distance_0.1", "limit24_group", "wrap"],
+)
+def test_tc_hamming_chunk_topk_matches_plain(limit, wrap, md, group, qn):
+    """The tensor-core K2b against its plain version at N = 20,001 (no
+    multiple of any chunk): a 3,000-row tie flood across the 8,192-row
+    border, copies across the 16,384 border, 1% tombstones, k ∈ {8, 100,
+    400}; each launch counted under the new kernel, and the exact scan
+    equal to the first port's."""
+    dev = _card()
+    n = 20001
+    idx, q = _phash_index(n, 32, seed=limit + qn, dev=dev)
+    data = idx.data.clone()
+    data[8000:11000] = data[7]  # across the chunk border at 8,192
+    data[16300:16411] = data[7]
+    rng = np.random.default_rng(qn)
+    q = torch.cat([q, data[torch.from_numpy(rng.integers(0, n, max(0, qn - 40))).to(dev)]])[:qn].contiguous()
+    q[0] = data[7]
+    mask = torch.arange(n, device=dev) % 3 != 0 if group else None
+    meta = fs.build_hamming_meta(idx._replace(data=data), mask)
+    meta[7] = 1
+    for k in (8, 100, 400):
+        fs.reset_launch_counts()
+        got = fs.hamming_chunk_topk(q, md, data, meta, limit, wrap, k)
+        torch.cuda.synchronize()
+        assert fs.launch_counts()["hamming_chunk_topk"] == 1
+        assert fs.launch_counts()["hamming_chunk_topk_popc"] == 0
+        assert got[0].shape == (qn, -(-n // fs.tc_chunk_rows(n, k)), k)
+        want = fs.hamming_chunk_topk_plain(q, md, data, meta, limit, wrap, k)
+        old = fs.hamming_chunk_topk_popc(q, md, data, meta, limit, wrap, k)
+        _chunk_agrees(f"k={k}", got, want, old, qn, k)
+        if md > 1:  # the flood: distance 0 first, the copies in row order
+            d, i = _exact_from(got, qn, k)
+            ties = i[0][d[0] == 0].tolist()
+            assert ties[0] == 7 and ties == sorted(ties) and len(ties) == k
+
+
+@pytest.mark.parametrize("qn", [1, 5, 70, 256])
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+def test_tc_cosine4_chunk_topk_matches_plain(mode, qn):
+    """The tensor-core K4b against its plain version at N = 20,001, a
+    3,000-row tie flood across the 8,192-row chunk border, 1% tombstones, k ∈ {8,
+    100, 400} and max_distance 1e3, 0.05 and unbounded; each launch counted
+    under the new kernel, and the exact scan equal to the first port's."""
+    dev = _card()
+    n = 20001
+    idx, _ = _int4_index(n, 128, seed=qn + (mode == "sym"), dev=dev)
+    idx = int4.PackedSemantic4Index(*(t[:n] for t in idx))
+    data = idx.data.clone()
+    data[8000:11000] = data[7]  # across the chunk border at 8,192
+    for name in ("row_sum", "row_mag2"):
+        col = getattr(idx, name).clone()
+        col[8000:11000] = col[7]
+        idx = idx._replace(**{name: col})
+    valid = idx.valid.clone()
+    valid[7] = True
+    valid[8000:11000] = True
+    idx = idx._replace(data=data, valid=valid)
+    rng = np.random.default_rng(qn)
+    q = _dequantized_u8(idx.data[torch.from_numpy(rng.integers(0, n, qn)).to(dev)]).contiguous()
+    q[0] = _dequantized_u8(idx.data[7:8])[0]
+    meta = int4.build_semantic4_meta(idx)
+    qk = fs.Int4Queries.from_u8(q, mode)
+    args = (qk.q_codes, qk.q_sum, qk.q_mag2, qk.qr)
+    for md in (1e3, 0.05, int4.UNBOUNDED_DISTANCE):
+        for k in (8, 100, 400):
+            fs.reset_launch_counts()
+            got = fs.cosine4_chunk_topk(*args, md, idx.data, meta, qk.sym, k)
+            torch.cuda.synchronize()
+            assert fs.launch_counts()["cosine4_chunk_topk"] == 1
+            assert fs.launch_counts()["cosine4_chunk_topk_dp4a"] == 0
+            want = fs.cosine4_chunk_topk_plain(*args, md, idx.data, meta, qk.sym, k)
+            old = fs.cosine4_chunk_topk_dp4a(*args, md, idx.data, meta, qk.sym, k)
+            _chunk_agrees(f"md={md} k={k}", got, want, old, qn, k)
+
+
+def test_chunk_topk_other_widths_take_the_first_port_kernels():
+    """Hashes of 18 bytes and int4 rows of 64 dims take the first port's
+    chunk kernels (their own launch counts) at CHUNK_ROWS, equal to the
+    plain versions at that chunk."""
+    dev = _card()
+    idx, q = _phash_index(20001, 18, seed=18, dev=dev)
+    meta = fs.build_hamming_meta(idx)
+    fs.reset_launch_counts()
+    got = fs.hamming_chunk_topk(q, 1e3, idx.data, meta, 18, False, 100)
+    assert fs.launch_counts()["hamming_chunk_topk_popc"] == 1
+    assert fs.launch_counts()["hamming_chunk_topk"] == 0
+    want = fs.hamming_chunk_topk_plain(q, 1e3, idx.data, meta, 18, False, 100)
+    assert got[0].shape[1] == -(-20001 // fs.CHUNK_ROWS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    idx4, q4 = _int4_index(20001, 64, seed=64, dev=dev)
+    meta4 = int4.build_semantic4_meta(idx4)
+    qk = fs.Int4Queries.from_u8(q4, "asym")
+    fs.reset_launch_counts()
+    got = fs.cosine4_chunk_topk(*qk[:4], 1e3, idx4.data, meta4, False, 100)
+    assert fs.launch_counts()["cosine4_chunk_topk_dp4a"] == 1
+    assert fs.launch_counts()["cosine4_chunk_topk"] == 0
+    want = fs.cosine4_chunk_topk_plain(*qk[:4], 1e3, idx4.data, meta4, False, 100)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["hamming", "cosine4a", "cosine4"])
+def test_tc_chunk_topk_split_chunks_match_plain(kind):
+    """Few queries over many rows: the plan splits each chunk over several
+    blocks and the last to finish merges their parts (N = 200,001: the last
+    chunk's later parts hold no row); equal to the plain version."""
+    dev = _card()
+    n = 200001
+    if kind == "hamming":
+        idx, q = _phash_index(n, 32, seed=21, dev=dev)
+        meta = fs.build_hamming_meta(idx)
+    else:
+        idx, q = _int4_index(n, 128, seed=22, dev=dev)
+        idx = int4.PackedSemantic4Index(*(t[:n] for t in idx))
+        meta = int4.build_semantic4_meta(idx)
+        qk = fs.Int4Queries.from_u8(q, "sym" if kind == "cosine4" else "asym")
+    for qn in (1, 5):
+        for k in (400, 1024):
+            plan = (__import__("ctypes").c_int * 2)()
+            assert fs.load_tc_kernels().lib.px_tc_chunk_plan(
+                fs._CHUNK_KINDS[kind], qn, n, fs.tc_chunk_rows(n, k), k, plan) == 0
+            assert plan[1] > 1  # split
+            if kind == "hamming":
+                args = (q[:qn].contiguous(), 1e3, idx.data, meta, 32, False, k)
+                got, want = fs.hamming_chunk_topk(*args), fs.hamming_chunk_topk_plain(*args)
+            else:
+                args = (*(x[:qn].contiguous() for x in qk[:4]), 1e3, idx.data, meta, qk.sym, k)
+                got, want = fs.cosine4_chunk_topk(*args), fs.cosine4_chunk_topk_plain(*args)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (qn, k)
