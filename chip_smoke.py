@@ -9,10 +9,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``nvidia-smi`` name/power limit; holds the exact numerics (TF32 off,
    cuDNN deterministic, benchmark off).
 2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
-   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K2b and K4b) and
-   ``csrc/breakdown.cu`` for sm_90a, one nvcc each, in parallel; logs the
-   tensor-core and select kernels' registers and spills and ptxas's wgmma
-   warnings.
+   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K1b, K2b and K4b)
+   and ``csrc/breakdown.cu`` (the tensor-core ladder and the first
+   port's) for sm_90a, one nvcc each, in parallel; logs the tensor-core
+   and select kernels' registers and spills and ptxas's wgmma warnings.
 3. Kernels vs plain at the main shapes (1,048,576 rows × 128, k = 100,
    Q ∈ {1, 8, 256}) in five cases: θ from the sample, θ = max_distance, a
    max_distance filter that excludes rows, 1% invalid rows, and a tie
@@ -23,11 +23,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    oracle on a sub-sample of queries.  Kernel and plain medians are timed
    with CUDA events; the tensor-core K1a at Q ∈ {1, 8, 256} (and 2048 in
    3c) in turns against the ``__dp4a`` kernel it replaced, per call and
-   device-only; K1c (``lex_topk`` on the select kernel) on the main
-   pass's buffer (256 × 4,096 → 100), the θ stage's (256 × 2,048 → 20)
-   and a repair's K1b partials (8 × 102,400 → 100, two launches) in turns
-   against the first port's re-launch chain, ``torch.topk`` and
-   ``torch.sort`` of the keys, after holding the chain's result equal.
+   device-only; the tensor-core K1b in turns against the first port's
+   ``__dp4a`` chunk kernel (their exact scans held equal, K1c's launches
+   counted) at a repair bucket (Q = 8 over the 1M rows) and at the
+   small-library gate: the first 131,072 rows, every 97th a tombstone,
+   Q = 1 and 256 through ``cosine_scan_topk_auto`` (which must take K1b +
+   K1c, replayed bit-identical, equal to the exact scan and the oracle);
+   K1c (``lex_topk`` on the select kernel) on the main pass's buffer
+   (256 × 4,096 → 100), the θ stage's (256 × 2,048 → 20) and a repair's
+   K1b partials (8 × 12,800 → 100) in turns against the first port's
+   re-launch chain, ``torch.topk`` and ``torch.sort`` of the keys, after
+   holding the chain's result equal.
 3b. Hamming kernels vs plain at the phash's published width (1,048,576
    rows × 32 bytes, k = 100, Q ∈ {1, 8, 256, 2048}) in seven cases: θ
    from the sample, θ = max_distance, max_distance 0.1, 1% tombstones,
@@ -128,15 +134,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    (a delta sync), each seen by the next query, which then equals the
    engine on one device; launches counted from zero and replayed.
 9. The breakdown ladder: ``tools.measure_breakdown.run()`` at its full
-   shape (Q = 256 × 1,048,576 × 128, TILE 8,192, 20 repeats) — counting
-   launches from zero around it — then each rung once at that shape on
-   rows planted near the queries, bit-identical to its plain version.
+   shape (Q = 256 × 1,048,576 × 128, TILE 8,192, 20 repeats) on the
+   tensor-core ladder — counting launches from zero around it — then each
+   rung once at that shape on rows planted near the queries,
+   bit-identical to its plain version and to the first port's
+   ``__dp4a`` ladder, and timed in turns against it (uncounted).
 
-Phases 4-9 must run every u8 and int4 collect and int4 chunk top-k at
-D = 128 and every Hamming collect and chunk top-k at 32 B on the
-tensor-core kernels, and every top-k on the select kernel (their
-``__dp4a`` / ``__popc`` predecessors and the first port's
-``lex_topk_segments`` launched no time).  The last lines are
+Phases 4-9 must run every u8 and int4 collect and chunk top-k at D = 128
+and every Hamming collect and chunk top-k at 32 B on the tensor-core
+kernels, every top-k on the select kernel and the ladder on the
+tensor-core one (their ``__dp4a`` / ``__popc`` predecessors, the first
+port's ``lex_topk_segments`` and ``breakdown_ladder_dp4a`` launched no
+time).  The last lines are
 the card's nvidia-smi line, the kernels' JSON summary (time, plain time,
 bound, library time per kernel; the tensor-core collects with their
 predecessor's time and error against their outputs and a per-Q table,
@@ -176,6 +185,7 @@ APPEND_ROWS = 1024       # phases 7 and 8: the append between their queries
 MESH_SHARDS = 4          # phase 8: shards over the visible cards (4 on one card)
 DUP_BATCHES = 64         # phase 8: duplicate batches of 256 compared on the mesh
 MESH_SHARD_ROWS = N_ROWS // MESH_SHARDS  # phase 8: a shard's rows on one card
+SMALL_ROWS = 131072      # phase 3: a library at ops/scan.py's K1b gate (4 x 32,768 rows)
 
 
 def log(msg: str) -> None:
@@ -407,6 +417,7 @@ def gpu_ms(fns, reps=20, rounds=3):
 #: The tensor-core kernels and the ones they replaced, kept as timing
 #: references (ops/fused_scan.py).
 PREVIOUS = {"cosine_threshold_collect": "cosine_threshold_collect_dp4a",
+            "cosine_chunk_topk": "cosine_chunk_topk_dp4a",
             "cosine4_threshold_collect": "cosine4_threshold_collect_dp4a",
             "hamming_threshold_collect": "hamming_threshold_collect_popc",
             "hamming_chunk_topk": "hamming_chunk_topk_popc",
@@ -439,7 +450,7 @@ def time_against_previous(fs, call, smi, tag, err, reps=10):
 
 
 def time_chunk_against_previous(fs, call, smi, tag, err, reps=10):
-    """A tensor-core chunk top-k's call (K2b / K4b): the first port's
+    """A tensor-core chunk top-k's call (K1b / K2b / K4b): the first port's
     kernel on the same inputs, the exact scan from its partials (K1c)
     held equal to the one from the new kernel's (its error under its own
     name); time_kernel's numbers (single calls; the bound of the exact
@@ -598,6 +609,51 @@ def time_theta_stage(fs, smp, q, md, smi, reps=10):
         f"(medians of {reps} in turns, CUDA events; {smi})")
 
 
+def small_library(fs, scan, smi, err, db, rng):
+    """K1b at the small-library gate (ops/scan.py: a library of at most
+    4 · DEFAULT_BLOCK_ROWS rows answers every query with K1b + K1c): the
+    first SMALL_ROWS of phase 3's rows, every 97th a tombstone, a
+    ``similar`` (Q = 1) and a full service bucket (Q = 256) through
+    ``cosine_scan_topk_auto``; every launch replayed bit-identical, the
+    results equal to the exact scan and the oracle (query 0), then K1b
+    timed in turns against the first port's kernel."""
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
+
+    check(SMALL_ROWS <= 4 * scan.DEFAULT_BLOCK_ROWS, "the small library is past the K1b gate")
+    dev = torch.device("cuda")
+    rows = db[:SMALL_ROWS]
+    valid = np.arange(SMALL_ROWS) % 97 != 0
+    data, rsum, rmag2 = semantic_rows_from_u8(rows)
+    idx = PackedSemanticIndex(*(torch.from_numpy(x).to(dev) for x in (data, rsum, rmag2, valid)))
+    meta = fs.build_row_meta(idx)
+    queries = perturb(rng, rows[rng.integers(0, SMALL_ROWS, MAIN_Q)])
+    od, oi = oracle_topk(queries[:1], rows, valid, K, 1e3)
+    out = {}
+    for qn in (1, MAIN_Q):
+        q = torch.from_numpy(queries[:qn]).to(dev)
+        with Recorder(fs) as rec:
+            d, i = scan.cosine_scan_topk_auto(q, idx, k=K, row_meta=meta)
+            torch.cuda.synchronize()
+        names = [c[0] for c in rec.calls]
+        check(names == ["cosine_chunk_topk", "lex_topk_select"], f"small library Q={qn}: the path launched {names}")
+        for call in rec.calls:
+            err[call[0]] = max(err[call[0]], replay(fs, call))
+        ex_d, ex_i = scan.cosine_scan_topk(q, idx, k=K)
+        check(torch.equal(d, ex_d) and torch.equal(i, ex_i), f"small library Q={qn}: differs from the exact scan")
+        check(np.array_equal(d[0].cpu().numpy(), od[0]) and np.array_equal(i[0].cpu().numpy(), oi[0]),
+              f"small library Q={qn}: differs from the numpy oracle")
+        log(f"[3] small library {SMALL_ROWS:,} rows (1/97 tombstones) Q={qn}: K1b + K1c, replayed "
+            f"bit-identical; = exact scan and oracle")
+        out[f"{qn}x{SMALL_ROWS // 1024}k"] = time_chunk_against_previous(
+            fs, rec.calls[0], smi, "[3] small library", err)
+    del idx, meta
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(fs, scan, smi, err):
     import numpy as np
     import torch
@@ -695,22 +751,26 @@ def phase_kernels(fs, scan, smi, err):
         torch.cuda.empty_cache()
 
     # Timing at the main path's shapes: K1a at the main pass (Q = MAIN_Q
-    # over all rows, k = 100), K1b at a repair bucket; K1c on the main
-    # pass's buffer, the θ stage's and a repair's K1b partials.
+    # over all rows, k = 100); K1b at a repair bucket and at the
+    # small-library gate, in turns against the first port's kernel; K1c
+    # on the main pass's buffer, the θ stage's and a repair's K1b partials.
     def main_pass(call):
         return call[1][5].shape[0] == N_ROWS
 
     stats = {}
-    for n, qn in (("cosine_chunk_topk", REPAIR_Q), ("cosine_coskey_collect", MAIN_Q),
-                  ("coskey_rescore", MAIN_Q)):
-        call = next(c for c in timed_calls[(n, qn)] if main_pass(c))
-        stats[n] = time_kernel(fs, call, smi, "[3e]" if "coskey" in n else "[3]")
+    for n in ("cosine_coskey_collect", "coskey_rescore"):
+        stats[n] = time_kernel(fs, next(c for c in timed_calls[(n, MAIN_Q)] if main_pass(c)), smi, "[3e]")
+    k1b = {f"{REPAIR_Q}x1M": time_chunk_against_previous(
+        fs, next(c for c in timed_calls[("cosine_chunk_topk", REPAIR_Q)] if main_pass(c)), smi, "[3] repair", err)}
+    k1b.update(small_library(fs, scan, smi, err, db, rng))
+    stats["cosine_chunk_topk"] = {**k1b[f"{REPAIR_Q}x1M"],
+                                  "by_shape": {n: chunk_by_shape(st) for n, st in k1b.items()}}
     k1c = timed_calls[("lex_topk_select", MAIN_Q)]
     k1c_calls = {
         "main_pass": next(c for c in k1c if k1c_args(c)[2] == K and k1c_args(c)[3] is not None),
         "theta_stage": next(c for c in k1c if k1c_args(c)[3] is not None),  # the first with lens
         "k1b_partials": next(c for c in timed_calls[("lex_topk_select", REPAIR_Q)]
-                             if k1c_args(c)[0].shape[1] > fs.SELECT_SLOTS),
+                             if k1c_args(c)[3] is None),  # the exact scan's (no lens)
     }
     k1c_st = {shape: time_k1c(fs, c, smi, f"[3] {shape}", err) for shape, c in k1c_calls.items()}
     stats["lex_topk_select"] = {**k1c_st["main_pass"], "by_shape": k1c_st}
@@ -2276,7 +2336,8 @@ def phase_ladder(fs, smi):
     from pixelbox_tpu_torch.tools import measure_breakdown as mb
 
     fs.reset_launch_counts()
-    mb.LAUNCHES["breakdown_ladder"] = 0  # the ladder's main path starts here
+    for n in mb.LAUNCHES:  # the ladder's main path starts here
+        mb.LAUNCHES[n] = 0
     t0 = time.perf_counter()
     res = mb.run()
     counts = {**fs.launch_counts(), **mb.LAUNCHES}  # and ends here
@@ -2285,11 +2346,15 @@ def phase_ladder(fs, smi):
     check(counts["breakdown_ladder"] >= 4 * mb.ITERS, "the ladder kernel did not run its rungs")
     check(counts["cosine_threshold_collect"] > 0, "the shipping scan did not run")
 
-    # Each rung once against its plain version, on rows planted near the
-    # queries so that every lane it compares is finite and varied.
+    # Each rung once against its plain version and the first port's
+    # ladder, on rows planted near the queries so that every lane it
+    # compares is finite and varied.
     q, idx, meta = mb.ladder_inputs(mb.N_ROWS, mb.DIM, mb.Q, seed=SEED, planted=True, device="cuda")
     mom = query_moments_from_u8(q[0])
-    st = {"rungs": {}, "max_abs_err": 0.0}
+    st = {"rungs": {}, "max_abs_err": 0.0, "previous_max_abs_err": 0.0}
+    qp = mom[0].contiguous()
+    st["library_ms"] = median_ms(lambda: torch._int_mm(qp, idx.data.t()))
+    log(f"[9] library: the gemm rung's dot alone (torch._int_mm, Q={mb.Q}) {st['library_ms']:.4f} ms")
     for rung in mb.RUNGS:
         out, dsum = mb.ladder(rung, *mom, idx.data, meta)
         torch.cuda.synchronize()
@@ -2298,6 +2363,11 @@ def phase_ladder(fs, smi):
               f"ladder rung {rung} differs from its plain version")
         fin = torch.isfinite(out) & torch.isfinite(pout)
         st["max_abs_err"] = max(st["max_abs_err"], float((out[fin] - pout[fin]).abs().max()))
+        oout, osum = mb.ladder_dp4a(rung, *mom, idx.data, meta)
+        check(torch.equal(out.view(torch.int32), oout.view(torch.int32)) and torch.equal(dsum, osum),
+              f"ladder rung {rung}: the first port's ladder differs")
+        fin = torch.isfinite(out) & torch.isfinite(oout)
+        st["previous_max_abs_err"] = max(st["previous_max_abs_err"], float((out[fin] - oout[fin]).abs().max()))
         lanes = out if rung in ("gemm", "chain") else out[:, :1]
         check(bool(torch.isfinite(lanes).all()) and lanes.unique().numel() >= lanes.numel() // 4,
               f"ladder rung {rung}: outputs not finite and varied")
@@ -2307,14 +2377,21 @@ def phase_ladder(fs, smi):
         nbytes = n * d + (0 if rung == "gemm" else 12 * n) + mb.Q * (d + 8) + mb.Q * 128 * 4
         ops = 2 * mb.Q * n * d
         b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+        # the rung against the first port's ladder in turns (uncounted: the
+        # main path's counts are read), a call and device-only
+        fns = [lambda: mb.ladder(rung, *mom, idx.data, meta), lambda: mb.ladder_dp4a(rung, *mom, idx.data, meta)]
+        new_ms, old_ms = interleaved_ms(fns, reps=10)
+        new_gpu, old_gpu = gpu_ms(fns, reps=10, rounds=2)
         st["rungs"][rung] = {"ms": res[f"{rung}_ms"], "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
-                             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+                             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                             "library_ms": st["library_ms"], "turns_ms": new_ms, "previous_ms": old_ms,
+                             "gpu_ms": new_gpu, "previous_gpu_ms": old_gpu}
         log(f"[9] rung {rung}: kernel {res[f'{rung}_ms']:.4f} ms, plain {p_ms:.4f} ms, bound "
             f"{max(b_bytes, b_ops):.4f} ms ({st['rungs'][rung]['bound_by']}: {nbytes:,} B, "
-            f"{ops:,} ops); replayed bit-identical, finite and varied ({smi})")
-    qp = mom[0].contiguous()
-    st["library_ms"] = median_ms(lambda: torch._int_mm(qp, idx.data.t()))
-    log(f"[9] library: the gemm rung's dot alone (torch._int_mm, Q={mb.Q}) {st['library_ms']:.4f} ms")
+            f"{ops:,} ops); replayed bit-identical, finite and varied, = the first port's ladder; "
+            f"vs breakdown_ladder_dp4a in turns {new_ms:.4f} / {old_ms:.4f} ms a call, device only "
+            f"{new_gpu:.4f} / {old_gpu:.4f} ms ({old_gpu / new_gpu:.2f}x); torch._int_mm "
+            f"{st['library_ms']:.4f} ms ({smi})")
     st.update(res)
     del idx, meta
     torch.cuda.empty_cache()
@@ -2364,7 +2441,7 @@ def main() -> int:
         log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
         lines = kern.ptxas.splitlines()
         for j, line in enumerate(lines):
-            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "lex_topk_select")
+            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "lex_topk_select", "tc_ladder")
             if "Compiling entry" in line and any(n in line for n in named):  # by name
                 name = line.split("'")[1]
                 at = min(name.find(n) for n in named if n in name)
@@ -2372,7 +2449,7 @@ def main() -> int:
                 used = next((x.strip() for x in lines[j:j + 5] if "registers" in x), "")
                 spill = next((x.strip() for x in lines[j:j + 5] if "spill" in x), "")
                 log(f"[2] ptxas {name[at:end + 1] if end > 0 else name[at:at + 22]}: {used}; {spill}")
-            elif "tc_" not in kern.path and ("registers" in line or "spill" in line):
+            elif "fused_scan" in kern.path and ("registers" in line or "spill" in line):
                 log(f"[2] ptxas: {line.strip()}")
         for warn in sorted({x.split(" in function")[0].split("info    : ")[-1] for x in lines if "(C75" in x}):
             log(f"[2] ptxas: {warn}")
@@ -2415,12 +2492,14 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
     main_counts = (counts4, counts5, counts6, counts7, counts8, counts8b, counts9)
     for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
+                     ("cosine_chunk_topk_dp4a", "cosine_chunk_topk"),
                      ("cosine4_threshold_collect_dp4a", "cosine4_threshold_collect"),
                      ("hamming_threshold_collect_popc", "hamming_threshold_collect"),
                      ("hamming_chunk_topk_popc", "hamming_chunk_topk"),
                      ("cosine4_chunk_topk_dp4a", "cosine4_chunk_topk"),
-                     ("lex_topk_segments", "lex_topk_select")):
-        n_old, n_new = (sum(c[n] for c in main_counts) for n in (old, new))
+                     ("lex_topk_segments", "lex_topk_select"),
+                     ("breakdown_ladder_dp4a", "breakdown_ladder")):
+        n_old, n_new = (sum(c.get(n, 0) for c in main_counts) for n in (old, new))
         check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
         log(f"main paths (phases 4-9): {new} {n_new} launches, the first port's {old} {n_old}")
     replaces = {
@@ -2453,6 +2532,18 @@ def main() -> int:
             **({"previous_max_abs_err": err[PREVIOUS[n]]} if n in PREVIOUS else {}),
             **({"previous_max_abs_err": err["lex_topk_segments"]} if n == "lex_topk_select" else {}),
         })
+    k1b = stats["cosine_chunk_topk"]
+    kernels.append({  # the first port's K1b, kept as the timing reference (times in turns)
+        "name": "cosine_chunk_topk_dp4a",
+        "route": "cuda",
+        "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
+        "replaces": replaces["cosine_chunk_topk"],
+        "launches": sum(c["cosine_chunk_topk_dp4a"] for c in main_counts),
+        "max_abs_err": err["cosine_chunk_topk_dp4a"],
+        "ms": k1b["previous_ms"], "gpu_ms": k1b["previous_gpu_ms"],
+        **{key: k1b[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    gemm = ladder["rungs"]["gemm"]
     kernels.append({
         "name": "breakdown_ladder",
         "route": "cuda",
@@ -2460,9 +2551,23 @@ def main() -> int:
         "replaces": "scripts/measure_breakdown.py:52",
         "launches": counts9["breakdown_ladder"],
         "max_abs_err": ladder["max_abs_err"],
-        **{key: ladder["rungs"]["gemm"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{key: gemm[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "previous_ms", "gpu_ms",
+                                      "previous_gpu_ms")},
         "library_ms": ladder["library_ms"],
+        "previous_max_abs_err": ladder["previous_max_abs_err"],
         "rungs": ladder["rungs"],
+    })
+    kernels.append({  # the first port's ladder, kept as the timing reference (times in turns)
+        "name": "breakdown_ladder_dp4a",
+        "route": "cuda",
+        "source": "pixelbox_tpu_torch/csrc/breakdown.cu",
+        "replaces": "scripts/measure_breakdown.py:52",
+        "launches": sum(c.get("breakdown_ladder_dp4a", 0) for c in main_counts),
+        "max_abs_err": ladder["previous_max_abs_err"],
+        "ms": gemm["previous_ms"], "gpu_ms": gemm["previous_gpu_ms"],
+        **{key: gemm[key] for key in ("plain_ms", "bound_ms", "bound_by")},
+        "library_ms": ladder["library_ms"],
+        "rungs": {r: {"ms": s["previous_ms"], "gpu_ms": s["previous_gpu_ms"]} for r, s in ladder["rungs"].items()},
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

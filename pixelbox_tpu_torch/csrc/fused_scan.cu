@@ -413,8 +413,8 @@ lex_topk_segments_kernel(const float* __restrict__ in_d,
 //    appends the valid entries' 64-bit keys to shared memory (one shared
 //    atomic a warp): the work follows the filled slots, not the buffer.
 // 2. More than k keys: radix select of the k-th smallest key, MSB first,
-//    8-bit digits over a 256-bin shared histogram (warp-aggregated
-//    atomics), each pass over the keys whose higher digits match the
+//    8-bit digits over a 256-bin shared histogram (one shared atomic a
+//    key), each pass over the keys whose higher digits match the
 //    prefix found so far.  dist >= 0, so its f32 bits order like it; a
 //    tie plateau in dist carries the select into the id bits (up to 8
 //    passes).  It stops once the k-th key's bin holds exactly the rest.

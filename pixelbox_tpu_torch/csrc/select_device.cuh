@@ -111,19 +111,20 @@ struct RadixBin {
 
 // Radix select of the k-th smallest of keys[0:n] (1 <= k < n), MSB first,
 // 8-bit digits from bit `shift0` down to bit `shift_end` (the keys agree
-// above shift0 + 8): each pass histograms, over 256 shared bins
-// (warp-aggregated atomics), the digit of the keys whose higher digits
-// match the prefix found so far, and finds the bin holding the rank-th; a
-// tie plateau carries it into the low bits.  It stops once that bin holds
-// exactly the rest.  A member reads kBatch keys a pass step, all loads
-// first.  hist: 256 ints; scal: 3 ints; warp_sums: as team_exclusive_sum.
+// above shift0 + 8): each pass histograms, over 256 shared bins, the digit
+// of the keys whose higher digits match the prefix found so far, and finds
+// the bin holding the rank-th; a tie plateau carries it into the low bits.
+// It stops once that bin holds exactly the rest.  A member reads kBatch
+// keys a pass step, all loads first, and each key adds alone (aggregating
+// a warp's equal digits by __match_any_sync cost more than it saved, for
+// every kernel that selects).  hist: 256 ints; scal: 3 ints; warp_sums: as
+// team_exclusive_sum.
 template <int kTeam>
 __device__ RadixBin radix_select(const unsigned long long* keys, int n, int k, int shift0,
                                  int shift_end, int* hist, int* scal, int* warp_sums) {
   constexpr int kBins = 256 / kTeam;  // the bins a member sums
   constexpr int kBatch = 4;
   const int r = team_rank<kTeam>();
-  const int lane = threadIdx.x & 31;
   unsigned long long prefix = 0, mask = 0;
   int rank = k;
   bool whole_bin = true;
@@ -143,8 +144,7 @@ __device__ RadixBin radix_select(const unsigned long long* keys, int n, int k, i
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-        const unsigned peers = __match_any_sync(0xffffffffu, digit[u]);
-        if (digit[u] >= 0 && lane == __ffs(peers) - 1) atomicAdd(hist + digit[u], __popc(peers));
+        if (digit[u] >= 0) atomicAdd(hist + digit[u], 1);
       }
     }
     team_sync<kTeam>();

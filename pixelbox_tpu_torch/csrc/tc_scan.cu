@@ -1,7 +1,8 @@
 // Hopper (sm_90a) tensor-core kernels on int8 wgmma: the collects K1a (u8
 // cosine rows, selecting on the spec distance), K4a (packed int4 rows, the
 // asymmetric and symmetric int4 metrics) and K2a (packed phash rows,
-// Hamming), and the exact chunk top-k K2b (Hamming) and K4b (int4), below.
+// Hamming), and the exact chunk top-k K1b (u8), K2b (Hamming) and K4b
+// (int4), below.  The TMA, mbarrier and wgmma machinery is tc_device.cuh's.
 //
 // They replace pixelbox_tpu/ops/pallas_scan.py:_threshold_kernel with the
 // buffer select (distances in _kind_dist_tile :119) for the u8 "cosine",
@@ -76,11 +77,12 @@
 // Bound: the ±1 product (2·Q·N·256 at 1,979 TOP/s), 0.0694 ms at Q = 256
 // over 1M rows; the byte floor (32 B a row) is 0.0106 ms.
 //
-// K2b and K4b replace the first port's chunk kernels (fused_scan.cu, kept
-// as timing references and for the other widths) behind the exact scans
-// where the JAX package ran its XLA hamming_gemm_scan_topk /
-// hamming_scan_topk and cosine4a_scan_topk / cosine4_scan_topk; their
-// design is at their kernel.
+// K1b, K2b and K4b replace the first port's chunk kernels (fused_scan.cu,
+// kept as timing references and for the other widths) behind the exact
+// scans: K1b replaces _threshold_kernel as pallas_cosine_scan_topk (:1074)
+// launched it (θ = max_distance), K2b and K4b stand where the JAX package
+// ran its XLA hamming_gemm_scan_topk / hamming_scan_topk and
+// cosine4a_scan_topk / cosine4_scan_topk; their design is at their kernel.
 //
 // Plain C interface, bound with ctypes; every entry point returns
 // cudaGetLastError() (or kTensorMapError + the driver's code when a TMA
@@ -92,36 +94,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-#include <mutex>
-#include <vector>
-
 #include "scan_device.cuh"
 #include "select_device.cuh"
+#include "tc_device.cuh"
 #include "wgmma_s8.cuh"
 
 #define PX_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace {
 
-constexpr int kTileRows = 64;    // wgmma M: one warpgroup's rows
-constexpr int kTcThreads = 128;  // one warpgroup a block
 constexpr int kStages = 4;       // K1a's row tiles in the TMA ring (8 KB each at D = 128)
 constexpr int kStages4 = 8;      // K4a's (4 KB each)
 constexpr int kDim4 = 128;       // K4a's width: 64-byte packed rows, four k-steps
 constexpr int kHamStages = 8;    // K2a's (2 KB each)
 constexpr int kPhBytes = 32;     // K2a's hash width (the published 16x16 phash)
 constexpr int kPhK = 8 * kPhBytes;  // K2a's ±1 depth
-constexpr int kTensorMapError = 10000;
-// 1.5 * 2^24 as f32 bits: in [2^24, 2^25) one ulp is 2, so adding an int i
-// (|i| < 2^22) to these bits gives the float 25165824 + 2i exactly.
-constexpr int kMagic2Bits = 0x4BC00000;
-constexpr float kMagic2 = 25165824.0f;
 // Passing rows a block gathers in shared memory before it appends them to
 // the buffers (one round of global atomics for many rows).
 constexpr int kHits = 1024;
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Bytes of a row tile's row and slots of the TMA ring, by kind: u8 rows of
 // D bytes (K1a), packed int4 rows of D/2 (K4a).
@@ -154,93 +144,6 @@ struct HammingSmem {
         bars(round_up(hits + kHits * 12, 8)),
         total(bars + kHamStages * 8 + 8) {}
 };
-
-// ---- PTX: shared addresses, mbarriers, TMA, wgmma
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + (((a + 1023u) & ~1023u) - a);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-  __syncwarp();  // reconverge before the warpgroup-wide wgmma
-}
-
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads above the wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor of a K-major operand stored as column
-// chunks [K / chunk][rows][chunk]: start address, leading offset (between
-// chunks along K; unused when one chunk is a whole swizzle span), stride
-// between 8-row groups (8 x the chunk), swizzle mode (`layout`: 0 = none,
-// 16-byte chunks of 8 x 16 B core matrices; 1 = 128 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-// Bytes of one K-major column chunk of K1a's rows and queries: a row of
-// 128 B is one 128-byte swizzle span; narrower rows (32, 64 B) go as
-// unswizzled 16-byte chunks.
-__host__ __device__ constexpr int row_chunk(int d) { return d == 128 ? 128 : 16; }
 
 // Four bits (the low nibble of x) to four ±1 int8 (bit 1 -> +1, 0 -> -1):
 // spread the bits to the bytes' low bits, then 0 -> 0xFF, 1 -> 0x01.
@@ -824,21 +727,22 @@ tc_hamming_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
   flush_hits(hits, n_hits, cap, count, cand_d, cand_i);
 }
 
-// ---- K2b and K4b: the exact chunk top-k
+// ---- K1b, K2b and K4b: the exact chunk top-k
 //
 // Per (query, chunk of R rows) the first k by (dist, row id) of the valid
 // rows with dist < max_distance, listed in row order (K1c, which finishes
 // the [Q, n_chunks, k] partials, reads them in any order).  A block of two
 // warpgroups takes NQ queries (8..64, as many as its buffers' shared
 // memory allows) and a chunk, a tile pair at a time: each warpgroup's
-// product of one tile on int8 wgmma through K2a's / K4a's TMA ring and
-// operand paths (the ±1 product of the packed hash bits, or the unpacked
-// int4 nibbles), issued a pair ahead so that it runs under the previous
-// pair's selection.  Phase 1 stores the accumulators branch-free into a
-// shared stage.  Phase 2, one warp a query and a lane a row: a cheap
-// filter on the integer product that passes every row able to enter (K2b:
-// the diff against a per-query limit, exact; K4b: K1a's key bound of the
-// k-th distance so far), the exact spec distance and (dist, row) key of
+// product of one tile on int8 wgmma through K1a's / K2a's / K4a's TMA ring
+// and operand paths (the u8 rows K-major through a descriptor, the ±1
+// product of the packed hash bits, or the unpacked int4 nibbles), issued
+// a pair ahead so that it runs under the previous pair's selection.
+// Phase 1 stores the accumulators branch-free into a shared stage.  Phase
+// 2, one warp a query and a lane a row: a cheap filter on the integer
+// product that passes every row able to enter (K2b: the diff against a
+// per-query limit, exact; K1b and K4b: K1a's key bound of the k-th
+// distance so far, on the centered dot), the exact spec distance and (dist, row) key of
 // its survivors only, and a warp-ballot append, in row order, of the keys
 // below τ to the query's buffer in shared memory.  A buffer that could
 // overflow on the next pair keeps its k smallest — the radix select of
@@ -862,7 +766,7 @@ tc_hamming_collect_kernel(const __grid_constant__ CUtensorMap rows_map,
 // passes, one warp a query, and the exact distances of the rows that
 // enter before τ tightens (PERF.md §6).
 
-constexpr int kHamming = 3;  // the chunk kernel's kind of K2b (beside kInt4Asym, kInt4Sym)
+constexpr int kHamming = 3;  // the chunk kernel's kind of K2b (beside kU8, kInt4Asym, kInt4Sym)
 // Pitch (ints) of the stage's query rows: 64 + 4 puts the four query pairs
 // of a warp's phase-1 store 8 banks apart.
 constexpr int kStagePitch = kTileRows + 4;
@@ -872,11 +776,21 @@ constexpr int kChunkSmemTarget = 113 * 1024;
 constexpr int kChunkThreads = 256;
 constexpr int kChunkWarps = kChunkThreads / 32;
 
-__host__ __device__ constexpr int chunk_row_bytes(int kind) {
-  return kind == kHamming ? kPhBytes : kDim4 / 2;
+// Bytes of a row of a chunk kind's tiles (u8: the row width d) and the
+// slots of its TMA ring: three pairs ahead (four for the 2 KB hash tiles),
+// so that a pair's rows have landed when its product is issued even at a
+// query or two a block; with u8 tiles (8 KB at d = 128) two blocks still
+// fit an SM with the buffers of k = 100.
+__host__ __device__ constexpr int chunk_row_bytes(int kind, int d) {
+  return kind == kHamming ? kPhBytes : kind == kU8 ? d : kDim4 / 2;
 }
 __host__ __device__ constexpr int chunk_stages(int kind) {
-  return kind == kHamming ? kHamStages : 6;  // 2 KB or 4 KB a tile: three pairs ahead
+  return kind == kHamming ? kHamStages : 6;
+}
+// Bytes of a query's B operand: the ±1 bits, the u8 codes, or the int4
+// kinds' 128 codes.
+__host__ __device__ constexpr int chunk_query_bytes(int kind, int d) {
+  return kind == kHamming ? kPhK : kind == kU8 ? d : kDim4;
 }
 
 // A query's state in a chunk block.
@@ -884,9 +798,9 @@ struct ChunkQuery {
   unsigned long long tau;  // a row enters the buffer when its key is below τ
   int n;                   // keys in the buffer
   int lim;                 // K2b: the largest diff the filter admits
-  float u;                 // K4b: the filter's bound (key_bound)
-  float qr, qm2f;          // K4b: the query's rsqrt and f32(mag2)
-  int qs;                  // K4b: the query's code sum
+  float u;                 // K1b, K4b: the filter's bound (key_bound)
+  float qr, qm2f;          // K1b, K4b: the query's rsqrt and f32(mag2)
+  int qs;                  // K1b, K4b: the query's code sum
 };
 
 // Shared-memory layout of a chunk block (byte offsets from a 1024-aligned
@@ -896,10 +810,10 @@ struct ChunkQuery {
 // scalars; the mbarriers.
 struct ChunkSmem {
   int q, rows, stage, qv, bufs, sel, bars, flag, total;
-  __host__ __device__ ChunkSmem(int kind, int nq, int cap)
+  __host__ __device__ ChunkSmem(int kind, int nq, int cap, int d)
       : q(0),
-        rows(round_up(nq * (kind == kHamming ? kPhK : kDim4), 1024)),
-        stage(rows + chunk_stages(kind) * kTileRows * chunk_row_bytes(kind)),
+        rows(round_up(nq * chunk_query_bytes(kind, d), 1024)),
+        stage(rows + chunk_stages(kind) * kTileRows * chunk_row_bytes(kind, d)),
         qv(stage + 4 * nq * kStagePitch * 4),
         bufs(qv + nq * static_cast<int>(sizeof(ChunkQuery))),
         sel(bufs + nq * cap * 8),
@@ -913,16 +827,17 @@ struct ChunkSmem {
 struct ChunkArgs {
   const uint8_t* q_bytes;  // K2b: queries [Q, 32]
   const uint8_t* row_ok;   // K2b: row mask [N] (validity AND the width group)
-  const int* q_sum;        // K4b: the queries' code sums, mag2 and rsqrt [Q]
+  const int* q_sum;        // K1b, K4b: the queries' code sums, mag2 and rsqrt [Q]
   const int* q_mag2;
   const float* qr;
-  const int* meta;         // K4b: row meta [4, N]
+  const int* meta;         // K1b, K4b: row meta [4, N]
   float max_distance;
   int Q, N;
+  int D;                   // K1b, K4b: the queries' width (u8 rows: their bytes)
   int limit, wrap;         // K2b: the byte limit and the u8 wrap
   float scale;             // K2b: f32(1 / (8 · limit))
   int R, k, cap, n_chunks;
-  float key_scale, saturation, key_loose;  // K4b: key_bound's constants
+  float key_scale, saturation, key_loose;  // K1b, K4b: key_bound's constants
   float* out_d;
   int* out_i;
   // A chunk split over `splits` blocks (splits > 1): each block's k
@@ -935,7 +850,7 @@ struct ChunkArgs {
 };
 
 // A lane's rows of a tile pair (tile 2i + g, row 32h + lane): validity
-// and, for K4b, what the distance needs.
+// and, for K1b and K4b, what the distance needs.
 struct ChunkRows {
   bool ok[2][2];
   int rs[2][2];
@@ -943,15 +858,25 @@ struct ChunkRows {
 };
 
 // A warpgroup's product of tile t of the ring (once it has landed) into
-// acc, issued asynchronously: the caller waits for it (wgmma_wait0).
+// acc, issued asynchronously: the caller waits for it (wgmma_wait0).  u8
+// rows (d bytes) go through a descriptor as K1a's do.
 template <int NQ, int KIND>
 __device__ __forceinline__ void chunk_product(int (&acc)[NQ / 2], const uint8_t* rows, uint64_t* full,
-                                              int t, int r0, int tq, uint32_t q_addr) {
+                                              int t, int r0, int tq, uint32_t q_addr, int d) {
   constexpr int kRing = chunk_stages(KIND);
   const int s = t % kRing;
-  const uint8_t* tile = rows + s * kTileRows * chunk_row_bytes(KIND);
+  const uint8_t* tile = rows + s * kTileRows * chunk_row_bytes(KIND, d);
   mbar_wait(full + s, (t / kRing) & 1);
-  if constexpr (KIND == kHamming) {
+  if constexpr (KIND == kU8) {
+    const int cb = row_chunk(d);
+    const uint32_t layout = cb == 128 ? 1u : 0u, a0 = smem_u32(tile);
+    wgmma_fence();
+    for (int k = 0; k < d / 32; ++k) {
+      const int c = 32 * k / cb, off = 32 * k % cb;  // k-step k: chunk c, byte off
+      Wgmma<NQ>::ss(acc, smem_desc(a0 + c * kTileRows * cb + off, kTileRows * cb, 8 * cb, layout),
+                    smem_desc(q_addr + c * NQ * cb + off, NQ * cb, 8 * cb, layout), k > 0);
+    }
+  } else if constexpr (KIND == kHamming) {
     uint32_t af[kPhK / 32][4];
     pm1_fragments(tile, r0, tq, af);
     pm1_product<NQ>(acc, af, q_addr);
@@ -970,9 +895,9 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
   extern __shared__ uint8_t tc_smem_raw[];
   constexpr bool kHam = KIND == kHamming;
   constexpr int kRing = chunk_stages(KIND);
-  constexpr int kRowB = chunk_row_bytes(KIND);
   constexpr int kQW = NQ / kChunkWarps;  // queries a warp owns in phase 2
-  const ChunkSmem L(KIND, NQ, a.cap);
+  const ChunkSmem L(KIND, NQ, a.cap, a.D);
+  const int row_b = chunk_row_bytes(KIND, a.D);
   uint8_t* sm = align_smem(tc_smem_raw);
   uint8_t* q_tile = sm + L.q;
   uint8_t* rows = sm + L.rows;
@@ -999,20 +924,29 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  // A tile (and the queries) by TMA: u8 rows in K1a's column chunks of
+  // cb bytes, the packed rows as one box.
+  const int cb = row_chunk(a.D);
   auto issue = [&](int t) {
     const int s = t % kRing;
-    mbar_expect_tx(full + s, kTileRows * kRowB);
-    tma_load_2d(rows + s * kTileRows * kRowB, &rows_map, full + s, 0, (tile0 + t) * kTileRows);
+    uint8_t* dst = rows + s * kTileRows * row_b;
+    mbar_expect_tx(full + s, kTileRows * row_b);
+    if constexpr (KIND == kU8) {
+      for (int c = 0; c < a.D / cb; ++c)
+        tma_load_2d(dst + c * kTileRows * cb, &rows_map, full + s, c * cb, (tile0 + t) * kTileRows);
+    } else {
+      tma_load_2d(dst, &rows_map, full + s, 0, (tile0 + t) * kTileRows);
+    }
   };
   if (tid == 0) {
     if constexpr (!kHam) {
-      mbar_expect_tx(qbar, NQ * kDim4);
-      tma_load_2d(q_tile, &q_map, qbar, 0, q0);
+      mbar_expect_tx(qbar, NQ * a.D);
+      for (int c = 0; c < a.D / cb; ++c) tma_load_2d(q_tile + c * NQ * cb, &q_map, qbar, c * cb, q0);
     }
     for (int t = 0; t < min(kRing, nt); ++t) issue(t);
   }
-  // The queries' B operand (K2b: expanded to ±1 here; K4b: by TMA) and
-  // their state: empty buffers, no τ, the filter of dist < max_distance.
+  // The queries' B operand (K2b: expanded to ±1 here; K1b, K4b: by TMA)
+  // and their state: empty buffers, no τ, the filter of dist < max_distance.
   if constexpr (kHam) stage_pm1_queries<NQ>(a.q_bytes, q0, a.Q, a.limit, q_tile, nullptr);
   for (int c = tid; c < NQ; c += kChunkThreads) {
     const int q = q0 + c;
@@ -1139,7 +1073,7 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
   ChunkRows cur, nxt;
   load_rows(0, nxt);
   const int n_pairs = (nt + 1) / 2;
-  if (wg < nt) chunk_product<NQ, KIND>(acc, rows, full, wg, r0, tq, q_addr);
+  if (wg < nt) chunk_product<NQ, KIND>(acc, rows, full, wg, r0, tq, q_addr, a.D);
   bool full_buf = false;  // one of this warp's buffers could overflow on the next pair
   for (int i = 0; i < n_pairs; ++i) {
     const int t = 2 * i + wg;  // this warpgroup's tile
@@ -1172,7 +1106,7 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
         if (2 * i + g + kRing < nt) issue(2 * i + g + kRing);
     }
     // The next pair's products run on the tensor cores under phase 2.
-    if (t + 2 < nt) chunk_product<NQ, KIND>(acc, rows, full, t + 2, r0, tq, q_addr);
+    if (t + 2 < nt) chunk_product<NQ, KIND>(acc, rows, full, t + 2, r0, tq, q_addr, a.D);
     if (prune_round) {
       for (int c = warp; c < NQ && q0 + c < a.Q; c += kChunkWarps)
         if (qv[c].n > min(a.k, a.cap - 4 * kTileRows) + 2 * kTileRows) prune(c, qv[c].n);
@@ -1181,7 +1115,7 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
     // every (query, row) the warp owns, all loads together; the keys only
     // where it passes.
     unsigned cheap = 0;  // bit 4j + 2g + h
-    int val[kQW][4];     // K2b: the diff; K4b: the centered dot
+    int val[kQW][4];     // K2b: the diff; K1b, K4b: the centered dot
 #pragma unroll
     for (int j = 0; j < kQW; ++j) {
       const int c = warp + kChunkWarps * j;
@@ -1200,7 +1134,7 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
                 val[j][2 * g + h] = diff;
                 pass = cur.ok[g][h] && diff <= v.lim;
               } else {
-                const int dot_c = centered_dot<KIND>(x, v.qs, cur.rs[g][h], kDim4);
+                const int dot_c = centered_dot<KIND>(x, v.qs, cur.rs[g][h], a.D);
                 val[j][2 * g + h] = dot_c;
                 pass = cur.ok[g][h] && __fmul_rn(__int2float_rn(dot_c), cur.rr[g][h]) > v.u;
               }
@@ -1322,106 +1256,6 @@ tc_chunk_topk_kernel(const __grid_constant__ CUtensorMap rows_map,
 
 // ---- Host side: TMA descriptors and launches
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A rank-1 or rank-2 map; zero fill out of bounds (padding rows, rows past
-// N, query rows past Q).  Returns 0 or kTensorMapError + the driver's code.
-int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
-               uint64_t dim0, uint64_t dim1, uint64_t stride1, uint32_t box0, uint32_t box1,
-               CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn fn = encoder();
-  if (fn == nullptr) return kTensorMapError;
-  const cuuint64_t dims[2] = {dim0, dim1};
-  const cuuint64_t strides[1] = {stride1};
-  const cuuint32_t box[2] = {box0, box1};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
-}
-
-// Opts a kernel into the device's largest dynamic shared memory, once per
-// (kernel, device), so that every launch of it may take what its layout
-// needs (an opt-in per size would let a smaller launch lower the limit
-// under a larger one's).
-template <typename Kernel>
-int allow_smem(Kernel kernel) {
-  struct Opt {
-    const void* kernel;
-    int dev;
-  };
-  static std::mutex mu;
-  static std::vector<Opt> done;
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const void* key = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Opt& o : done)
-    if (o.kernel == key && o.dev == dev) return 0;
-  int optin = 0;
-  rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (rc == cudaSuccess) rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  done.push_back(Opt{key, dev});
-  return 0;
-}
-
-// Persistent grid: as many blocks as fit on the SMs, at most one a tile.
-// The shared-memory opt-in and the occupancy query are host calls of some
-// microseconds; each (kernel, device, bytes) asks once.
-template <typename Kernel>
-int persistent_grid(Kernel kernel, size_t smem, int n_tiles, int* grid) {
-  struct Fit {
-    const void* kernel;
-    int dev;
-    size_t smem;
-    int blocks;
-  };
-  static std::mutex mu;
-  static std::vector<Fit> fits;
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const void* key = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = std::find_if(fits.begin(), fits.end(), [&](const Fit& f) {
-    return f.kernel == key && f.dev == dev && f.smem == smem;
-  });
-  if (it == fits.end()) {
-    const int opt = allow_smem(kernel);
-    if (opt != 0) return opt;
-    int sms = 0, per_sm = 0;
-    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTcThreads, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    it = fits.insert(fits.end(), Fit{key, dev, smem, std::max(1, per_sm) * sms});
-  }
-  *grid = std::min(n_tiles, it->blocks);
-  return 0;
-}
-
 template <int NQ, int KIND>
 int launch_tc_cosine(const CUtensorMap& rows, const CUtensorMap& qm, const void* q_codes,
                      const void* q_sum, const void* q_mag2, const void* qr, const void* theta,
@@ -1469,13 +1303,13 @@ int chunk_cap(int k) {
 
 // The query tile of a chunk block: the widest of 8..64 (Q padded up) whose
 // shared memory stays within kChunkSmemTarget, else 8.
-int chunk_query_tile(int kind, int Q, int cap) {
+int chunk_query_tile(int kind, int Q, int cap, int d) {
   int nq = Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
-  while (nq > 8 && ChunkSmem(kind, nq, cap).total + 1024 > kChunkSmemTarget) nq /= 2;
+  while (nq > 8 && ChunkSmem(kind, nq, cap, d).total + 1024 > kChunkSmemTarget) nq /= 2;
   return nq;
 }
 
-// The blocks a chunk is split over: doubled (up to 8, parts of 2,048 rows
+// The blocks a chunk is split over: doubled (up to 8, parts of 1,024 rows
 // or more) while the grid has fewer blocks than SMs.
 int chunk_splits(int q_tiles, int n_chunks, int R) {
   int dev = 0, sms = 0;
@@ -1484,7 +1318,7 @@ int chunk_splits(int q_tiles, int n_chunks, int R) {
     sms = 132;
   int splits = 1;
   while (splits < 8 && static_cast<long long>(q_tiles) * n_chunks * splits < sms &&
-         R / (2 * splits) >= 2048)
+         R / (2 * splits) >= 1024)
     splits *= 2;
   return splits;
 }
@@ -1495,7 +1329,7 @@ bool chunk_args_ok(int kind, const ChunkArgs& a, int nq) {
          (a.splits == 1 || a.splits == 2 || a.splits == 4 || a.splits == 8) &&
          a.R % (a.splits * 2 * kTileRows) == 0 &&
          (a.splits == 1 || (a.part_keys != nullptr && a.part_n != nullptr && a.tickets != nullptr)) &&
-         ChunkSmem(kind, nq, a.cap).total + 1024 <= 227 * 1024;
+         ChunkSmem(kind, nq, a.cap, a.D).total + 1024 <= 227 * 1024;
 }
 
 template <int NQ, int KIND>
@@ -1512,13 +1346,14 @@ int launch_tc_chunk(const CUtensorMap& rows, const CUtensorMap& qm, const ChunkA
 int launch_chunk(int kind, int nq, const CUtensorMap& rows, const CUtensorMap& qm, const ChunkArgs& a,
                  void* stream) {
   if (!chunk_args_ok(kind, a, nq)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ChunkSmem(kind, nq, a.cap).total + 1024;
+  const size_t smem = ChunkSmem(kind, nq, a.cap, a.D).total + 1024;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nq * 4 + kind) {
 #define PX_TC_CHUNK_KIND(n, kd) \
   case n * 4 + kd:              \
     return launch_tc_chunk<n, kd>(rows, qm, a, smem, st);
 #define PX_TC_CHUNK(n)           \
+  PX_TC_CHUNK_KIND(n, kU8)       \
   PX_TC_CHUNK_KIND(n, kInt4Asym) \
   PX_TC_CHUNK_KIND(n, kInt4Sym)  \
   PX_TC_CHUNK_KIND(n, kHamming)
@@ -1554,10 +1389,10 @@ PX_EXPORT int px_tc_cosine_collect(const void* q_codes, const void* q_sum, const
   const int rb = row_bytes(kind, D);
   CUtensorMap rows, qm;
   int rc = kind == kU8
-               ? encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, D, N, D, cb, kTileRows, sw)
-               : encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, rb, N, rb, rb, kTileRows,
+               ? encode_map(&rows, 2, data, D, N, D, cb, kTileRows, sw)
+               : encode_map(&rows, 2, data, rb, N, rb, rb, kTileRows,
                             CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (rc == 0) rc = encode_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q_codes, D, Q, D, cb, nq, sw);
+  if (rc == 0) rc = encode_map(&qm, 2, q_codes, D, Q, D, cb, nq, sw);
   if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nq * 4 + kind) {
@@ -1591,10 +1426,10 @@ PX_EXPORT int px_tc_hamming_collect(const void* q_bytes, const void* theta, cons
   if (H != kPhBytes || limit <= 0 || limit > kPhBytes) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || Q <= 0) return 0;
   CUtensorMap rows, ok;
-  int rc = encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, kPhBytes, N, kPhBytes,
+  int rc = encode_map(&rows, 2, data, kPhBytes, N, kPhBytes,
                       kPhBytes, kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc == 0)
-    rc = encode_map(&ok, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, row_ok, N, 1, 16, kTileRows, 1,
+    rc = encode_map(&ok, 1, row_ok, N, 1, 16, kTileRows, 1,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1618,16 +1453,17 @@ PX_EXPORT int px_tc_hamming_collect(const void* q_bytes, const void* theta, cons
 }
 
 
-// The launch plan of a chunk top-k (kind 1 / 2: K4b asym / sym, 3: K2b)
-// over N rows in chunks of R, for Q queries and k: plan[0] the query tile,
-// plan[1] the blocks a chunk is split over (> 1: the caller passes the
-// parts' buffers [Q, n_chunks, splits, k] keys and [Q, n_chunks, splits]
-// counts, and zeroed tickets [ceil(Q / plan[0]), n_chunks]).
-PX_EXPORT int px_tc_chunk_plan(int kind, int Q, int N, int R, int k, int* plan) {
-  if ((kind != kInt4Asym && kind != kInt4Sym && kind != kHamming) || Q <= 0 || N <= 0 || R <= 0 ||
-      k < 1 || k > 1024)
+// The launch plan of a chunk top-k (kind 0: K1b, u8 rows of D bytes; 1 /
+// 2: K4b asym / sym; 3: K2b) over N rows in chunks of R, for Q queries and
+// k: plan[0] the query tile, plan[1] the blocks a chunk is split over (>
+// 1: the caller passes the parts' buffers [Q, n_chunks, splits, k] keys
+// and [Q, n_chunks, splits] counts, and zeroed tickets [ceil(Q / plan[0]),
+// n_chunks]).
+PX_EXPORT int px_tc_chunk_plan(int kind, int Q, int N, int D, int R, int k, int* plan) {
+  if (kind < kU8 || kind > kHamming || (kind == kU8 && D != 32 && D != 64 && D != 128) || Q <= 0 ||
+      N <= 0 || R <= 0 || k < 1 || k > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  plan[0] = chunk_query_tile(kind, Q, chunk_cap(k));
+  plan[0] = chunk_query_tile(kind, Q, chunk_cap(k), D);
   plan[1] = chunk_splits((Q + plan[0] - 1) / plan[0], (N + R - 1) / R, R);
   return 0;
 }
@@ -1645,7 +1481,7 @@ PX_EXPORT int px_tc_hamming_chunk_topk(const void* q_bytes, float max_distance, 
   if (H != kPhBytes || limit <= 0 || limit > kPhBytes) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || Q <= 0) return 0;
   CUtensorMap rows;
-  const int rc = encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, kPhBytes, N, kPhBytes,
+  const int rc = encode_map(&rows, 2, data, kPhBytes, N, kPhBytes,
                             kPhBytes, kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc != 0) return rc;
   ChunkArgs a{};
@@ -1670,26 +1506,28 @@ PX_EXPORT int px_tc_hamming_chunk_topk(const void* q_bytes, float max_distance, 
   return launch_chunk(kHamming, nq, rows, rows, a, stream);
 }
 
-// K4b on the tensor cores: packed int4 rows uint8 [N, 64] (D = 128;
-// 16-byte aligned), meta int32 [4, N], queries int8 [Q, 128] (16-byte
-// aligned; u8 - 128 codes for kind 1, asym, or 4-bit codes for kind 2,
-// sym); chunks, plan and outputs as px_tc_hamming_chunk_topk.
-PX_EXPORT int px_tc_cosine4_chunk_topk(const void* q_codes, const void* q_sum, const void* q_mag2,
-                                       const void* qr, float max_distance, const void* data,
-                                       const void* meta, int Q, int N, int D, int sym, int R,
-                                       int k, int n_chunks, int nq, int splits, void* part_keys,
-                                       void* part_n, void* tickets, float key_scale,
-                                       float saturation, float key_loose, void* out_d, void* out_i,
-                                       void* stream) {
-  if (D != kDim4 || (nq != 8 && nq != 16 && nq != 32 && nq != 64))
-    return static_cast<int>(cudaErrorInvalidValue);
+// K1b and K4b on the tensor cores: kind 0 (K1b) u8 rows int8 [N, D] (D =
+// 32, 64 or 128; 16-byte aligned), kind 1 / 2 (K4b asym / sym) packed int4
+// rows uint8 [N, 64] (D = 128); meta int32 [4, N]; queries int8 [Q, D]
+// (16-byte aligned; u8 - 128 codes, or 4-bit codes for kind 2); chunks,
+// plan and outputs as px_tc_hamming_chunk_topk.
+PX_EXPORT int px_tc_cosine_chunk_topk(const void* q_codes, const void* q_sum, const void* q_mag2,
+                                      const void* qr, float max_distance, const void* data,
+                                      const void* meta, int Q, int N, int D, int kind, int R,
+                                      int k, int n_chunks, int nq, int splits, void* part_keys,
+                                      void* part_n, void* tickets, float key_scale,
+                                      float saturation, float key_loose, void* out_d, void* out_i,
+                                      void* stream) {
+  const bool ok = kind == kU8 ? (D == 32 || D == 64 || D == 128)
+                              : (kind == kInt4Asym || kind == kInt4Sym) && D == kDim4;
+  if (!ok || (nq != 8 && nq != 16 && nq != 32 && nq != 64)) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || Q <= 0) return 0;
+  const int cb = row_chunk(D), rb = kind == kU8 ? D : D / 2;
+  const CUtensorMapSwizzle sw = cb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
   CUtensorMap rows, qm;
-  int rc = encode_map(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, data, kDim4 / 2, N, kDim4 / 2,
-                      kDim4 / 2, kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (rc == 0)
-    rc = encode_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q_codes, kDim4, Q, kDim4, kDim4, nq,
-                    CU_TENSOR_MAP_SWIZZLE_128B);
+  int rc = kind == kU8 ? encode_map(&rows, 2, data, D, N, D, cb, kTileRows, sw)
+                       : encode_map(&rows, 2, data, rb, N, rb, rb, kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc == 0) rc = encode_map(&qm, 2, q_codes, D, Q, D, cb, nq, sw);
   if (rc != 0) return rc;
   ChunkArgs a{};
   a.q_sum = static_cast<const int*>(q_sum);
@@ -1699,6 +1537,7 @@ PX_EXPORT int px_tc_cosine4_chunk_topk(const void* q_codes, const void* q_sum, c
   a.max_distance = max_distance;
   a.Q = Q;
   a.N = N;
+  a.D = D;
   a.R = R;
   a.k = k;
   a.cap = chunk_cap(k);
@@ -1712,5 +1551,5 @@ PX_EXPORT int px_tc_cosine4_chunk_topk(const void* q_codes, const void* q_sum, c
   a.part_keys = static_cast<unsigned long long*>(part_keys);
   a.part_n = static_cast<int*>(part_n);
   a.tickets = static_cast<int*>(tickets);
-  return launch_chunk(sym ? kInt4Sym : kInt4Asym, nq, rows, qm, a, stream);
+  return launch_chunk(kind, nq, rows, qm, a, stream);
 }

@@ -12,8 +12,10 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
   tensor cores (int8 ``wgmma``) at the rows of :data:`TC_COSINE_DIMS`
   bytes, on the first port's ``__dp4a`` kernel at other widths.
 - **K1b** :func:`cosine_chunk_topk` — the same dot and epilogue with
-  θ = max_distance; each block sorts its row chunk by (dist, id) in shared
-  memory and keeps the chunk's first k (the first port's design).
+  θ = max_distance: per row chunk, its first k by (dist, id).  On the
+  tensor cores at :data:`TC_COSINE_DIMS` (the select design below), on
+  the first port's ``__dp4a`` kernel at other widths
+  (:func:`cosine_chunk_topk_dp4a`, which sorts every 1,024-row chunk).
 - **K1c** :func:`lex_topk` through :func:`lex_topk_select` — the first k
   of each query's candidates by (dist, id) in one launch for up to
   :data:`SELECT_SLOTS` of them (a longer row: its slices' top-k, then a
@@ -41,8 +43,8 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
   :data:`TC_COSINE4_DIMS` (the rows unpacked into ``wgmma``'s A
   fragment), on the first port's ``__dp4a`` kernels at other widths.  K1c
   finishes both.
-- The tensor-core K2b and K4b (``csrc/tc_scan.cu`` ``tc_chunk_topk_kernel``)
-  select instead of sorting: per query a shared buffer of the keys below
+- The tensor-core K1b, K2b and K4b (``csrc/tc_scan.cu``
+  ``tc_chunk_topk_kernel``) select instead of sorting: per query a shared buffer of the keys below
   the k-th so far, a cheap filter on the integer product before the exact
   distance, and a radix select of the k-th (``csrc/select_device.cuh``)
   when the buffer fills; their chunk (:func:`tc_chunk_rows`, from
@@ -93,18 +95,18 @@ read the rows once per 256 queries and multiply on the tensor cores;
 past the product, a branch-free filter of every (query, row) pair on the
 accumulators (a few f32 / integer operations a pair) is their cost, and
 only its survivors take the exact distance (ops bound at Q >= 256, HBM
-read bound below).  The tensor-core K2b and K4b multiply the same way;
-past the product their cost is the selection (the buffers' radix selects
-and the exact distances of the rows that enter before the k-th
+read bound below).  The tensor-core K1b, K2b and K4b multiply the same
+way; past the product their cost is the selection (the buffers' radix
+selects and the exact distances of the rows that enter before the k-th
 tightens), not the chunk's length.  K1c is bound by its launch and the
-filled entries' bytes.  K1b (and the first port's K2b / K4b, kept as
-timing references and for other widths) reads the index once per 4
-queries and bitonic-sorts every slot of each :data:`CHUNK_ROWS`-row
-chunk — bound by that sort; K1d/K4d are the ``__dp4a`` K4a's loop
-without the divide, clamp and pin; K1e is bound by its gathered rows.
-The design keeps distances out of device memory (only θ-passing rows or
-each chunk's top-k are written); K1b on the tensor cores, and fusing the
-collects with K1c, are later work (ROADMAP.md).
+filled entries' bytes.  The first port's K1b / K2b / K4b, kept as timing
+references and for other widths, read the index once per 4 queries and
+bitonic-sort every slot of each :data:`CHUNK_ROWS`-row chunk — bound by
+that sort; K1d/K4d are the ``__dp4a`` K4a's loop without the divide,
+clamp and pin; K1e is bound by its gathered rows.  The design keeps
+distances out of device memory (only θ-passing rows or each chunk's
+top-k are written); fusing the collects with K1c is later work
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -151,10 +153,10 @@ TC_COSINE_DIMS = (32, 64, 128)
 TC_COSINE4_DIMS = (128,)
 #: Hash width (bytes) the tensor-core K2a takes: the published 16x16 phash.
 TC_HAMMING_BYTES = 32
-#: Rows per chunk of K1b and of the first port's K2b / K4b (power of
-#: two); the chunk keeps its first k.
+#: Rows per chunk of the first port's K1b / K2b / K4b (power of two); the
+#: chunk keeps its first k.
 CHUNK_ROWS = 1024
-#: The least chunk of the tensor-core K2b / K4b (rows, a multiple of the
+#: The least chunk of the tensor-core K1b / K2b / K4b (rows, a multiple of the
 #: 64-row tile); :func:`tc_chunk_rows` doubles it until K1c takes the
 #: partials in one launch.
 TC_CHUNK_ROWS = 8192
@@ -223,8 +225,8 @@ def load_kernels() -> _Kernels:
 
 
 def load_tc_kernels() -> _Kernels:
-    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K2b and
-    K4b) for sm_90a into its own library, beside :func:`load_kernels`'s,
+    """Compile ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K1b, K2b
+    and K4b) for sm_90a into its own library, beside :func:`load_kernels`'s,
     so the two build in parallel.  Raises on any failure."""
     global _TC_KERNELS
     with _TC_KERNELS_LOCK:
@@ -236,13 +238,13 @@ def load_tc_kernels() -> _Kernels:
             kern.lib.px_tc_hamming_collect.restype = ci
             kern.lib.px_tc_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
             kern.lib.px_tc_chunk_plan.restype = ci
-            kern.lib.px_tc_chunk_plan.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+            kern.lib.px_tc_chunk_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
             kern.lib.px_tc_hamming_chunk_topk.restype = ci
             kern.lib.px_tc_hamming_chunk_topk.argtypes = (
                 [vp, cf, vp, vp] + [ci] * 5 + [cf] + [ci] * 5 + [vp] * 6
             )
-            kern.lib.px_tc_cosine4_chunk_topk.restype = ci
-            kern.lib.px_tc_cosine4_chunk_topk.argtypes = (
+            kern.lib.px_tc_cosine_chunk_topk.restype = ci
+            kern.lib.px_tc_cosine_chunk_topk.argtypes = (
                 [vp] * 4 + [cf, vp, vp] + [ci] * 9 + [vp] * 3 + [cf] * 3 + [vp] * 3
             )
             _TC_KERNELS = kern
@@ -358,6 +360,7 @@ LAUNCHES = {
     "cosine_threshold_collect": 0,
     "cosine_threshold_collect_dp4a": 0,
     "cosine_chunk_topk": 0,
+    "cosine_chunk_topk_dp4a": 0,
     "lex_topk_select": 0,
     "lex_topk_segments": 0,
     "hamming_threshold_collect": 0,
@@ -415,9 +418,11 @@ def unpack_u4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([packed & 0xF, packed >> 4], dim=-1).to(torch.int8)
 
 
-#: The cosine kinds (the JAX package's names) and their codes in the
-#: kernels' C interface (``kU8``, ``kInt4Asym``, ``kInt4Sym``).
-_KIND_CODES = {"cosine": 0, "cosine4a": 1, "cosine4": 2}
+#: The kinds (the JAX package's names) and their codes in the kernels' C
+#: interface (``kU8``, ``kInt4Asym``, ``kInt4Sym``; ``kHamming`` only the
+#: tensor-core chunk kernel's).
+_KIND_CODES = {"cosine": 0, "cosine4a": 1, "cosine4": 2, "hamming": 3}
+_COSINE_KINDS = ("cosine", "cosine4a", "cosine4")
 
 
 def _centered(kind: str, dot8, qs, rs, d: int):
@@ -622,19 +627,64 @@ def _collect_plain(tile, qn, n, theta, cap, block):
 
 
 def cosine_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, k: int):
-    """Per row chunk of :data:`CHUNK_ROWS`, the exact top-k by (dist, id) of
-    {valid rows with dist < max_distance}: ([Q, n_chunks, k] f32,
-    [Q, n_chunks, k] i32), missing entries +inf / -1.
+    """K1b: per row chunk, the exact top-k by (dist, id) of {valid rows
+    with dist < max_distance}: ([Q, n_chunks, k] f32, [Q, n_chunks, k]
+    i32), missing entries +inf / -1 last.  At :data:`TC_COSINE_DIMS` the
+    chunk is :func:`tc_chunk_rows` rows and a chunk's k are listed in row
+    order; at other widths :data:`CHUNK_ROWS` rows, by (dist, id)
+    (:func:`cosine_chunk_rows`).
 
     Replaces ``pallas_scan.py:_threshold_kernel`` as launched by
-    ``pallas_cosine_scan_topk`` (θ = max_distance).  Bound on the card by
-    the dot and by the shared-memory bitonic sort of each 1024-row chunk
-    (4 queries a block); the index is read once per 4 queries.
+    ``pallas_cosine_scan_topk`` (θ = max_distance).  On the card, rows of
+    :data:`TC_COSINE_DIMS` bytes (the main path's 128, and 32 and 64) go
+    to the tensor-core K1b (``csrc/tc_scan.cu`` ``tc_chunk_topk_kernel``:
+    K1a's product on int8 ``wgmma``, then per query a shared buffer of the
+    keys below the k-th so far, filtered by K1a's key bound and pruned by
+    a radix select; its work past the product follows the rows under the
+    k-th and k); other widths to the first port's ``__dp4a`` kernel
+    (:func:`cosine_chunk_topk_dp4a`, its own launch count).
     """
     dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
     md = float(np.float32(max_distance))
     if dev.type != "cuda":
         return cosine_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, md, data, meta, k)
+    if k > MAX_K:
+        raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
+    if d not in TC_COSINE_DIMS:
+        return cosine_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, md, data, meta, k)
+    return _tc_cosine_chunk("cosine_chunk_topk", "cosine", q_codes, q_sum, q_mag2, qr, md, data, meta, k)
+
+
+def _tc_cosine_chunk(name, kind, q_codes, q_sum, q_mag2, qr, md, data, meta, k):
+    """Launch the tensor-core K1b (kind "cosine") or K4b ("cosine4a",
+    "cosine4") through ``px_tc_cosine_chunk_topk``: ([Q, n_chunks, k]
+    f32, [Q, n_chunks, k] i32) at :func:`tc_chunk_rows`."""
+    dev = data.device
+    qn, d = q_codes.shape
+    n = data.shape[0]
+    if q_codes.data_ptr() % 16:  # a TMA source: copy an unaligned view
+        q_codes = q_codes.clone()
+    with torch.cuda.device(dev):
+        kern, plan, (out_d, out_i, _parts) = _tc_chunk_launch(kind, qn, n, d, k, dev)
+        rc = kern.lib.px_tc_cosine_chunk_topk(
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2), _ptr(qr), md,
+            _ptr(data), _ptr(meta), qn, n, d, _KIND_CODES[kind], *plan,
+            _KEY_SCALE, DIST_SATURATION, KEY_LOOSE,
+            _ptr(out_d), _ptr(out_i), _stream(dev),
+        )
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out_d, out_i
+
+
+def cosine_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, k: int):
+    """K1b on the first port's ``__dp4a`` kernel (``fused_scan.cu``
+    ``chunk_topk_kernel``: 4 queries a block, a bitonic sort of every slot
+    of each :data:`CHUNK_ROWS`-row chunk; the index read once per 4
+    queries), for CUDA tensors only: :func:`cosine_chunk_topk`'s path for
+    widths outside :data:`TC_COSINE_DIMS`, and the timing reference of the
+    tensor-core kernel.  Same contract at a chunk of :data:`CHUNK_ROWS`."""
+    dev, qn, n, d = _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta)
     if k > MAX_K:
         raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
     kern = load_kernels()
@@ -644,29 +694,38 @@ def cosine_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, k: i
     q_mag2f = q_mag2.to(torch.float32)
     with torch.cuda.device(dev):
         rc = kern.lib.px_chunk_topk(
-            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), md,
+            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2f), _ptr(qr), float(np.float32(max_distance)),
             _ptr(data), _ptr(meta), qn, n, d, CHUNK_ROWS, k, n_chunks,
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
-    _check(rc, "cosine_chunk_topk")
-    LAUNCHES["cosine_chunk_topk"] += 1
+    _check(rc, "cosine_chunk_topk_dp4a")
+    LAUNCHES["cosine_chunk_topk_dp4a"] += 1
     return out_d, out_i
 
 
+def cosine_chunk_rows(d: int, n: int, k: int) -> int:
+    """The chunk of the K1b kernel that u8 rows of d bytes take:
+    :func:`tc_chunk_rows` on the tensor cores, :data:`CHUNK_ROWS` on the
+    first port's kernel."""
+    return tc_chunk_rows(n, k) if d in TC_COSINE_DIMS else CHUNK_ROWS
+
+
 def cosine_chunk_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, k):
-    """Plain PyTorch version of K1b."""
+    """Plain PyTorch version of K1b, as the kernel its width takes lays it
+    out: at :data:`TC_COSINE_DIMS` a chunk of :func:`tc_chunk_rows`, its
+    first k listed in row order; at other widths the first port's chunk of
+    :data:`CHUNK_ROWS`, by (dist, id)."""
+    n, d = data.shape
     return _chunk_topk_plain(
         lambda lo, hi: _tile_dist(q_codes, q_sum, q_mag2, qr, data[lo:hi], meta[:, lo:hi]),
-        q_codes.shape[0], data.shape[0], max_distance, k, data.device, CHUNK_ROWS, False,
+        q_codes.shape[0], n, max_distance, k, data.device, cosine_chunk_rows(d, n, k),
+        d in TC_COSINE_DIMS,
     )
 
 
-#: The tensor-core chunk kernel's kinds (``px_tc_chunk_plan``).
-_CHUNK_KINDS = {"cosine4a": 1, "cosine4": 2, "hamming": 3}
-
-
-def _tc_chunk_launch(kind: str, qn: int, n: int, k: int, dev):
-    """Plan of a tensor-core K2b / K4b launch over n rows: (rows a chunk,
+def _tc_chunk_launch(kind: str, qn: int, n: int, d: int, k: int, dev):
+    """Plan of a tensor-core K1b / K2b / K4b launch over n rows of width d
+    (u8 bytes, int4 dims or hash bytes): (rows a chunk,
     its args for the C entry — query tile, splits and the parts' buffers —
     and the [Q, n_chunks, k] outputs).  A chunk the plan splits over
     several blocks (few queries: one block a chunk would leave SMs idle)
@@ -675,7 +734,7 @@ def _tc_chunk_launch(kind: str, qn: int, n: int, k: int, dev):
     kern = load_tc_kernels()
     rows = tc_chunk_rows(n, k)
     plan = (ctypes.c_int * 2)()
-    _check(kern.lib.px_tc_chunk_plan(_CHUNK_KINDS[kind], qn, n, rows, k, plan), f"{kind} chunk plan")
+    _check(kern.lib.px_tc_chunk_plan(_KIND_CODES[kind], qn, n, d, rows, k, plan), f"{kind} chunk plan")
     nq, splits = plan[0], plan[1]
     n_chunks = -(-n // rows)
     parts = []
@@ -692,7 +751,7 @@ def _tc_chunk_launch(kind: str, qn: int, n: int, k: int, dev):
 
 
 def tc_chunk_rows(n: int, k: int) -> int:
-    """Rows per chunk of the tensor-core K2b / K4b over n rows: the least
+    """Rows per chunk of the tensor-core K1b / K2b / K4b over n rows: the least
     power of two from :data:`TC_CHUNK_ROWS` at which K1c takes the
     ``[Q, ceil(n / rows), k]`` partials in one launch (``ceil(n / rows) · k
     <= SELECT_SLOTS``), or one chunk of all n rows."""
@@ -823,21 +882,10 @@ def cosine4_chunk_topk(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym
         raise ValueError(f"k={k} exceeds the scan kernels' limit of {MAX_K}")
     if d not in TC_COSINE4_DIMS:
         return cosine4_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, md, data, meta, sym, k)
-    if q_codes.data_ptr() % 16:  # a TMA source: copy an unaligned view
-        q_codes = q_codes.clone()
-    with torch.cuda.device(dev):
-        kern, plan, (out_d, out_i, _parts) = _tc_chunk_launch(
-            "cosine4" if sym else "cosine4a", qn, n, k, dev
-        )
-        rc = kern.lib.px_tc_cosine4_chunk_topk(
-            _ptr(q_codes), _ptr(q_sum), _ptr(q_mag2), _ptr(qr), md,
-            _ptr(data), _ptr(meta), qn, n, d, int(sym), *plan,
-            _KEY_SCALE, DIST_SATURATION, KEY_LOOSE,
-            _ptr(out_d), _ptr(out_i), _stream(dev),
-        )
-    _check(rc, "cosine4_chunk_topk")
-    LAUNCHES["cosine4_chunk_topk"] += 1
-    return out_d, out_i
+    return _tc_cosine_chunk(
+        "cosine4_chunk_topk", "cosine4" if sym else "cosine4a",
+        q_codes, q_sum, q_mag2, qr, md, data, meta, k,
+    )
 
 
 def cosine4_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, data, meta, sym: bool, k: int):
@@ -1054,8 +1102,8 @@ def coskey_rescore(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind: str, len
     are K1a's device functions, so the distances are bit-identical to
     K1a's.  On the card: one thread per slot, bound by the gathered rows
     (min(count, cap) per query) and the [Q, cap] output."""
-    if kind not in _KIND_CODES:
-        raise ValueError(f"no cos key for kind {kind!r} (cosine kinds: {sorted(_KIND_CODES)})")
+    if kind not in _COSINE_KINDS:
+        raise ValueError(f"no cos key for kind {kind!r} (cosine kinds: {sorted(_COSINE_KINDS)})")
     dev, qn, n, d = _check_query_args(
         q_codes, q_sum, q_mag2, qr, data, meta, packed=kind != "cosine"
     )
@@ -1436,7 +1484,7 @@ def hamming_chunk_topk(q, max_distance, data, meta, byte_limit: int, wrap_u8: bo
     if h != TC_HAMMING_BYTES:
         return hamming_chunk_topk_popc(q, md, data, meta, byte_limit, wrap_u8, k)
     with torch.cuda.device(dev):
-        kern, plan, (out_d, out_i, _parts) = _tc_chunk_launch("hamming", qn, n, k, dev)
+        kern, plan, (out_d, out_i, _parts) = _tc_chunk_launch("hamming", qn, n, h, k, dev)
         rc = kern.lib.px_tc_hamming_chunk_topk(
             _ptr(q), md, _ptr(data), _ptr(meta), qn, n, h, byte_limit,
             int(wrap_u8), hamming_scale(byte_limit), *plan,

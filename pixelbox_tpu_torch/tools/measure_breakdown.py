@@ -3,9 +3,9 @@
 
     python -m pixelbox_tpu_torch.tools.measure_breakdown
 
-A ladder of one hand-written kernel (``csrc/breakdown.cu``, the port of
-that script's ``_ablate_kernel``), templated on the rung, at Q = 256 ×
-1,048,576 × 128 with TILE = 8,192:
+A ladder of one hand-written kernel (``csrc/breakdown.cu``
+``tc_ladder_kernel``, the port of that script's ``_ablate_kernel``),
+templated on the rung, at Q = 256 × 1,048,576 × 128 with TILE = 8,192:
 
   gemm      the int8 product only (lanes 0..127 of each tile, plus the
             [Q] int64 sum of every dot, which keeps the whole product)
@@ -16,8 +16,12 @@ that script's ``_ablate_kernel``), templated on the rung, at Q = 256 ×
 
 then the θ stage alone (``fused_scan.sample_theta``) and the shipping
 threshold scan (``fused_scan.fused_threshold_scan_topk``, k = 100).  The
-kernel is built from K1a's own device functions and tiling, so
-differences between rungs are K1a's stages.  Each timing is CUDA events
+kernel is built from the shipping K1a's product (``csrc/tc_scan.cu``: the
+TMA ring, int8 ``wgmma`` with the rows K-major as A and up to 256 queries
+as B, the exact f32 centered dot from the accumulators), so differences
+between rungs are K1a's stages.  A 64-row sub-tile is one lane's 64
+registers of a tile (rows 128 apart, a 3-D TMA box), so that the chain
+walks each lane's registers in order.  Each timing is CUDA events
 around 20 launches on 20 distinct query batches, divided by 20; the
 null floor is one trivial launch timed the same way.  Prints one JSON
 line with the JAX script's keys and the card's ``nvidia-smi`` name and
@@ -26,6 +30,8 @@ power limit.
 :func:`ladder` is the kernel's wrapper: a CUDA tensor goes to the kernel
 (or it raises), a CPU tensor to :func:`ladder_plain`, its plain PyTorch
 version, which follows the JAX kernel op for op (tiles summed in order).
+:func:`ladder_dp4a` launches the first port's ladder (``ladder_kernel``,
+the ``__dp4a`` K1a's staged-query loop), kept as the timing reference.
 """
 
 from __future__ import annotations
@@ -53,13 +59,17 @@ N_ROWS, DIM, K, Q = 1 << 20, 128, 100, 256
 TILE = 8192
 ITERS = 20
 LANES = 128
+#: The most 128-row registers a tile holds: the tensor-core kernel's
+#: 64-row sub-tile is one lane's registers (8,192 rows a tile).
+MAX_REGS = 64
 #: The JAX kernel's constants: the stand-in query rsqrt, the epilogue's
 #: distance filter and the cos key's filter.
 QR, THETA, KEY_THETA = 1e-3, 0.02, -0.5
 
-#: Launch count of the ladder kernel (one per wrapper call that launches;
-#: CPU tensors, which take the plain version, do not count).
-LAUNCHES = {"breakdown_ladder": 0}
+#: Launch counts of the ladder kernel and of the first port's (one per
+#: wrapper call that launches; CPU tensors, which take the plain version,
+#: do not count).
+LAUNCHES = {"breakdown_ladder": 0, "breakdown_ladder_dp4a": 0}
 
 _KERNELS: Optional[fs._Kernels] = None
 _KERNELS_LOCK = threading.Lock()
@@ -67,12 +77,15 @@ _KERNELS_LOCK = threading.Lock()
 
 def load_kernels() -> fs._Kernels:
     """Compile ``csrc/breakdown.cu`` for sm_90a (once per content) and bind
-    ``px_ladder``.  Raises on any failure — there is no fallback."""
+    ``px_tc_ladder`` and the first port's ``px_ladder``.  Raises on any
+    failure — there is no fallback."""
     global _KERNELS
     with _KERNELS_LOCK:
         if _KERNELS is None:
             kern = fs.build_library(("breakdown.cu",), "libpixelbox_breakdown")
             vp, ci = ctypes.c_void_p, ctypes.c_int
+            kern.lib.px_tc_ladder.restype = ci
+            kern.lib.px_tc_ladder.argtypes = [ci] + [vp] * 5 + [ci] * 4 + [vp] * 8
             kern.lib.px_ladder.restype = ci
             kern.lib.px_ladder.argtypes = [ci] + [vp] * 5 + [ci] * 4 + [vp] * 9
             _KERNELS = kern
@@ -90,9 +103,11 @@ def _check_args(rung, q_codes, q_sum, q_mag2, data, meta, tile_rows):
     fs._require(q_mag2, "q_mag2", torch.int32, (qn,), dev)
     fs._require(data, "data", torch.int8, (n, d), dev)
     fs._require(meta, "meta", torch.int32, (4, n), dev)
+    if d != DIM:
+        raise ValueError(f"dim {d}: the ladder takes rows of {DIM} bytes")
     regs = tile_rows // LANES
-    if tile_rows % LANES or regs < 2 or regs > 256 or regs & (regs - 1):
-        raise ValueError(f"tile_rows {tile_rows}: needs 128·2^j rows, 2 <= 2^j <= 256")
+    if tile_rows % LANES or regs < 2 or regs > MAX_REGS or regs & (regs - 1):
+        raise ValueError(f"tile_rows {tile_rows}: needs 128·2^j rows, 2 <= 2^j <= {MAX_REGS}")
     if n % tile_rows:
         raise ValueError(f"{n} rows is not a multiple of tile_rows {tile_rows}")
     return dev, qn, n, d
@@ -107,17 +122,56 @@ def ladder(rung: str, q_codes, q_sum, q_mag2, data, meta, tile_rows: int = TILE)
     the others).
 
     Replaces ``scripts/measure_breakdown.py:_ablate_kernel`` (launch
-    :127).  On the card: K1a's tiling and its ``__dp4a`` dot, then per
-    rung its epilogue stages; bound like K1a by the int8 dot at Q >= 32.
+    :127).  On the card: ``tc_ladder_kernel``, the shipping K1a's int8
+    ``wgmma`` product over rows of :data:`DIM` bytes, then per rung its
+    stages on the accumulators, at tiles of at most 8,192 rows
+    (:data:`MAX_REGS` registers); bound by the rows' bytes and the int8
+    product for gemm, by each rung's work on every pair past it.
     """
     dev, qn, n, d = _check_args(rung, q_codes, q_sum, q_mag2, data, meta, tile_rows)
     if dev.type != "cuda":
         return ladder_plain(rung, q_codes, q_sum, q_mag2, data, meta, tile_rows)
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned")
+    if q_codes.data_ptr() % 16:  # a TMA source: copy an unaligned view
+        q_codes = q_codes.clone()
+    kern = load_kernels()
+    t = n // tile_rows
+    one = torch.empty(1, dtype=torch.int32, device=dev)  # stands in for unused scratch
+    part_dot = part_min = part_lmin = part_l2min = part_meta = one
+    if rung == "gemm":
+        part_dot = torch.empty((t, LANES, qn), dtype=torch.int32, device=dev)
+    elif rung == "chain":
+        part_lmin = torch.empty((t, LANES, qn), dtype=torch.float32, device=dev)
+        part_l2min = torch.empty_like(part_lmin)
+        part_meta = torch.empty((t, LANES, qn), dtype=torch.int32, device=dev)
+    else:
+        part_min = torch.full((t, qn), -1, dtype=torch.int32, device=dev)
+    out = torch.empty((qn, LANES), dtype=torch.float32, device=dev)
+    dot_sum = torch.zeros(qn, dtype=torch.int64, device=dev)
+    q_mag2f = q_mag2.to(torch.float32)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_tc_ladder(
+            RUNGS.index(rung), fs._ptr(q_codes), fs._ptr(q_sum), fs._ptr(q_mag2f), fs._ptr(data),
+            fs._ptr(meta), qn, n, d, tile_rows, fs._ptr(part_dot), fs._ptr(part_min),
+            fs._ptr(part_lmin), fs._ptr(part_l2min), fs._ptr(part_meta), fs._ptr(out),
+            fs._ptr(dot_sum), fs._stream(dev),
+        )
+    fs._check(rc, "breakdown_ladder")
+    LAUNCHES["breakdown_ladder"] += 1
+    return out, dot_sum
+
+
+def ladder_dp4a(rung: str, q_codes, q_sum, q_mag2, data, meta, tile_rows: int = TILE):
+    """:func:`ladder` on the first port's ``__dp4a`` kernel
+    (``csrc/breakdown.cu`` ``ladder_kernel``: the first port's K1a tiling,
+    one thread a row against 32 staged queries), for CUDA tensors only:
+    the timing reference of the tensor-core ladder.  Same outputs."""
+    dev, qn, n, d = _check_args(rung, q_codes, q_sum, q_mag2, data, meta, tile_rows)
     if fs._COLLECT_Q * d + fs._COLLECT_Q * 256 * 4 > 48 * 1024:
         raise ValueError(f"dim {d} too wide for the ladder kernel")
     kern = load_kernels()
     t = n // tile_rows
-    code = RUNGS.index(rung)
     one = torch.empty(1, dtype=torch.int32, device=dev)  # stands in for unused scratch
     part_dot = part_sum = part_min = part_lmin = part_l2min = part_meta = one
     if rung == "gemm":
@@ -134,13 +188,13 @@ def ladder(rung: str, q_codes, q_sum, q_mag2, data, meta, tile_rows: int = TILE)
     q_mag2f = q_mag2.to(torch.float32)
     with torch.cuda.device(dev):
         rc = kern.lib.px_ladder(
-            code, fs._ptr(q_codes), fs._ptr(q_sum), fs._ptr(q_mag2f), fs._ptr(data),
+            RUNGS.index(rung), fs._ptr(q_codes), fs._ptr(q_sum), fs._ptr(q_mag2f), fs._ptr(data),
             fs._ptr(meta), qn, n, d, tile_rows, fs._ptr(part_dot), fs._ptr(part_sum),
             fs._ptr(part_min), fs._ptr(part_lmin), fs._ptr(part_l2min), fs._ptr(part_meta),
             fs._ptr(out), fs._ptr(dot_sum), fs._stream(dev),
         )
-    fs._check(rc, "breakdown_ladder")
-    LAUNCHES["breakdown_ladder"] += 1
+    fs._check(rc, "breakdown_ladder_dp4a")
+    LAUNCHES["breakdown_ladder_dp4a"] += 1
     return out, dot_sum
 
 

@@ -118,13 +118,22 @@ def test_uniform_rows_make_the_epilogue_rungs_vacuous():
 
 @pytest.mark.parametrize(
     "tile,rows,err",
-    [(1000, 4000, "tile_rows"), (128, 4096, "tile_rows"), (1024, 4000, "multiple")],
+    [(1000, 4000, "tile_rows"), (128, 4096, "tile_rows"), (1024, 4000, "multiple"),
+     (16384, 4096, "tile_rows")],
 )
 def test_ladder_refuses_shapes_the_kernel_does_not_take(inputs, tile, rows, err):
     q_u8, index, meta = inputs
     with pytest.raises(ValueError, match=err):
         mb.ladder("gemm", *query_moments_from_u8(q_u8), index.data[:rows],
                   meta[:, :rows].contiguous(), tile)
+
+
+def test_ladder_refuses_rows_of_other_widths(inputs):
+    """The tensor-core ladder takes rows of DIM bytes, and so on the CPU."""
+    q_u8, index, meta = inputs
+    with pytest.raises(ValueError, match="dim 64"):
+        mb.ladder("gemm", *query_moments_from_u8(q_u8[:, :64].contiguous()),
+                  index.data[:, :64].contiguous(), meta, TILE)
 
 
 def test_timed_driver_needs_the_card():

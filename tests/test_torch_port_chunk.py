@@ -1,12 +1,14 @@
-"""The exact chunk top-k of the port (K2b, K4b) at the tensor-core
+"""The exact chunk top-k of the port (K1b, K2b, K4b) at the tensor-core
 kernels' chunk length, on the CPU.
 
 The same numpy-seeded rows go through the JAX package's exact scans
-(``scan.hamming_scan_topk``, ``hamming_gemm.hamming_gemm_scan_topk``,
-``int4.cosine4a_scan_topk`` / ``cosine4_scan_topk``) and through the
-port's ``fused_hamming_scan_topk`` / ``fused_cosine4_scan_topk``, whose
-kernel wrappers take their plain versions for CPU tensors: results equal
-bit for bit, ties by ascending row id included.  The plain versions'
+(``scan.cosine_scan_topk``, ``scan.hamming_scan_topk``,
+``hamming_gemm.hamming_gemm_scan_topk``, ``int4.cosine4a_scan_topk`` /
+``cosine4_scan_topk``) and through the port's ``fused_cosine_scan_topk``
+/ ``fused_hamming_scan_topk`` / ``fused_cosine4_scan_topk``, whose kernel
+wrappers take their plain versions for CPU tensors: results equal bit
+for bit, ties by ascending row id included; below the small-library gate
+the port's ``cosine_scan_topk_auto`` (K1b + K1c) equals the JAX one.  The plain versions'
 [Q, n_chunks, k] partials at ``tc_chunk_rows`` are held against a numpy
 sort of each chunk, and a model of the kernels' select (a buffer of the
 keys below the k-th so far, pruned by the radix select of
@@ -23,10 +25,14 @@ from pixelbox_tpu.ops import scan as jscan
 from pixelbox_tpu.ops.hamming_gemm import build_hamming_gemm_index
 from pixelbox_tpu.ops.hamming_gemm import hamming_gemm_scan_topk as jax_hamming_gemm_exact
 from pixelbox_tpu.ops.packed import PackedHammingIndex as JHIndex
+from pixelbox_tpu.ops.packed import PackedSemanticIndex as JSIndex
 from pixelbox_tpu.ops.oracle import quantize_embedding_np
 from pixelbox_tpu_torch.ops import fused_scan as fs
 from pixelbox_tpu_torch.ops import int4 as T
+from pixelbox_tpu_torch.ops import scan as tscan
 from pixelbox_tpu_torch.ops.packed import PackedHammingIndex as THIndex
+from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex as TSIndex
+from pixelbox_tpu_torch.ops.packed import semantic_rows_from_u8
 
 BLOCK = 1000  # the JAX scans' row block (divides every capacity below)
 
@@ -79,6 +85,9 @@ def test_tc_chunk_rows_take_one_k1c_launch(n, k, rows):
     assert fs.hamming_chunk_rows(18, n, k) == fs.CHUNK_ROWS
     assert fs.int4_chunk_rows(128, n, k) == rows
     assert fs.int4_chunk_rows(64, n, k) == fs.CHUNK_ROWS
+    for d in fs.TC_COSINE_DIMS:  # the cosine kind: u8 rows of d bytes
+        assert fs.cosine_chunk_rows(d, n, k) == rows
+    assert fs.cosine_chunk_rows(96, n, k) == fs.CHUNK_ROWS
 
 
 # --------------------------------------------------------------------- #
@@ -167,6 +176,87 @@ def test_hamming_exact_scan_at_the_tc_chunk_vs_jax(case):
         assert 0 < int((exact[1][1] >= 0).sum()) < k
     if case == "wrap_u8":
         assert float(exact[0][2, 0]) == 0.0 and int(exact[1][2, 0]) == 5
+
+
+# --------------------------------------------------------------------- #
+# K1b: the exact u8 cosine scan
+
+
+U8_CASES = {
+    # name: (rows, queries, k, max_distance); 1e7 is past the distance's
+    # saturation (~1e6): every valid row passes
+    "ties_across_borders": (20000, 13, 150, 1e3),
+    "unbounded": (20000, 70, 400, 1e7),
+    "tombstones_max_distance": (20000, 13, 30, 0.05),
+    "fewer_than_k": (20000, 13, 400, 0.05),
+    "short_last_chunk": (8292, 5, 400, 1e3),
+}
+
+
+def u8_case(case):
+    """The seeded u8 rows, validity and queries of a U8_CASES case, as JAX
+    and port indexes (query 1 is row 77)."""
+    n, qn, k, md = U8_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 1)
+    c = rng.standard_normal((32, 128)).astype(np.float32)
+    x = c[rng.integers(0, 32, n)] + 0.35 * rng.standard_normal((n, 128)).astype(np.float32)
+    db = quantize_embedding_np(np.tanh(x))
+    valid = np.ones(n, bool)
+    q = db[rng.integers(0, n, qn)].copy()
+    q[1] = db[77]
+    if case == "ties_across_borders":  # copies over the chunk borders at rows 8192 and 16384
+        db[8150:8251] = db[77]
+        db[16350:16461] = db[77]
+    elif case == "tombstones_max_distance":
+        valid[rng.choice(n, n // 100, replace=False)] = False
+        valid[77] = False
+    elif case == "fewer_than_k":
+        db[13000:13010] = db[77]
+    cols = (*semantic_rows_from_u8(db), valid)
+    ji = JSIndex(*(jnp.asarray(x) for x in cols))
+    ti = TSIndex(*(torch.from_numpy(np.ascontiguousarray(x)) for x in cols))
+    return q, ji, ti
+
+
+@pytest.mark.parametrize("case", list(U8_CASES))
+def test_u8_exact_scan_at_the_tc_chunk_vs_jax(case):
+    n, qn, k, md = U8_CASES[case]
+    q, ji, ti = u8_case(case)
+    qt = torch.from_numpy(q)
+    meta = fs.build_row_meta(ti)
+
+    # The plain K1b's partials at the tensor-core chunk
+    qk = fs.CosineQueries.from_u8(qt)
+    got = fs.cosine_chunk_topk(*qk, md, ti.data, meta, k)
+    rows = fs.tc_chunk_rows(n, k)
+    assert got[0].shape == (qn, -(-n // rows), k)
+    dist, ok = fs._tile_dist(*qk, ti.data, meta)
+    want = chunk_reference(dist.numpy(), ok[0].numpy(), md, k, rows)
+    assert_same((got[0].numpy().reshape(qn, -1), got[1].numpy().reshape(qn, -1)),
+                (want[0].reshape(qn, -1), want[1].reshape(qn, -1)))
+
+    # The exact scan (K1b + K1c) against the JAX package's
+    exact = fs.fused_cosine_scan_topk(qt, ti, meta, k=k, max_distance=md)
+    block = BLOCK if n % BLOCK == 0 else n
+    assert_same(exact, jscan.cosine_scan_topk(jnp.asarray(q), ji, k=k, max_distance=md, block_rows=block))
+    if case == "ties_across_borders":  # a stored row reads exactly 0 against itself
+        assert exact[1][1].tolist() == [77, *range(8150, 8251), *range(16350, 16398)]
+    if case == "fewer_than_k":
+        assert 0 < int((exact[1][1] >= 0).sum()) < k
+    if case == "short_last_chunk":  # the last chunk holds 100 rows, fewer than k
+        assert int((got[1][:, -1] >= 0).sum(dim=1).max()) <= n - rows < k
+
+
+@pytest.mark.parametrize("case", ["ties_across_borders", "tombstones_max_distance"])
+def test_u8_auto_below_the_small_library_gate_vs_jax(case):
+    """A library of at most 4 · block_rows rows: the port's auto scan takes
+    K1b + K1c (no θ pass), the JAX one its exact scan; equal."""
+    n, qn, k, md = U8_CASES[case]
+    q, ji, ti = u8_case(case)
+    block = 5000
+    assert n <= 4 * block
+    got = tscan.cosine_scan_topk_auto(torch.from_numpy(q), ti, k=k, max_distance=md, block_rows=block)
+    assert_same(got, jscan.cosine_scan_topk_auto(jnp.asarray(q), ji, k=k, max_distance=md, block_rows=block))
 
 
 # --------------------------------------------------------------------- #

@@ -303,22 +303,34 @@ def test_sharded_auto_on_the_card_matches_one_device():
     assert torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(got[1].cpu(), want[1].cpu())
 
 
+@pytest.mark.parametrize("tile,qn", [(4096, 40), (8192, 300), (1024, 8)])
 @pytest.mark.parametrize("rung", ["gemm", "coskey", "epilogue", "chain"])
-def test_ladder_rungs_match_plain(rung):
+def test_ladder_rungs_match_plain(rung, tile, qn):
+    """The tensor-core ladder against its plain version at tiles of 32, 64
+    and 8 registers (2, 1 and 8 lanes a sub-tile) and a query count past a
+    query tile (300: two tiles of 256); one launch counted a call, none
+    under the first port's ladder.  At the timed tile (8,192 rows) the
+    first port's ladder, the timing reference, returns the same outputs
+    (its launch counted apart)."""
     from pixelbox_tpu_torch.ops.packed import query_moments_from_u8
     from pixelbox_tpu_torch.tools import measure_breakdown as mb
 
     dev = _card()
-    q, idx, meta = mb.ladder_inputs(1 << 16, 128, 40, seed=3, planted=True, device=dev)
+    q, idx, meta = mb.ladder_inputs(1 << 16, 128, qn, seed=3, planted=True, device=dev)
     mom = query_moments_from_u8(q[0])
-    before = mb.LAUNCHES["breakdown_ladder"]
-    out, dsum = mb.ladder(rung, *mom, idx.data, meta, 4096)
+    before = dict(mb.LAUNCHES)
+    out, dsum = mb.ladder(rung, *mom, idx.data, meta, tile)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES["breakdown_ladder"] == before + 1
-    pout, psum = mb.ladder_plain(rung, *mom, idx.data, meta, 4096)
+    assert mb.LAUNCHES["breakdown_ladder"] == before["breakdown_ladder"] + 1
+    assert mb.LAUNCHES["breakdown_ladder_dp4a"] == before["breakdown_ladder_dp4a"]
+    pout, psum = mb.ladder_plain(rung, *mom, idx.data, meta, tile)
     assert torch.equal(out.view(torch.int32), pout.view(torch.int32)) and torch.equal(dsum, psum)
     lanes = out if rung in ("gemm", "chain") else out[:, :1]
     assert bool(torch.isfinite(lanes).all())
+    if tile == mb.TILE:
+        oout, osum = mb.ladder_dp4a(rung, *mom, idx.data, meta, tile)
+        assert mb.LAUNCHES["breakdown_ladder_dp4a"] == before["breakdown_ladder_dp4a"] + 1
+        assert torch.equal(out.view(torch.int32), oout.view(torch.int32)) and torch.equal(dsum, osum)
 
 
 # --------------------------------------------------------------------- #
@@ -633,6 +645,47 @@ def test_tc_hamming_chunk_topk_matches_plain(limit, wrap, md, group, qn):
 
 
 @pytest.mark.parametrize("qn", [1, 5, 70, 256])
+@pytest.mark.parametrize("dim", [32, 64, 128])
+def test_tc_cosine_chunk_topk_matches_plain(dim, qn):
+    """The tensor-core K1b against its plain version at N = 20,001, a
+    3,000-row tie flood across the 8,192-row chunk border, 1% tombstones,
+    k ∈ {8, 100, 400} and max_distance 1e3 and 0.05; each launch counted
+    under the new kernel, and the exact scan equal to the first port's."""
+    dev = _card()
+    n = 20001
+    idx, q = _index(n, dim, seed=dim + qn, dev=dev)
+    data = idx.data.clone()
+    data[8000:11000] = data[7]  # across the chunk border at 8,192
+    cols = {name: getattr(idx, name).clone() for name in ("row_sum", "row_mag2", "valid")}
+    for name in ("row_sum", "row_mag2"):
+        cols[name][8000:11000] = cols[name][7]
+    cols["valid"][7] = True
+    cols["valid"][8000:11000] = True
+    idx = idx._replace(data=data, **cols)
+    rng = np.random.default_rng(qn)
+    pick = torch.from_numpy(rng.integers(0, n, qn)).to(dev)
+    q = ((data[pick].to(torch.int16) + 128).to(torch.uint8)).contiguous()
+    q[0] = (data[7].to(torch.int16) + 128).to(torch.uint8)
+    meta = fs.build_row_meta(idx)
+    qc, qs, qm, qr = fs._prep(q)
+    for md in (1e3, 0.05):
+        for k in (8, 100, 400):
+            fs.reset_launch_counts()
+            got = fs.cosine_chunk_topk(qc, qs, qm, qr, md, idx.data, meta, k)
+            torch.cuda.synchronize()
+            assert fs.launch_counts()["cosine_chunk_topk"] == 1
+            assert fs.launch_counts()["cosine_chunk_topk_dp4a"] == 0
+            assert got[0].shape == (qn, -(-n // fs.tc_chunk_rows(n, k)), k)
+            want = fs.cosine_chunk_topk_plain(qc, qs, qm, qr, md, idx.data, meta, k)
+            old = fs.cosine_chunk_topk_dp4a(qc, qs, qm, qr, md, idx.data, meta, k)
+            _chunk_agrees(f"md={md} k={k}", got, want, old, qn, k)
+            if md > 1:  # the flood: distance 0 first, the copies in row order
+                d, i = _exact_from(got, qn, k)
+                ties = i[0][d[0] == 0].tolist()
+                assert ties[0] == 7 and ties == sorted(ties) and len(ties) == k
+
+
+@pytest.mark.parametrize("qn", [1, 5, 70, 256])
 @pytest.mark.parametrize("mode", ["asym", "sym"])
 def test_tc_cosine4_chunk_topk_matches_plain(mode, qn):
     """The tensor-core K4b against its plain version at N = 20,001, a
@@ -672,10 +725,20 @@ def test_tc_cosine4_chunk_topk_matches_plain(mode, qn):
 
 
 def test_chunk_topk_other_widths_take_the_first_port_kernels():
-    """Hashes of 18 bytes and int4 rows of 64 dims take the first port's
-    chunk kernels (their own launch counts) at CHUNK_ROWS, equal to the
-    plain versions at that chunk."""
+    """Hashes of 18 bytes, int4 rows of 64 dims and u8 rows of 96 bytes
+    take the first port's chunk kernels (their own launch counts) at
+    CHUNK_ROWS, equal to the plain versions at that chunk."""
     dev = _card()
+    idx8, q8 = _index(20001, 96, seed=96, dev=dev)
+    meta8 = fs.build_row_meta(idx8)
+    qk8 = fs._prep(q8)
+    fs.reset_launch_counts()
+    got = fs.cosine_chunk_topk(*qk8, 1e3, idx8.data, meta8, 100)
+    assert fs.launch_counts()["cosine_chunk_topk_dp4a"] == 1
+    assert fs.launch_counts()["cosine_chunk_topk"] == 0
+    want = fs.cosine_chunk_topk_plain(*qk8, 1e3, idx8.data, meta8, 100)
+    assert got[0].shape[1] == -(-20001 // fs.CHUNK_ROWS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     idx, q = _phash_index(20001, 18, seed=18, dev=dev)
     meta = fs.build_hamming_meta(idx)
     fs.reset_launch_counts()
@@ -696,7 +759,7 @@ def test_chunk_topk_other_widths_take_the_first_port_kernels():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("kind", ["hamming", "cosine4a", "cosine4"])
+@pytest.mark.parametrize("kind", ["hamming", "cosine", "cosine4a", "cosine4"])
 def test_tc_chunk_topk_split_chunks_match_plain(kind):
     """Few queries over many rows: the plan splits each chunk over several
     blocks and the last to finish merges their parts (N = 200,001: the last
@@ -706,6 +769,10 @@ def test_tc_chunk_topk_split_chunks_match_plain(kind):
     if kind == "hamming":
         idx, q = _phash_index(n, 32, seed=21, dev=dev)
         meta = fs.build_hamming_meta(idx)
+    elif kind == "cosine":
+        idx, q = _index(n, 128, seed=23, dev=dev)
+        meta = fs.build_row_meta(idx)
+        qk = fs._prep(q)
     else:
         idx, q = _int4_index(n, 128, seed=22, dev=dev)
         idx = int4.PackedSemantic4Index(*(t[:n] for t in idx))
@@ -715,11 +782,15 @@ def test_tc_chunk_topk_split_chunks_match_plain(kind):
         for k in (400, 1024):
             plan = (__import__("ctypes").c_int * 2)()
             assert fs.load_tc_kernels().lib.px_tc_chunk_plan(
-                fs._CHUNK_KINDS[kind], qn, n, fs.tc_chunk_rows(n, k), k, plan) == 0
+                fs._KIND_CODES[kind], qn, n, 128 if kind == "cosine" else 32, fs.tc_chunk_rows(n, k), k,
+                plan) == 0
             assert plan[1] > 1  # split
             if kind == "hamming":
                 args = (q[:qn].contiguous(), 1e3, idx.data, meta, 32, False, k)
                 got, want = fs.hamming_chunk_topk(*args), fs.hamming_chunk_topk_plain(*args)
+            elif kind == "cosine":
+                args = (*(x[:qn].contiguous() for x in qk), 1e3, idx.data, meta, k)
+                got, want = fs.cosine_chunk_topk(*args), fs.cosine_chunk_topk_plain(*args)
             else:
                 args = (*(x[:qn].contiguous() for x in qk[:4]), 1e3, idx.data, meta, qk.sym, k)
                 got, want = fs.cosine4_chunk_topk(*args), fs.cosine4_chunk_topk_plain(*args)

@@ -166,7 +166,7 @@ def test_kernel_plain_versions_agree_on_cpu(rng):
     assert count.tolist()[0] == 0 and count.tolist()[2] == 4096
     assert (ci[2] == torch.arange(64, dtype=torch.int32)).all()
     pd, pi = fs.cosine_chunk_topk(qc, qs, qm, qr, 1e3, ti.data, meta, 7)
-    assert tuple(pd.shape) == (3, 4096 // fs.CHUNK_ROWS, 7)
+    assert tuple(pd.shape) == (3, -(-4096 // fs.cosine_chunk_rows(ti.data.shape[1], 4096, 7)), 7)
     d, i = fs.lex_topk(pd.reshape(3, -1), pi.reshape(3, -1), 7)
     assert_same((d, i), tscan.cosine_scan_topk(q, ti, k=7))
     assert fs.launch_counts() == {n: 0 for n in fs.LAUNCHES}
