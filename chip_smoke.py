@@ -9,10 +9,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``nvidia-smi`` name/power limit; holds the exact numerics (TF32 off,
    cuDNN deterministic, benchmark off).
 2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
-   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K1b, K2b and K4b)
-   and ``csrc/breakdown.cu`` (the tensor-core ladder and the first
-   port's) for sm_90a, one nvcc each, in parallel; logs the tensor-core
-   and select kernels' registers and spills and ptxas's wgmma warnings.
+   ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K1b, K2b and K4b),
+   ``csrc/tc_theta.cu`` (the θ stage) and ``csrc/breakdown.cu`` (the
+   tensor-core ladder and the first port's) for sm_90a, one nvcc each, in
+   parallel; logs the tensor-core and select kernels' registers and
+   spills and ptxas's wgmma warnings.
 3. Kernels vs plain at the main shapes (1,048,576 rows × 128, k = 100,
    Q ∈ {1, 8, 256}) in five cases: θ from the sample, θ = max_distance, a
    max_distance filter that excludes rows, 1% invalid rows, and a tie
@@ -30,10 +31,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    Q = 1 and 256 through ``cosine_scan_topk_auto`` (which must take K1b +
    K1c, replayed bit-identical, equal to the exact scan and the oracle);
    K1c (``lex_topk`` on the select kernel) on the main pass's buffer
-   (256 × 4,096 → 100), the θ stage's (256 × 2,048 → 20) and a repair's
-   K1b partials (8 × 12,800 → 100) in turns against the first port's
-   re-launch chain, ``torch.topk`` and ``torch.sort`` of the keys, after
-   holding the chain's result equal.
+   (256 × 4,096 → 100) and a repair's K1b partials (8 × 12,800 → 100) in
+   turns against the first port's re-launch chain, ``torch.topk`` and
+   ``torch.sort`` of the keys, after holding the chain's result equal;
+   the θ stage (``sample_theta`` on the θ kernel, two launches) at
+   Q ∈ {1, 256} over the 65,536-row sample in turns against the first
+   port's composition (``sample_theta_chain``: the plain-torch
+   mini-sample, K1a and K1c), per call and device-only.
 3b. Hamming kernels vs plain at the phash's published width (1,048,576
    rows × 32 bytes, k = 100, Q ∈ {1, 8, 256, 2048}) in seven cases: θ
    from the sample, θ = max_distance, max_distance 0.1, 1% tombstones,
@@ -142,10 +146,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 Phases 4-9 must run every u8 and int4 collect and chunk top-k at D = 128
 and every Hamming collect and chunk top-k at 32 B on the tensor-core
-kernels, every top-k on the select kernel and the ladder on the
-tensor-core one (their ``__dp4a`` / ``__popc`` predecessors, the first
-port's ``lex_topk_segments`` and ``breakdown_ladder_dp4a`` launched no
-time).  The last lines are
+kernels, every θ stage on the θ kernel, every top-k on the select kernel
+and the ladder on the tensor-core one (their ``__dp4a`` / ``__popc``
+predecessors, the first port's ``lex_topk_segments``,
+``sample_theta_chain`` and plain-torch mini-sample on the card and
+``breakdown_ladder_dp4a`` launched no time).  The last lines are
 the card's nvidia-smi line, the kernels' JSON summary (time, plain time,
 bound, library time per kernel; the tensor-core collects with their
 predecessor's time and error against their outputs and a per-Q table,
@@ -276,6 +281,7 @@ class Recorder:
         "hamming_threshold_collect", "hamming_chunk_topk",
         "cosine4_threshold_collect", "cosine4_chunk_topk",
         "cosine_coskey_collect", "cosine4_coskey_collect", "coskey_rescore",
+        "sample_theta",
     )
 
     def __init__(self, fs):
@@ -299,6 +305,50 @@ class Recorder:
             return out
 
         return wrapper
+
+
+class PlainOnCard:
+    """Counts the θ stage's old composition on the card outside replays:
+    ``sample_theta_chain`` and the plain-torch mini-sample
+    (``mini_sample_theta``) on a CUDA sample.  Phases 4-9 must call
+    neither (their θ stages are the θ kernel's)."""
+
+    NAMES = ("sample_theta_chain", "mini_sample_theta")
+    counts = {n: 0 for n in NAMES}
+    _replay = 0
+
+    @classmethod
+    def install(cls, fs):
+        for n in cls.NAMES:
+            setattr(fs, n, cls._wrap(n, getattr(fs, n)))
+
+    @classmethod
+    def _wrap(cls, name, fn):
+        def wrapper(qk, smp, *args, **kwargs):
+            if smp.data.is_cuda and not cls._replay:
+                cls.counts[name] += 1
+            return fn(qk, smp, *args, **kwargs)
+
+        return wrapper
+
+    @classmethod
+    def reset(cls):
+        for n in cls.NAMES:
+            cls.counts[n] = 0
+
+    @classmethod
+    def replaying(cls):
+        from contextlib import contextmanager
+
+        @contextmanager
+        def scope():
+            cls._replay += 1
+            try:
+                yield
+            finally:
+                cls._replay -= 1
+
+        return scope()
 
 
 def same_collect(fs, what, out, ref, cap):
@@ -337,6 +387,11 @@ def replay(fs, call):
         d2 = fs.coskey_rescore_plain(*args)
         check(torch.equal(out, d2), "coskey_rescore differs from plain")
         a, b = out, d2
+    elif name == "sample_theta":
+        with PlainOnCard.replaying():
+            t2 = fs.sample_theta_plain(*args, **kwargs)
+        check(torch.equal(out, t2), "sample_theta differs from plain")
+        a, b = out, t2
     elif name.endswith("collect"):
         a, b = same_collect(fs, f"{name} against plain", out,
                             getattr(fs, name + "_plain")(*args), args[-1])
@@ -557,6 +612,7 @@ def by_q(st):
                                "bound_ms", "bound_by", "dot_only_ms") if k in st}
 
 
+
 def ab_collect(fs, a_call, b_call, smi, tag, reps=20):
     """K1a/K4a (``a_call``) against K1d/K4d (``b_call``) on the same
     queries and rows, in turns; logs and returns (a_ms, b_ms)."""
@@ -583,30 +639,43 @@ def ab_auto_buckets(auto, queries, smi, tag, reps=30):
     return out
 
 
-def time_theta_stage(fs, smp, q, md, smi, reps=10):
-    """The θ stage of the main pass (k = K) against its parts, in turns:
-    the plain-torch mini-sample (stage 1), K1a over the sample (stage 2)
-    and K1c over its buffer."""
+def time_theta_stage(fs, smp, queries, md, smi, reps=10):
+    """The θ stage of the main pass (k = K over N_ROWS rows) on the θ kernel
+    against the first port's composition (``sample_theta_chain``: the
+    plain-torch mini-sample, K1a and K1c) in turns, per call and device
+    only, at Q = 1 and Q = MAIN_Q, after holding both equal to the plain
+    version (uncounted: the main paths' counts are read elsewhere).  The
+    bound: the sample's rows and meta rows 0-2 read once, the queries and
+    θ, or the 2·Q·S·D int8 product."""
     import torch
 
-    qk = fs.CosineQueries.from_u8(q)
-    s = smp.data.shape[0]
+    s, d = smp.data.shape
     j = min(s, max(1, -(-max(16 * K // 5, 256) * s // N_ROWS)))
-    cap = fs.sample_cap(j)
-    theta0 = fs.mini_sample_theta(qk, smp, md, j)
-    count, cand_d, cand_i = qk.collect(theta0, smp.data, smp.meta, cap)
-    lens = torch.clamp(count, max=cap)
-    whole, mini, k1a, k1c = interleaved_ms([
-        lambda: fs.sample_theta(qk, smp, md, j),
-        lambda: fs.mini_sample_theta(qk, smp, md, j),
-        lambda: qk.collect(theta0, smp.data, smp.meta, cap),
-        lambda: fs.lex_topk(cand_d, cand_i, j, lens=lens),
-    ], reps)
-    nbytes = smp.data.numel() + 12 * s  # the sample's rows and meta rows 0-2, read once
-    log(f"[3] θ stage at Q={q.shape[0]} over the {s:,}-row sample (j={j}): {whole:.4f} ms; "
-        f"its parts alone: plain mini-sample {mini:.4f}, K1a over the sample {k1a:.4f}, "
-        f"K1c {k1c:.4f} ms; bound {nbytes / HBM_BPS * 1e3:.4f} ms (bytes: {nbytes:,} B) "
-        f"(medians of {reps} in turns, CUDA events; {smi})")
+    per_q = {}
+    for qn in (1, MAIN_Q):
+        qk = fs.CosineQueries.from_u8(queries[:qn])
+        new = lambda: fs.sample_theta(qk, smp, md, j)  # noqa: E731
+        old = lambda: fs.sample_theta_chain(qk, smp, md, j)  # noqa: E731
+        want = fs.sample_theta_plain(qk, smp, md, j)
+        check(torch.equal(new(), want) and torch.equal(old(), want), f"θ stage Q={qn}: differs from plain")
+        st = {}
+        st["ms"], st["previous_ms"] = interleaved_ms([new, old], reps)
+        st["gpu_ms"], st["previous_gpu_ms"] = gpu_ms([new, old], reps=2 * reps)
+        st["plain_ms"] = median_ms(lambda: fs.sample_theta_plain(qk, smp, md, j), reps)
+        nbytes = s * d + 12 * s + qn * (d + 12) + 4 * qn
+        ops = 2 * qn * s * d
+        b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+        st.update(bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  bytes=nbytes, ops=ops, library_ms=None)
+        log(f"[3] θ stage Q={qn} over the {s:,}-row sample (j={j}): sample_theta (the θ kernel, "
+            f"2 launches) vs sample_theta_chain (plain mini-sample + K1a + K1c) in turns, both = plain: "
+            f"{st['ms']:.4f} / {st['previous_ms']:.4f} ms a call ({st['previous_ms'] / st['ms']:.2f}x), "
+            f"device only {st['gpu_ms']:.4f} / {st['previous_gpu_ms']:.4f} ms "
+            f"({st['previous_gpu_ms'] / st['gpu_ms']:.2f}x); plain {st['plain_ms']:.4f} ms; bound "
+            f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {nbytes:,} B, {ops:,} ops) "
+            f"(medians of {reps} in turns, CUDA events; {smi})")
+        per_q[qn] = st
+    return {**per_q[MAIN_Q], "by_q": {qn: by_q(st) for qn, st in per_q.items()}}
 
 
 def small_library(fs, scan, smi, err, db, rng):
@@ -746,18 +815,18 @@ def phase_kernels(fs, scan, smi, err):
             qall = torch.from_numpy(queries).to(dev)
             ab_auto_buckets(lambda q, e: scan.cosine_scan_topk_auto(
                 q, idx, k=K, max_distance=md, sample=smp, row_meta=meta, epilogue=e), qall, smi, "[3e] u8")
-            time_theta_stage(fs, smp, qall[:MAIN_Q], md, smi)
+            theta_st = time_theta_stage(fs, smp, qall, md, smi)
         del idx, meta, smp
         torch.cuda.empty_cache()
 
     # Timing at the main path's shapes: K1a at the main pass (Q = MAIN_Q
     # over all rows, k = 100); K1b at a repair bucket and at the
     # small-library gate, in turns against the first port's kernel; K1c
-    # on the main pass's buffer, the θ stage's and a repair's K1b partials.
+    # on the main pass's buffer and a repair's K1b partials.
     def main_pass(call):
         return call[1][5].shape[0] == N_ROWS
 
-    stats = {}
+    stats = {"sample_theta": theta_st}
     for n in ("cosine_coskey_collect", "coskey_rescore"):
         stats[n] = time_kernel(fs, next(c for c in timed_calls[(n, MAIN_Q)] if main_pass(c)), smi, "[3e]")
     k1b = {f"{REPAIR_Q}x1M": time_chunk_against_previous(
@@ -768,7 +837,6 @@ def phase_kernels(fs, scan, smi, err):
     k1c = timed_calls[("lex_topk_select", MAIN_Q)]
     k1c_calls = {
         "main_pass": next(c for c in k1c if k1c_args(c)[2] == K and k1c_args(c)[3] is not None),
-        "theta_stage": next(c for c in k1c if k1c_args(c)[3] is not None),  # the first with lens
         "k1b_partials": next(c for c in timed_calls[("lex_topk_select", REPAIR_Q)]
                              if k1c_args(c)[3] is None),  # the exact scan's (no lens)
     }
@@ -2433,7 +2501,7 @@ def main() -> int:
     from pixelbox_tpu_torch.tools import measure_breakdown
 
     t0 = time.perf_counter()
-    loads = (fs.load_kernels, fs.load_tc_kernels, measure_breakdown.load_kernels)
+    loads = (fs.load_kernels, fs.load_tc_kernels, fs.load_theta_kernels, measure_breakdown.load_kernels)
     with ThreadPoolExecutor(len(loads)) as pool:
         builds = [pool.submit(load) for load in loads]
         kerns = [b.result() for b in builds]
@@ -2441,7 +2509,7 @@ def main() -> int:
         log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
         lines = kern.ptxas.splitlines()
         for j, line in enumerate(lines):
-            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "lex_topk_select", "tc_ladder")
+            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "tc_theta", "lex_topk_select", "tc_ladder")
             if "Compiling entry" in line and any(n in line for n in named):  # by name
                 name = line.split("'")[1]
                 at = min(name.find(n) for n in named if n in name)
@@ -2457,6 +2525,7 @@ def main() -> int:
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
     err = {n: 0.0 for n in (*Recorder.NAMES, *PREVIOUS.values(), "lex_topk_segments")}
+    PlainOnCard.install(fs)
     t0 = time.perf_counter()
     stats, db = phase_kernels(fs, scan, smi, err)
     t0 = phase_time("3", t0)
@@ -2470,6 +2539,7 @@ def main() -> int:
     del db
 
     # [4] engine, [5] phash engine and duplicates, [6] int4 engine
+    PlainOnCard.reset()  # phases 4-9 start here
     with tempfile.TemporaryDirectory(prefix="pixelbox_smoke_") as tmp:
         counts4, sem_eng, ckpt, sem_paths = phase_engine(fs, scan, smi, tmp)
         t0 = phase_time("4", t0)
@@ -2490,7 +2560,9 @@ def main() -> int:
     phase_time("9", t0)
 
     check("jax" not in sys.modules, "jax was imported")
-    main_counts = (counts4, counts5, counts6, counts7, counts8, counts8b, counts9)
+    main_counts = (counts4, counts5, counts6, counts7, counts8, counts8b, counts9, {
+        "sample_theta_chain": PlainOnCard.counts["sample_theta_chain"],
+        "mini_sample_theta_on_card": PlainOnCard.counts["mini_sample_theta"]})
     for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
                      ("cosine_chunk_topk_dp4a", "cosine_chunk_topk"),
                      ("cosine4_threshold_collect_dp4a", "cosine4_threshold_collect"),
@@ -2498,7 +2570,9 @@ def main() -> int:
                      ("hamming_chunk_topk_popc", "hamming_chunk_topk"),
                      ("cosine4_chunk_topk_dp4a", "cosine4_chunk_topk"),
                      ("lex_topk_segments", "lex_topk_select"),
-                     ("breakdown_ladder_dp4a", "breakdown_ladder")):
+                     ("breakdown_ladder_dp4a", "breakdown_ladder"),
+                     ("sample_theta_chain", "sample_theta"),
+                     ("mini_sample_theta_on_card", "sample_theta")):
         n_old, n_new = (sum(c.get(n, 0) for c in main_counts) for n in (old, new))
         check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
         log(f"main paths (phases 4-9): {new} {n_new} launches, the first port's {old} {n_old}")
@@ -2514,16 +2588,18 @@ def main() -> int:
         "cosine_coskey_collect": "pixelbox_tpu/ops/pallas_scan.py:171",
         "cosine4_coskey_collect": "pixelbox_tpu/ops/pallas_scan.py:171",
         "coskey_rescore": "pixelbox_tpu/ops/pallas_scan.py:747",
+        "sample_theta": "pixelbox_tpu/ops/pallas_scan.py:589",
     }
+    sources = {"sample_theta": "tc_theta.cu", **{n: "tc_scan.cu" for n in PREVIOUS}}
     kernels = []
     for n in (*Recorder.NAMES, "lex_topk_segments"):
         st = stats[n]
         kernels.append({
             "name": n,
             "route": "cuda",
-            "source": "pixelbox_tpu_torch/csrc/" + ("tc_scan.cu" if n in PREVIOUS else "fused_scan.cu"),
+            "source": "pixelbox_tpu_torch/csrc/" + sources.get(n, "fused_scan.cu"),
             "replaces": replaces[n],
-            "launches": sum(c[n] for c in main_counts),
+            "launches": sum(c.get(n, 0) for c in main_counts),
             "max_abs_err": err[n],
             **{key: st[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{key: st[key] for key in ("dot_only_ms", "previous_ms", "gpu_ms", "previous_gpu_ms", "by_q",
@@ -2538,7 +2614,7 @@ def main() -> int:
         "route": "cuda",
         "source": "pixelbox_tpu_torch/csrc/fused_scan.cu",
         "replaces": replaces["cosine_chunk_topk"],
-        "launches": sum(c["cosine_chunk_topk_dp4a"] for c in main_counts),
+        "launches": sum(c.get("cosine_chunk_topk_dp4a", 0) for c in main_counts),
         "max_abs_err": err["cosine_chunk_topk_dp4a"],
         "ms": k1b["previous_ms"], "gpu_ms": k1b["previous_gpu_ms"],
         **{key: k1b[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms")},

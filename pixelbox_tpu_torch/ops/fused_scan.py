@@ -65,9 +65,11 @@ serves every kind; a kind object (:class:`CosineQueries`,
 :class:`Int4Queries`, :class:`HammingQueries`) picks the distance and the
 collect and chunk kernels:
 
-- θ estimate (:func:`sample_theta`, was ``_pallas_sample_theta``): stage 1
-  plain torch over a 1/16 mini-sample, stage 2 K1a/K4a/K2a + K1c over the
-  sample;
+- θ estimate (:func:`sample_theta`, was ``_pallas_sample_theta``): at the
+  tensor-core widths the θ kernel (``csrc/tc_theta.cu``, two launches on
+  int8 ``wgmma``: θ0 over a 1/16 mini-sample, then the sample's top-j
+  under θ0); at other widths the chunk top-k + K1c over the mini-sample,
+  then K1a/K4a/K2a + K1c over the sample;
 - main pass (:func:`fused_threshold_scan_topk`, was
   ``pallas_threshold_scan_topk(_v2)``; :func:`fused_threshold4_scan_topk`,
   was ``int4.py:pallas_threshold4_scan_topk``;
@@ -136,6 +138,7 @@ from pixelbox_tpu_torch.ops.packed import (
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("fused_scan.cu",)
 _TC_SOURCES = ("tc_scan.cu",)
+_THETA_SOURCES = ("tc_theta.cu",)
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
     "-gencode", "arch=compute_90a,code=sm_90a", "-fmad=false",
@@ -194,8 +197,10 @@ class _Kernels(NamedTuple):
 
 _KERNELS: Optional[_Kernels] = None
 _TC_KERNELS: Optional[_Kernels] = None
+_THETA_KERNELS: Optional[_Kernels] = None
 _KERNELS_LOCK = threading.Lock()
 _TC_KERNELS_LOCK = threading.Lock()
+_THETA_KERNELS_LOCK = threading.Lock()
 
 
 def _build_dir() -> Path:
@@ -249,6 +254,23 @@ def load_tc_kernels() -> _Kernels:
             )
             _TC_KERNELS = kern
         return _TC_KERNELS
+
+
+def load_theta_kernels() -> _Kernels:
+    """Compile ``csrc/tc_theta.cu`` (the θ stage's two launches) for
+    sm_90a into its own library, so that it builds in parallel with the
+    others.  Raises on any failure."""
+    global _THETA_KERNELS
+    with _THETA_KERNELS_LOCK:
+        if _THETA_KERNELS is None:
+            kern = build_library(_THETA_SOURCES, "libpixelbox_tc_theta")
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            kern.lib.px_tc_sample_theta.restype = ci
+            kern.lib.px_tc_sample_theta.argtypes = (
+                [vp] * 6 + [ci] * 9 + [cf] + [ci] * 2 + [cf] * 4 + [ci] * 6 + [vp] * 6
+            )
+            _THETA_KERNELS = kern
+        return _THETA_KERNELS
 
 
 def build_library(sources, stem: str) -> _Kernels:
@@ -374,6 +396,7 @@ LAUNCHES = {
     "cosine_coskey_collect": 0,
     "cosine4_coskey_collect": 0,
     "coskey_rescore": 0,
+    "sample_theta": 0,
 }
 
 
@@ -1596,11 +1619,23 @@ class CosineQueries(NamedTuple):
     def from_u8(cls, query_u8: torch.Tensor) -> "CosineQueries":
         return cls(*_prep(query_u8))
 
+    kind = "cosine"
+
+    @property
+    def tc_theta(self) -> bool:
+        """Whether the θ kernel takes this width."""
+        return self.q_codes.shape[1] in TC_COSINE_DIMS
+
     def dist(self, data, meta):
         return _tile_dist(self.q_codes, self.q_sum, self.q_mag2, self.qr, data, meta)
 
     def collect(self, theta, data, meta, cap):
         return cosine_threshold_collect(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta, cap
+        )
+
+    def collect_plain(self, theta, data, meta, cap):
+        return cosine_threshold_collect_plain(
             self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta, cap
         )
 
@@ -1647,11 +1682,24 @@ class Int4Queries(NamedTuple):
     def sym(self) -> bool:
         return self.mode == "sym"
 
+    @property
+    def kind(self) -> str:
+        return "cosine4" if self.sym else "cosine4a"
+
+    @property
+    def tc_theta(self) -> bool:
+        return self.q_codes.shape[1] in TC_COSINE4_DIMS
+
     def dist(self, data, meta):
         return _tile_dist4(self.q_codes, self.q_sum, self.q_mag2, self.qr, data, meta, self.sym)
 
     def collect(self, theta, data, meta, cap):
         return cosine4_threshold_collect(
+            self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta, self.sym, cap
+        )
+
+    def collect_plain(self, theta, data, meta, cap):
+        return cosine4_threshold_collect_plain(
             self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta, self.sym, cap
         )
 
@@ -1668,7 +1716,7 @@ class Int4Queries(NamedTuple):
     def rescore(self, theta, data, meta, lens, cand_i):
         return coskey_rescore(
             self.q_codes, self.q_sum, self.q_mag2, self.qr, theta, data, meta,
-            "cosine4" if self.sym else "cosine4a", lens, cand_i,
+            self.kind, lens, cand_i,
         )
 
     def widen(self, theta):
@@ -1688,11 +1736,22 @@ class HammingQueries(NamedTuple):
     byte_limit: int
     wrap_u8: bool
 
+    kind = "hamming"
+
+    @property
+    def tc_theta(self) -> bool:
+        return self.q.shape[1] == TC_HAMMING_BYTES
+
     def dist(self, data, meta):
         return _hamming_tile_dist(self.q, data, meta, self.byte_limit, self.wrap_u8)
 
     def collect(self, theta, data, meta, cap):
         return hamming_threshold_collect(
+            self.q, theta, data, meta, self.byte_limit, self.wrap_u8, cap
+        )
+
+    def collect_plain(self, theta, data, meta, cap):
+        return hamming_threshold_collect_plain(
             self.q, theta, data, meta, self.byte_limit, self.wrap_u8, cap
         )
 
@@ -1724,27 +1783,70 @@ def sample_theta(qk, smp, max_distance, j: int):
     threshold scan — in the JAX package's two stages
     (``pallas_scan.py:_pallas_sample_theta``):
 
-    1. θ0 from a 1/16 mini-subsample in plain torch (:func:`mini_sample_theta`);
-    2. K1a/K4a/K2a + K1c over the FULL sample: the exact top-j of {dist < θ0}.
+    1. θ0, the j0-th distance (j0 ≈ 4j/16, at least 8) of a 1/16
+       mini-subsample of the sample, at most max_distance;
+    2. over the FULL sample, the exact count of the rows under θ0 and the
+       j-th smallest of their distances.
 
     ``qk`` is a :class:`CosineQueries`, :class:`Int4Queries` or
-    :class:`HammingQueries`;
-    ``smp`` an ``ops.scan.ScanSample`` (contiguous ``data`` and its
-    kernel ``meta``, the index's layouts).
+    :class:`HammingQueries`; ``smp`` an ``ops.scan.ScanSample`` (contiguous
+    ``data`` and its kernel ``meta``, the index's layouts).
 
-    If θ0 comes up short (fewer than j rows under it) or the collect
-    buffer overflowed, the value falls back to θ0 itself, exactly as the
-    JAX package does; θ accuracy only shapes work, never the proof.
+    If θ0 comes up short (fewer than j rows under it) or more than
+    :func:`sample_cap` rows are under it, the value falls back to θ0
+    itself, as the JAX package does (its overflow test is the carry
+    kernel's poison flag); θ accuracy only shapes work, never the proof.
     Returns [Q] f32; value == max_distance ⟺ θ is unbound.
+
+    On the card, at the widths of the tensor-core collects (u8 rows of
+    :data:`TC_COSINE_DIMS` bytes, int4 rows of :data:`TC_COSINE4_DIMS`
+    dims, :data:`TC_HAMMING_BYTES`-byte hashes) both stages are the θ
+    kernel (:func:`_tc_sample_theta`, counter ``sample_theta``: two
+    launches on int8 ``wgmma``, no torch op between them); at other
+    widths stage 1 is the width's chunk top-k + K1c over the mini rows
+    (:func:`mini_sample_chunk_theta`) and stage 2 its collect + K1c.  A
+    CPU sample takes :func:`sample_theta_plain`.  All three are bit-equal.
     """
-    dev = smp.data.device
+    if smp.data.device.type != "cuda":
+        return sample_theta_plain(qk, smp, max_distance, j)
+    if qk.tc_theta:
+        return _tc_sample_theta(qk, smp, max_distance, j)
+    return _sample_stage2(qk, smp, mini_sample_chunk_theta(qk, smp, max_distance, j), j)
+
+
+def sample_theta_plain(qk, smp, max_distance, j: int):
+    """Plain PyTorch version of :func:`sample_theta`: the plain-torch
+    mini-sample (:func:`mini_sample_theta`), the plain collect of the rows
+    under θ0 and the plain select of their j-th."""
     theta0 = mini_sample_theta(qk, smp, max_distance, j)
+    cap = sample_cap(j)
+    count, cand_d, cand_i = qk.collect_plain(theta0, smp.data, smp.meta, cap)
+    best_d, _ = lex_topk_select_plain(cand_d, cand_i, j, torch.clamp(count, max=cap))
+    return _theta_from_buffer(theta0, count, best_d[:, 0], cap, j)
+
+
+def sample_theta_chain(qk, smp, max_distance, j: int):
+    """The θ stage as the first port composed it, kept as the θ kernel's
+    timing reference (no main path calls it): the plain-torch mini-sample,
+    then the width's collect (K1a/K4a/K2a) and K1c over the sample."""
+    return _sample_stage2(qk, smp, mini_sample_theta(qk, smp, max_distance, j), j)
+
+
+def _sample_stage2(qk, smp, theta0, j: int):
+    """Stage 2 on the collect kernel and K1c: every sample row under θ0
+    into a buffer with an exact count, then its j-th."""
     cap = sample_cap(j)
     count, cand_d, cand_i = qk.collect(theta0, smp.data, smp.meta, cap)
     best_d, _ = lex_topk(cand_d, cand_i, j, lens=torch.clamp(count, max=cap))
+    return _theta_from_buffer(theta0, count, best_d, cap, j)
+
+
+def _theta_from_buffer(theta0, count, best_d, cap: int, j: int):
+    """θ from stage 2's sorted best distances [Q, >= j]: the j-th where j
+    <= count <= cap (it is finite exactly when count >= j), else θ0."""
     jth = best_d[:, j - 1]
     ok = torch.isfinite(jth) & (count <= cap)
-    return torch.where(ok, jth, theta0).to(dev)
+    return torch.where(ok, jth, theta0)
 
 
 def sample_cap(j: int) -> int:
@@ -1752,23 +1854,137 @@ def sample_cap(j: int) -> int:
     return max(2048, topk_ops._next_pow2(16 * j))
 
 
-def mini_sample_theta(qk, smp, max_distance, j: int):
-    """Stage 1 of :func:`sample_theta`: θ0, the ~4j-th distance of a 1/16
-    mini-subsample of the sample (floor 8 rows), in plain torch; [Q] f32,
-    at most max_distance."""
-    s = smp.data.shape[0]
-    md = _f32(max_distance, smp.data)
+def mini_sample_shape(s: int, j: int) -> Tuple[int, int, int]:
+    """(stride, s0, j0) of stage 1 over an s-row sample: the mini rows are
+    ``sample[::stride]`` (stride 16, halved while it leaves fewer than
+    1,024 rows or does not divide s), s0 of them, and θ0 is their j0-th
+    distance, j0 = min(s0, max(8, ⌈4·j·s0 / s⌉))."""
     stride = 16
     while stride > 1 and (s // stride < 1024 or s % stride != 0):
         stride //= 2
-    mini = smp.data[::stride].contiguous()
-    mmeta = smp.meta[..., ::stride].contiguous()
-    s0 = mini.shape[0]
-    j0 = min(s0, max(8, -(-4 * j * s0 // s)))
+    s0 = -(-s // stride)
+    return stride, s0, min(s0, max(8, -(-4 * j * s0 // s)))
+
+
+def _mini_rows(smp, stride: int):
+    return smp.data[::stride].contiguous(), smp.meta[..., ::stride].contiguous()
+
+
+def mini_sample_theta(qk, smp, max_distance, j: int):
+    """Stage 1 of :func:`sample_theta` in plain torch: θ0, the j0-th
+    distance of the mini-subsample (:func:`mini_sample_shape`); [Q] f32, at
+    most max_distance.  The plain version's and the timing reference's."""
+    stride, _, j0 = mini_sample_shape(smp.data.shape[0], j)
+    mini, mmeta = _mini_rows(smp, stride)
+    md = _f32(max_distance, smp.data)
     dist0, valid0 = qk.dist(mini, mmeta)
     dist0 = torch.where(valid0 & (dist0 < md), dist0, torch.full_like(dist0, float("inf")))
     t0, _ = topk_ops.block_topk(dist0, torch.zeros_like(dist0, dtype=torch.int32), j0)
     return torch.minimum(t0[:, j0 - 1], md).contiguous()
+
+
+def mini_sample_chunk_theta(qk, smp, max_distance, j: int):
+    """Stage 1 on the hand kernels at the widths the θ kernel does not take:
+    the width's chunk top-k (K1b/K4b/K2b) over the mini rows with k = j0,
+    then K1c — the j0-th (dist, id) key's distance is
+    :func:`mini_sample_theta`'s j0-th value."""
+    stride, _, j0 = mini_sample_shape(smp.data.shape[0], j)
+    mini, mmeta = _mini_rows(smp, stride)
+    part_d, part_i = qk.chunk_topk(max_distance, mini, mmeta, j0)
+    qn = part_d.shape[0]
+    t0, _ = lex_topk(part_d.reshape(qn, -1), part_i.reshape(qn, -1), j0)
+    return torch.minimum(t0[:, j0 - 1], _f32(max_distance, t0)).contiguous()
+
+
+#: Query tiles of the θ kernel's launches: A (θ0 over the mini rows) and B
+#: (the sample under θ0); ``csrc/tc_theta.cu`` instantiates these.
+THETA_A_QUERIES = (8, 32)
+THETA_B_QUERIES = (8, 16, 32)
+#: Values a launch-A block keeps in shared memory: its queries × its rows.
+THETA_VALS = 8192
+#: Blocks a θ launch aims at per SM.
+_THETA_BLOCKS_PER_SM = 4
+_SM_COUNTS: dict = {}
+
+
+def theta_plan(qn: int, s: int, s0: int, sms: int):
+    """The θ kernel's launch plan for qn queries over an s-row sample with
+    s0 mini rows on a card of ``sms`` SMs: ((nq0, parts0, tiles0), (nq1,
+    parts1, tiles1)) — each launch's query tile, the parts its rows are cut
+    into (one block a query tile and part) and the 64-row tiles a part.
+    Launch B's query tile is 8 up to 8 queries, 16 up to 32 (its last
+    block's selects are the tail), 32 past that.  The parts grow until
+    the grid has about four blocks an SM; launch A's part stays within
+    :data:`THETA_VALS` values, launch B's takes at least 4 tiles.  The
+    result does not depend on the plan."""
+    nq0 = THETA_A_QUERIES[0] if qn <= 256 else THETA_A_QUERIES[1]
+    nq1 = 8 if qn <= 8 else 16 if qn <= 32 else 32
+    blocks = _THETA_BLOCKS_PER_SM * sms
+    return (
+        (nq0, *_theta_parts(qn, nq0, s0, blocks, 2, THETA_VALS // (64 * nq0))),
+        (nq1, *_theta_parts(qn, nq1, s, blocks, 4, None)),
+    )
+
+
+def _theta_parts(qn, nq, n, blocks, min_tiles, max_tiles):
+    tiles = -(-n // 64)
+    want = max(1, -(-blocks // -(-qn // nq)))
+    tpp = max(min_tiles, -(-tiles // want))
+    if max_tiles is not None:
+        tpp = min(tpp, max_tiles)
+    tpp = min(tpp, tiles)
+    return -(-tiles // tpp), tpp
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SM_COUNTS:
+        _SM_COUNTS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNTS[dev]
+
+
+def _tc_sample_theta(qk, smp, max_distance, j: int, plan=None):
+    """:func:`sample_theta` on the θ kernel (``csrc/tc_theta.cu``
+    ``tc_theta_kernel``), for CUDA tensors at the tensor-core widths: launch
+    A reads the mini rows straight out of the sample (a tensor map whose
+    row pitch is the stride) and writes θ0; launch B counts the sample's
+    rows under θ0 exactly and selects the j-th of their distances, or falls
+    back to θ0.  Both multiply on int8 ``wgmma`` (K1a's, K4a's and K2a's
+    operand paths) and select with a radix select of the distances' bits;
+    the last block of a query tile merges the parts.  ``plan`` overrides
+    :func:`theta_plan` (timing only).  Raises if the build or a launch
+    fails."""
+    data, meta = smp.data, smp.meta
+    ham = qk.kind == "hamming"
+    if ham:
+        dev, qn, s, d = _check_hamming_args(qk.q, data, meta, qk.byte_limit)
+        q, cos = qk.q, [ctypes.c_void_p(None)] * 3
+        ham_args = (qk.byte_limit, int(qk.wrap_u8), hamming_scale(qk.byte_limit))
+    else:
+        dev, qn, s, d = _check_query_args(
+            qk.q_codes, qk.q_sum, qk.q_mag2, qk.qr, data, meta, packed=qk.kind != "cosine"
+        )
+        q, cos = qk.q_codes, [_ptr(qk.q_sum), _ptr(qk.q_mag2), _ptr(qk.qr)]
+        ham_args = (0, 0, 0.0)
+    if q.data_ptr() % 16:  # a TMA source / 16-byte loads: copy an unaligned view
+        q = q.clone()
+    stride, s0, j0 = mini_sample_shape(s, j)
+    cap = sample_cap(j)
+    (nq0, p0, t0), (nq1, p1, t1) = plan or theta_plan(qn, s, s0, _sm_count(dev))
+    kern = load_theta_kernels()
+    ws = torch.zeros(-(-qn // nq0) + -(-qn // nq1) + qn, dtype=torch.int32, device=dev)
+    part_vals = torch.empty(qn * p0 * j0, dtype=torch.int32, device=dev)
+    cand = torch.empty(qn * cap, dtype=torch.int32, device=dev)
+    out = torch.empty((2, qn), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_tc_sample_theta(
+            _ptr(q), *cos, _ptr(data), _ptr(meta), qn, s, d, _KIND_CODES[qk.kind], stride, s0,
+            j0, j, cap, float(np.float32(max_distance)), *ham_args,
+            _KEY_SCALE, DIST_SATURATION, KEY_LOOSE, nq0, p0, t0, nq1, p1, t1,
+            _ptr(ws), _ptr(part_vals), _ptr(cand), _ptr(out[0]), _ptr(out[1]), _stream(dev),
+        )
+    _check(rc, "sample_theta")
+    LAUNCHES["sample_theta"] += 1
+    return out[1]
 
 
 def _as_queries(query_u8, device) -> Tuple[torch.Tensor, bool]:

@@ -281,7 +281,8 @@ def test_coskey_main_path_goes_through_the_kernels(kind):
 
 def test_sharded_auto_on_the_card_matches_one_device():
     """Four shards on the visible cards (all on cuda:0 with one card):
-    per-shard K1a + K1c and the K1c merge give the one-device results."""
+    per-shard θ kernel + K1a + K1c and the K1c merge give the one-device
+    results."""
     from pixelbox_tpu_torch.parallel import sharded_scan as ss
     from pixelbox_tpu_torch.parallel.mesh import make_mesh
 
@@ -293,7 +294,8 @@ def test_sharded_auto_on_the_card_matches_one_device():
     fs.reset_launch_counts()
     got = ss.sharded_cosine_scan_topk_auto(q, mirror, mesh, k=50, block_rows=16384)
     counts = fs.launch_counts()
-    assert counts["cosine_threshold_collect"] >= 8 and counts["lex_topk_select"] >= 9
+    assert counts["sample_theta"] >= 4 and counts["cosine_threshold_collect"] >= 4
+    assert counts["lex_topk_select"] >= 5
     want = tscan.cosine_scan_topk(q, idx, k=50)
     assert torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(got[1].cpu(), want[1].cpu())
     ph = PackedHammingIndex(idx.data.view(torch.uint8)[:, :32].contiguous(), idx.valid)
@@ -795,3 +797,113 @@ def test_tc_chunk_topk_split_chunks_match_plain(kind):
                 args = (*(x[:qn].contiguous() for x in qk[:4]), 1e3, idx.data, meta, qk.sym, k)
                 got, want = fs.cosine4_chunk_topk(*args), fs.cosine4_chunk_topk_plain(*args)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (qn, k)
+
+
+# --------------------------------------------------------------------- #
+# The θ stage (csrc/tc_theta.cu) against sample_theta_plain
+
+
+def _theta_sample(kind, width, s, seed, dev, flood=False):
+    """(queries [2048], ScanSample) of s rows of a kind; ``flood``: 3,000
+    copies of query 0's row on rows the mini-sample skips (its stage 2
+    overflows the buffer)."""
+    rng = np.random.default_rng(seed)
+    if kind == "hamming":
+        base = rng.integers(0, 256, (64, width), dtype=np.uint8)
+        noise = (rng.integers(0, 256, (s, width), dtype=np.uint8)
+                 & rng.integers(0, 256, (s, width), dtype=np.uint8)
+                 & rng.integers(0, 256, (s, width), dtype=np.uint8))
+        db = base[rng.integers(0, 64, s)] ^ noise
+        q = db[rng.integers(0, s, 2048)].copy()
+        if flood:
+            db[[r for r in range(s) if r % 16][:3000]] = q[0]
+        ok = (rng.uniform(size=s) > 0.01).astype(np.uint8)
+        return q, tscan.ScanSample(torch.from_numpy(db).to(dev), torch.from_numpy(ok).to(dev))
+    d = width
+    c = rng.standard_normal((64, d)).astype(np.float32)
+    x = c[rng.integers(0, 64, s)] + 0.35 * rng.standard_normal((s, d)).astype(np.float32)
+    db = quantize_embedding_np(np.tanh(x))
+    q = db[rng.integers(0, s, 2048)].copy()
+    if flood:
+        db[[r for r in range(s) if r % 16][:3000]] = q[0]
+    valid = rng.uniform(size=s) > 0.01
+    if kind == "cosine":
+        data, rs, rm = semantic_rows_from_u8(db)
+        idx = PackedSemanticIndex(*(torch.from_numpy(v).to(dev) for v in (data, rs, rm, valid)))
+    else:
+        idx = int4.build_semantic4_index(db, block_rows=s, device=dev)
+        idx = idx._replace(valid=torch.from_numpy(valid).to(dev))
+    return q, tscan.ScanSample(idx.data, fs.build_row_meta(idx))
+
+
+def _theta_queries(kind, q, width, limit=None, wrap=False):
+    if kind == "hamming":
+        return fs.HammingQueries(q.contiguous(), limit or width, wrap)
+    if kind == "cosine":
+        return fs.CosineQueries.from_u8(q)
+    return fs.Int4Queries.from_u8(q, "sym" if kind == "cosine4" else "asym")
+
+
+_THETA_CASES = [("cosine", 32, None, False), ("cosine", 64, None, False), ("cosine", 128, None, False),
+                ("cosine4a", 128, None, False), ("cosine4", 128, None, False),
+                ("hamming", 32, None, False), ("hamming", 32, 24, False), ("hamming", 32, None, True)]
+
+
+@pytest.mark.parametrize("qn", [1, 8, 256, 2048])
+@pytest.mark.parametrize("kind,width,limit,wrap", _THETA_CASES)
+def test_tc_sample_theta_matches_plain(kind, width, limit, wrap, qn):
+    """The θ kernel (one sample_theta launch a call) against
+    sample_theta_plain, bit for bit: a 65,536-row sample (j = 20 as k =
+    100 over 1M rows) and a 100,000-row one (partial tiles, 6,250 mini
+    rows); at k = 400 over 1M (j = 80)."""
+    dev = _card()
+    for s, j in ((65536, 20), (100000, 80)):
+        q, smp = _theta_sample(kind, width, s, seed=width + qn, dev=dev)
+        qk = _theta_queries(kind, torch.from_numpy(q[:qn]).to(dev), width, limit, wrap)
+        for md in (1e3, 0.25):
+            fs.reset_launch_counts()
+            got = fs.sample_theta(qk, smp, md, j)
+            torch.cuda.synchronize()
+            counts = fs.launch_counts()
+            assert counts["sample_theta"] == 1 and sum(counts.values()) == 1
+            want = fs.sample_theta_plain(qk, smp, md, j)
+            assert torch.equal(got, want), (s, md)
+
+
+@pytest.mark.parametrize("kind,width,limit,wrap", _THETA_CASES)
+def test_tc_sample_theta_fallbacks_match_plain(kind, width, limit, wrap):
+    """Both fallbacks on the card: a max_distance that leaves fewer than j
+    rows under θ0, and a flood of query 0's row that overflows the
+    buffer; and launch plans other than the wrapper's."""
+    dev = _card()
+    s, j = 65536, 20
+    q, smp = _theta_sample(kind, width, s, seed=7, dev=dev, flood=True)
+    qk = _theta_queries(kind, torch.from_numpy(q[:64]).to(dev), width, limit, wrap)
+    theta0 = fs.mini_sample_theta(qk, smp, 1e3, j)
+    count = qk.collect_plain(theta0, smp.data, smp.meta, fs.sample_cap(j))[0]
+    assert int(count[0]) > fs.sample_cap(j)
+    md_small = 1e-4 if kind != "hamming" else 0.01
+    count_small = qk.collect_plain(fs.mini_sample_theta(qk, smp, md_small, j), smp.data, smp.meta, 2048)[0]
+    assert bool((count_small[1:] < j).any())
+    for md in (1e3, md_small):
+        want = fs.sample_theta_plain(qk, smp, md, j)
+        assert torch.equal(fs.sample_theta(qk, smp, md, j), want)
+        _, s0, _ = fs.mini_sample_shape(s, j)
+        for plan in (((8, 4, 16), (32, 1, 1024)), ((32, 16, 4), (16, 7, 147)), ((8, 64, 1), (8, 1024, 1))):
+            assert torch.equal(fs._tc_sample_theta(qk, smp, md, j, plan=plan), want), plan
+
+
+@pytest.mark.parametrize("kind,width", [("cosine", 36), ("cosine4a", 64), ("hamming", 18)])
+def test_sample_theta_other_widths_take_the_chunk_kernels(kind, width):
+    """At widths the θ kernel does not take, stage 1 is the width's chunk
+    top-k + K1c and stage 2 its collect + K1c; bit-equal to the plain."""
+    dev = _card()
+    q, smp = _theta_sample(kind, width, 16384, seed=3, dev=dev)
+    qk = _theta_queries(kind, torch.from_numpy(q[:40]).to(dev), width)
+    fs.reset_launch_counts()
+    got = fs.sample_theta(qk, smp, 1e3, 20)
+    torch.cuda.synchronize()
+    counts = fs.launch_counts()
+    assert counts["sample_theta"] == 0 and counts["lex_topk_select"] == 2
+    assert sum(c for n, c in counts.items() if "chunk_topk" in n) == 1
+    assert torch.equal(got, fs.sample_theta_plain(qk, smp, 1e3, 20))
