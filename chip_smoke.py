@@ -10,10 +10,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    cuDNN deterministic, benchmark off).
 2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
    ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K1b, K2b and K4b),
-   ``csrc/tc_theta.cu`` (the θ stage) and ``csrc/breakdown.cu`` (the
+   ``csrc/tc_theta.cu`` (the θ stage), ``csrc/ivf_probe.cu`` (K5, the IVF
+   probe, and its gathered mode) and ``csrc/breakdown.cu`` (the
    tensor-core ladder and the first port's) for sm_90a, one nvcc each, in
    parallel; logs the tensor-core and select kernels' registers and
-   spills and ptxas's wgmma warnings.
+   spills and ptxas's wgmma warnings.  Meanwhile the main thread makes
+   the seeded host data of phases 3-6 (phase 3's rows, the hash-only
+   records that grow phases 4-6's libraries to 1,048,576 rows).
 3. Kernels vs plain at the main shapes (1,048,576 rows × 128, k = 100,
    Q ∈ {1, 8, 256}) in five cases: θ from the sample, θ = max_distance, a
    max_distance filter that excludes rows, 1% invalid rows, and a tie
@@ -39,10 +42,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    port's composition (``sample_theta_chain``: the plain-torch
    mini-sample, K1a and K1c), per call and device-only.
 3b. Hamming kernels vs plain at the phash's published width (1,048,576
-   rows × 32 bytes, k = 100, Q ∈ {1, 8, 256, 2048}) in seven cases: θ
-   from the sample, θ = max_distance, max_distance 0.1, 1% tombstones,
-   the u8 wrap, byte_limit 24 with a width-group mask, and an 8,192-row
-   tie flood that must defeat the proof and be repaired.  Replayed and
+   rows × 32 bytes, k = 100, Q ∈ {1, 8, 256}, and 2048 in the first and
+   the last case) in seven cases: θ from the sample, θ = max_distance,
+   max_distance 0.1, 1% tombstones, the u8 wrap, byte_limit 24 with a
+   width-group mask, and an 8,192-row tie flood that must defeat the
+   proof and be repaired.  Replayed and
    checked as in phase 3, with the proof rate and the repaired count
    printed per Q; the tensor-core K2a timed at every Q in turns against the
    ``__popc`` kernel it replaced; the tensor-core K2b at a mesh shard's
@@ -82,14 +86,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    buckets 1/8/32/128/256, in turns.
 4. Engine: indexes 32 seeded images with EfficientNet-B0 at 224²/dim 128
    from a seeded checkpoint (then 64 more, warm), checks the exact-0.0
-   self-match, grows the store to 1,048,576 rows with seeded hash-only
-   records, runs ``similar`` under ``auto`` and ``pallas`` — counting
+   self-match, grows the store to 1,047,552 rows with seeded hash-only
+   records (phase 6b's append of 1,024 fills it to 1,048,576 within its
+   capacity), runs ``similar`` under ``auto`` and ``pallas`` — counting
    kernel launches from zero, and splitting its latency into the engine's
    timing spans — and holds the results against the exact scan and the
    plain (CPU) path.
 5. Phash engine: indexes seeded images under ``phash_compat=False`` and a
    second library with mixed aspect ratios under ``True``; ``phash-similar``
-   (the CLI) returns an indexed image at exactly 0.0 in both; grows the
+   (the CLI) returns an indexed image at exactly 0.0 in both, and the
+   first library's ``similar --scan-mode ivf`` (the CLI, on the card) too,
+   its ``similar-id`` at full nprobe = the plain (CPU) path; grows the
    phash store to 1,048,576 rows with seeded, clustered hash-only
    records; times ``query_by_phash`` with the engine's spans; runs
    ``find_duplicate_pairs`` by phash over the whole phash store and by
@@ -101,11 +108,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    into the int4 scan and the host rerank, checked against the plain
    (CPU) path, with recall@10 against the u8 exact scan; the same query
    with the rerank off against the numpy oracle; ``duplicates`` by
-   semantic over a 65,536-row int4 library (a cut of the 1M library)
+   semantic over a 16,384-row int4 library (a cut of the 1M library)
    with its scan and rerank timed apart — counting launches from zero.
+6b. IVF (``scan_mode = "ivf"``, default clusters ~4·sqrt(N)) on phase
+   4's engine: the train and build spans; ``similar`` end to end (median
+   of 5 after the first query); ``ivf_scan_topk`` at Q ∈ {1, 8, 256} at
+   the default nprobe (and the device kernels a call, by
+   ``torch.profiler``), and K5 (``ivf_probe_collect``) a call and on the
+   device, warm and with L2 flushed, against its bound and its plain
+   version; at full nprobe (Q = 8)
+   the result equal to ``cosine_scan_topk_auto`` bit for bit; recall@10
+   at the default nprobe over 256 perturbed stored rows against the
+   exact scan; an append of 1,024 rows that must extend the spill
+   (``engine.ivf_extend``, no ``engine.ivf_build``), full nprobe still
+   equal to the exact scan; a second engine on the same library that
+   must read the ``.ivf.npz`` sidecar (no ``engine.ivf_train``).  On phase
+   6's int4 engine: ivf with the rerank at full nprobe equal to the flat
+   int4 path, and ``tune_nprobe`` once at target 0.99 (the device rerank:
+   K5's gathered mode + K1c).  Then k past MAX_K once per kind: u8 k =
+   1,500, int4 user k = 300 (C = 1,200) and phash k = 1,500, each equal
+   to its plain (CPU) version.  Launches counted from zero around each
+   main-path step and every one replayed bit-identical through its plain
+   version.
 7. Serving: phase 4's 1M-row engine behind the port's HTTP server
    (``serve.make_server`` on 127.0.0.1:0, its batching service warmed at
-   every bucket) and phase 5's 1M-row phash library behind its own:
+   every bucket) and phase 5's 1M-row phash library behind its own
+   (and a full bucket into the service's ``ivf`` kind, equal to the
+   engine's ``_ivf_query``):
    one concurrent burst of 64 ``GET /api/similar?id=``, 16 ``POST
    /api/similar`` and 16 ``POST /api/phash-similar``, every response
    equal to the engine's direct call; then ``/api/tag`` → ``search
@@ -114,7 +143,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    straight into the service against its dist-path scan, then (uncounted)
    the same bucket served again on the distance, which the service takes
    at every bucket, and on the cos key (K1d + K1e), in turns: results
-   equal, the burst's wall split at the service's batch; then a burst and
+   equal, the burst's wall split at the service's batch (4 rounds, each
+   epilogue first in two); then a burst and
    a full bucket on phase 6's int4 engine (rerank on), served the same two
    ways in turns (K4a against K4d + K1e) — counting launches from zero
    around each burst; no served batch takes the cos key.
@@ -122,9 +152,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    left them): phases 4–6's 1M-row u8, phash and int4 libraries put on a
    4-shard mesh through ``Engine.serve_on_mesh`` (the visible cards
    round-robin; with one card all four shards on it, 262,144 rows each):
-   ``similar`` (auto; pallas and exact modes; an upload),
+   ``similar`` (auto; pallas and exact modes; an upload; ivf at full
+   nprobe on the sharded IVF index),
    ``phash-similar`` at 32 B and at 24 B (the mixed-width path), int4
-   ``similar`` with the rerank, and 64 batches of 256 of the phash and u8
+   ``similar`` with the rerank, and 16 batches of 256 of the phash and u8
    duplicate passes (8 of the int4 one) — each equal to the same engine
    on one device, and to the numpy oracle on sampled queries.  Every
    per-shard and merge launch is replayed bit-identical through its plain
@@ -159,6 +190,7 @@ K1c per shape with the chain's) and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -185,12 +217,13 @@ HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 F32_OPS = 67e12
 INT4_KS = (100, 400)   # k = 100, and C = 400 candidates of the exact-u8 rerank
-INT4_DUP_ROWS = 1 << 16  # the int4 duplicates library: a cut of the 1M one
+INT4_DUP_ROWS = 1 << 14  # the int4 duplicates library: a cut of the 1M one
 APPEND_ROWS = 1024       # phases 7 and 8: the append between their queries
 MESH_SHARDS = 4          # phase 8: shards over the visible cards (4 on one card)
-DUP_BATCHES = 64         # phase 8: duplicate batches of 256 compared on the mesh
+DUP_BATCHES = 16         # phase 8: duplicate batches of 256 compared on the mesh
 MESH_SHARD_ROWS = N_ROWS // MESH_SHARDS  # phase 8: a shard's rows on one card
 SMALL_ROWS = 131072      # phase 3: a library at ops/scan.py's K1b gate (4 x 32,768 rows)
+IVF_QS = (1, 8, 256)     # phase 6b: the IVF scan's timed batches
 
 
 def log(msg: str) -> None:
@@ -256,6 +289,44 @@ def perturb(rng, rows, flips=6):
     return q.astype(np.uint8)
 
 
+def synthetic_records(prefix, key, rows):
+    """Hash-only records ``<prefix>_<j>`` holding ``rows[j]`` as ``key``."""
+    from pixelbox_tpu_torch.records import IndexedImage
+
+    return [IndexedImage(filename=f"{prefix}_{j:07d}.png", path=f"/synthetic/{prefix}_{j:07d}.png",
+                         **{key: rows[j]}) for j in range(len(rows))]
+
+
+def insert_synthetic(eng, records):
+    """Insert records through the engine's batch insert, 131,072 a batch."""
+    step = 1 << 17
+    for s in range(0, len(records), step):
+        eng.insert_records_batch(records[s : s + step])
+
+
+def host_data():
+    """Phases 3-6's seeded host data, made while the kernels build (the
+    main thread only waits on nvcc then): phase 3's rows and queries (and
+    its generator, which phase 3 goes on drawing from), and the hash-only
+    records that grow phases 4, 5 and 6's libraries to N_ROWS (each phase
+    inserts the first as many as its library has room for)."""
+    import numpy as np
+
+    rng3 = np.random.default_rng(SEED)
+    db = clustered_hashes(rng3, N_ROWS, DIM)
+    base_q = perturb(rng3, db[rng3.integers(0, N_ROWS, max(QS))])
+    base_q[1] = db[4242]  # an exact copy: distance 0 at row 4242
+    rng = np.random.default_rng(SEED + 10)
+    ph = clustered_phashes(rng, N_ROWS, PH_BYTES, n_centers=262144)
+    ph[1::1000] = flip_bits(rng, ph[0::1000][: len(ph[1::1000])], 4)  # near-dups
+    growth = {
+        "syn": synthetic_records("syn", "visual_hash", clustered_hashes(rng, N_ROWS - APPEND_ROWS, DIM)),
+        "ph": synthetic_records("ph", "phash", ph),
+        "syn4": synthetic_records("syn4", "visual_hash", near_dup_hashes(rng, N_ROWS)),
+    }
+    return (rng3, db, base_q), growth
+
+
 def oracle_topk(q, db, valid, k, md):
     """numpy oracle over the valid rows, ids mapped back to row numbers
     (dropping rows keeps the ascending-row-id tie order)."""
@@ -284,19 +355,24 @@ class Recorder:
         "sample_theta",
     )
 
+    #: K5 and its gathered mode, whose wrappers live in ops/ivf.py.
+    IVF_NAMES = ("ivf_probe_collect", "ivf_gathered_collect")
+
     def __init__(self, fs):
-        self.fs = fs
-        self.orig = {n: getattr(fs, n) for n in self.NAMES}
+        from pixelbox_tpu_torch.ops import ivf
+
+        self.slots = [(fs, n) for n in self.NAMES] + [(ivf, n) for n in self.IVF_NAMES]
+        self.orig = {(m, n): getattr(m, n) for m, n in self.slots}
         self.calls = []
 
     def __enter__(self):
-        for n in self.NAMES:
-            setattr(self.fs, n, self._wrap(n, self.orig[n]))
+        for m, n in self.slots:
+            setattr(m, n, self._wrap(n, self.orig[(m, n)]))
         return self
 
     def __exit__(self, *exc):
-        for n in self.NAMES:
-            setattr(self.fs, n, self.orig[n])
+        for m, n in self.slots:
+            setattr(m, n, self.orig[(m, n)])
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):
@@ -308,26 +384,34 @@ class Recorder:
 
 
 class PlainOnCard:
-    """Counts the θ stage's old composition on the card outside replays:
-    ``sample_theta_chain`` and the plain-torch mini-sample
-    (``mini_sample_theta``) on a CUDA sample.  Phases 4-9 must call
-    neither (their θ stages are the θ kernel's)."""
+    """Counts plain versions run on the card outside replays: the θ
+    stage's old composition (``sample_theta_chain`` and the plain-torch
+    mini-sample ``mini_sample_theta`` on a CUDA sample) and K5's plain
+    versions (``ivf_probe_collect_plain``, ``ivf_gathered_collect_plain``
+    on CUDA queries).  Phases 4-9 must call none of them."""
 
     NAMES = ("sample_theta_chain", "mini_sample_theta")
-    counts = {n: 0 for n in NAMES}
+    IVF_NAMES = ("ivf_probe_collect_plain", "ivf_gathered_collect_plain")
+    counts = {n: 0 for n in NAMES + IVF_NAMES}
     _replay = 0
 
     @classmethod
     def install(cls, fs):
+        from pixelbox_tpu_torch.ops import ivf
+
         for n in cls.NAMES:
             setattr(fs, n, cls._wrap(n, getattr(fs, n)))
+        for n in cls.IVF_NAMES:
+            setattr(ivf, n, cls._wrap(n, getattr(ivf, n)))
 
     @classmethod
     def _wrap(cls, name, fn):
-        def wrapper(qk, smp, *args, **kwargs):
-            if smp.data.is_cuda and not cls._replay:
+        def wrapper(first, *args, **kwargs):
+            # K5 plain: (q_codes, ...); the θ stage: (qk, smp, ...)
+            on_card = first.is_cuda if name in cls.IVF_NAMES else args[0].data.is_cuda
+            if on_card and not cls._replay:
                 cls.counts[name] += 1
-            return fn(qk, smp, *args, **kwargs)
+            return fn(first, *args, **kwargs)
 
         return wrapper
 
@@ -383,13 +467,31 @@ def replay(fs, call):
     import torch
 
     name, args, kwargs, out = call
-    if name == "coskey_rescore":
+    if name in Recorder.IVF_NAMES:
+        from pixelbox_tpu_torch.ops import ivf
+
+        with PlainOnCard.replaying():
+            d2, i2 = getattr(ivf, name + "_plain")(*args, **kwargs)
+        check(torch.equal(out[0], d2) and torch.equal(out[1], i2), f"{name} differs from plain")
+        a, b = out[0], d2
+    elif name == "coskey_rescore":
         d2 = fs.coskey_rescore_plain(*args)
         check(torch.equal(out, d2), "coskey_rescore differs from plain")
         a, b = out, d2
     elif name == "sample_theta":
         with PlainOnCard.replaying():
             t2 = fs.sample_theta_plain(*args, **kwargs)
+            if not torch.equal(out, t2):
+                # What a later reader needs to tell a race from a spec
+                # difference: the queries, both values, the plain θ0, and
+                # the kernel again on the same inputs.
+                bad = (out != t2).nonzero().flatten()[:8]
+                again = fs.sample_theta(*args, **kwargs)
+                theta0 = fs.mini_sample_theta(*args, **kwargs)
+                log(f"sample_theta differs from plain at {bad.numel()} of {out.numel()} queries "
+                    f"{bad.tolist()}: kernel {out[bad].tolist()}, plain {t2[bad].tolist()}, plain θ0 "
+                    f"{theta0[bad].tolist()}; the kernel again {again[bad].tolist()} "
+                    f"(= plain: {torch.equal(again, t2)})")
         check(torch.equal(out, t2), "sample_theta differs from plain")
         a, b = out, t2
     elif name.endswith("collect"):
@@ -723,19 +825,14 @@ def small_library(fs, scan, smi, err, db, rng):
     return out
 
 
-def phase_kernels(fs, scan, smi, err):
+def phase_kernels(fs, scan, smi, err, seeded):
     import numpy as np
     import torch
 
     from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex, semantic_rows_from_u8
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    db = clustered_hashes(rng, N_ROWS, DIM)
-    base_q = perturb(rng, db[rng.integers(0, N_ROWS, max(QS))])
-    base_q[1] = db[4242]  # an exact copy: distance 0 at row 4242
-    log(f"[3] seeded {N_ROWS}x{DIM} rows in {time.perf_counter() - t0:.1f}s")
+    rng, db, base_q = seeded  # host_data's, made during the builds
 
     flood_row, flood_at, flood_n = FLOOD
     cases = []
@@ -903,18 +1000,21 @@ def phase_hamming(fs, scan, hg, smi, err):
     flood_q = base_q.copy()
     flood_q[0] = db[flood_row]
     flood_q[2] = flip_bits(rng, db[flood_row][None])[0]
-    # (name, rows, valid, group, queries, max_distance, byte_limit, wrap, paths)
+    # (name, rows, valid, group, queries, max_distance, byte_limit, wrap,
+    #  paths, largest Q): Q = 2048 (past the JAX carry kernels) for the
+    # main pass and the flood, as in phase 3d.
+    big = max(PH_QS)
     cases = [
-        ("theta_from_sample", db, valid_all, None, base_q, 1e3, PH_BYTES, False, "auto"),
-        ("theta_max_distance", db, valid_all, None, base_q, 1e3, PH_BYTES, False, "fused"),
-        ("max_distance_0.1", db, valid_all, None, base_q, 0.1, PH_BYTES, False, "both"),
-        ("tombstones_1pct", db, valid_1pct, None, base_q, 1e3, PH_BYTES, False, "both"),
-        ("wrap_u8", db, valid_all, None, wrap_q, 1e3, PH_BYTES, True, "both"),
-        ("byte_limit_24_group", db, valid_all, group, base_q, 1e3, 24, False, "both"),
-        ("tie_flood", db_flood, valid_all, None, flood_q, 1e3, PH_BYTES, False, "both"),
+        ("theta_from_sample", db, valid_all, None, base_q, 1e3, PH_BYTES, False, "auto", big),
+        ("theta_max_distance", db, valid_all, None, base_q, 1e3, PH_BYTES, False, "fused", MAIN_Q),
+        ("max_distance_0.1", db, valid_all, None, base_q, 0.1, PH_BYTES, False, "both", MAIN_Q),
+        ("tombstones_1pct", db, valid_1pct, None, base_q, 1e3, PH_BYTES, False, "both", MAIN_Q),
+        ("wrap_u8", db, valid_all, None, wrap_q, 1e3, PH_BYTES, True, "both", MAIN_Q),
+        ("byte_limit_24_group", db, valid_all, group, base_q, 1e3, 24, False, "both", MAIN_Q),
+        ("tie_flood", db_flood, valid_all, None, flood_q, 1e3, PH_BYTES, False, "both", big),
     ]
     timed_calls = {}
-    for name, rows, valid, grp, queries, md, limit, wrap, which in cases:
+    for name, rows, valid, grp, queries, md, limit, wrap, which, q_max in cases:
         idx = PackedHammingIndex(torch.from_numpy(rows).to(dev), torch.from_numpy(valid).to(dev))
         meta = fs.build_hamming_meta(idx, grp)
         smp = hg.build_hamming_scan_sample(idx, meta)
@@ -922,7 +1022,7 @@ def phase_hamming(fs, scan, hg, smi, err):
         sub = [0, 1, 2] if which != "fused" else [1]
         ovalid = valid if grp is None else valid & grp
         od, oi = oracle_hamming(queries[sub], rows, ovalid, K, md, limit, wrap)
-        for qn in PH_QS:
+        for qn in (q for q in PH_QS if q <= q_max):
             q = torch.from_numpy(queries[:qn]).to(dev)
             ex_d, ex_i = scan.hamming_scan_topk(q, ref, k=K, max_distance=md, wrap_u8=wrap, byte_limit=limit)
             kw = dict(k=K, max_distance=md, wrap_u8=wrap, byte_limit=limit)
@@ -1394,14 +1494,13 @@ def write_images(folder, n, rng, prefix="img"):
     return paths
 
 
-def phase_engine(fs, scan, smi, tmp):
+def phase_engine(fs, scan, smi, tmp, growth):
     import numpy as np
     import torch
 
     from pixelbox_tpu_torch.engine import Engine
     from pixelbox_tpu_torch.models.efficientnet import save_params, seeded_state_dict
     from pixelbox_tpu_torch.ops.packed import PackedSemanticIndex
-    from pixelbox_tpu_torch.records import IndexedImage
     from pixelbox_tpu_torch.utils import timing
 
     rng = np.random.default_rng(SEED + 1)
@@ -1445,16 +1544,9 @@ def phase_engine(fs, scan, smi, tmp):
         f"{64 / pipe2.elapsed_s:.1f} images/s; {smi}")
 
     t0 = time.perf_counter()
-    filler = clustered_hashes(rng, N_ROWS - n_img, DIM)
-    step = 1 << 17
-    for s in range(0, filler.shape[0], step):
-        batch = [
-            IndexedImage(filename=f"syn_{j:07d}.png", path=f"/synthetic/syn_{j:07d}.png",
-                         visual_hash=filler[j])
-            for j in range(s, min(filler.shape[0], s + step))
-        ]
-        eng.insert_records_batch(batch)
-    check(eng._sem_store.n == N_ROWS, f"store did not reach {N_ROWS:,} rows")
+    # Phase 6b's append brings the store to N_ROWS, inside its capacity.
+    insert_synthetic(eng, growth.pop("syn")[: N_ROWS - APPEND_ROWS - n_img])
+    check(eng._sem_store.n == N_ROWS - APPEND_ROWS, f"store did not reach {N_ROWS - APPEND_ROWS:,} rows")
     log(f"[4] grew the store to {eng._sem_store.n} rows (capacity "
         f"{eng._sem_store.device_index.capacity}) in {time.perf_counter() - t0:.1f}s")
 
@@ -1527,7 +1619,7 @@ def run_cli(argv):
     return buf.getvalue()
 
 
-def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
+def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt, growth):
     import numpy as np
     import torch
     from PIL import Image
@@ -1535,7 +1627,6 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
     from pixelbox_tpu_torch.engine import Engine
     from pixelbox_tpu_torch.ingest.decode import decode_image_file
     from pixelbox_tpu_torch.ops.phash import phash
-    from pixelbox_tpu_torch.records import IndexedImage
     from pixelbox_tpu_torch.utils import timing
 
     rng = np.random.default_rng(SEED + 4)
@@ -1569,6 +1660,18 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
         dup = run_cli(["duplicates", db, "--json", "--device", "cuda"])
         check(dup == run_cli(["duplicates", db, "--json", "--device", "cpu"]),
               "duplicates on the card differ from the plain (CPU) path")
+        if not compat:
+            # The ivf scan mode through the CLI on the card; at full nprobe
+            # (4 of 4 clusters) = the plain (CPU) path on the stored hash.
+            ivf = ["--json", "--scan-mode", "ivf", "--ivf-clusters", "4"]
+            res = json.loads(run_cli(["similar", db, probe, *ivf, "--device", "cuda"]))
+            check(res[0]["path"] == probe and res[0]["distance"] == 0.0,
+                  f"similar --scan-mode ivf: self-match not first at 0.0: {res[:2]}")
+            by_id = ["similar-id", db, str(res[0]["id"]), *ivf, "--nprobe", "4"]
+            check(run_cli(by_id + ["--device", "cuda"]) == run_cli(by_id + ["--device", "cpu"]),
+                  "similar-id --scan-mode ivf on the card differs from the plain (CPU) path")
+            log(f"[5] CLI similar --scan-mode ivf (4 clusters) returns {os.path.basename(probe)} first "
+                f"at 0.0 on the card; similar-id at full nprobe = the plain (CPU) path")
         pairs = json.loads(dup)
         check(len(pairs) >= 1, "duplicates found no pair in a library holding a copy")
         log(f"[5] phash_compat={compat}: 26 images, phash widths {widths}; phash-similar "
@@ -1580,15 +1683,8 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
     eng = Engine.open(db, device="cuda")
     n0 = eng._ph_store.n
     t0 = time.perf_counter()
-    filler = clustered_phashes(rng, N_ROWS - n0, PH_BYTES, n_centers=262144)
-    filler[1::1000] = flip_bits(rng, filler[0::1000][: len(filler[1::1000])], 4)  # near-dups
-    step = 1 << 17
-    for s in range(0, filler.shape[0], step):
-        eng.insert_records_batch([
-            IndexedImage(filename=f"ph_{j:07d}.png", path=f"/synthetic/ph_{j:07d}.png",
-                         phash=filler[j])
-            for j in range(s, min(filler.shape[0], s + step))
-        ])
+    n_fill = N_ROWS - n0
+    insert_synthetic(eng, growth.pop("ph")[:n_fill])
     check(eng._ph_store.n == N_ROWS, f"phash store did not reach {N_ROWS:,} rows")
     log(f"[5] grew the phash store to {eng._ph_store.n:,} rows x {eng._ph_store.dim} B "
         f"(capacity {eng._ph_store.device_index.capacity:,}) in {time.perf_counter() - t0:.1f}s")
@@ -1662,7 +1758,7 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
             f"{len(pairs):,} pairs in {dt:.2f}s (engine.duplicate_scan {span:.2f}s; "
             f"{len(rows) / dt:,.0f} rows/s); 3 sampled batches = plain exact scan; {smi}")
         if by == "phash":
-            check(len(pairs) >= len(filler) // 1000, "duplicates by phash missed the planted near-dups")
+            check(len(pairs) >= n_fill // 1000, "duplicates by phash missed the planted near-dups")
     return counts, eng, paths
 
 
@@ -1670,24 +1766,22 @@ def phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt):
 # Phase 6: the int4 engine (semantic4 store, exact-u8 rerank, duplicates)
 
 
-def grow_semantic(eng, rng, n_rows, prefix):
-    """Seeded hash-only records up to ``n_rows`` semantic rows."""
-    from pixelbox_tpu_torch.records import IndexedImage
+def near_dup_hashes(rng, n):
+    """``n`` clustered u8 hashes, every 1,000th pair a planted near-dup."""
+    filler = clustered_hashes(rng, n, DIM)
+    filler[1::1000] = perturb(rng, filler[0::1000][: len(filler[1::1000])], 3)
+    return filler
 
+
+def grow_semantic(eng, records, n_rows):
+    """Insert the first of the hash-only ``records`` up to ``n_rows``
+    semantic rows."""
     n0 = eng._sem_store.n if eng._sem_store is not None else 0
-    filler = clustered_hashes(rng, n_rows - n0, DIM)
-    filler[1::1000] = perturb(rng, filler[0::1000][: len(filler[1::1000])], 3)  # near-dups
-    step = 1 << 17
-    for s in range(0, filler.shape[0], step):
-        eng.insert_records_batch([
-            IndexedImage(filename=f"{prefix}_{j:07d}.png", path=f"/synthetic/{prefix}_{j:07d}.png",
-                         visual_hash=filler[j])
-            for j in range(s, min(filler.shape[0], s + step))
-        ])
+    insert_synthetic(eng, records[: n_rows - n0])
     check(eng._sem_store.n == n_rows, f"store did not reach {n_rows:,} rows")
 
 
-def phase_int4_engine(fs, scan, smi, tmp, ckpt):
+def phase_int4_engine(fs, scan, smi, tmp, ckpt, growth):
     import numpy as np
     import torch
 
@@ -1713,7 +1807,7 @@ def phase_int4_engine(fs, scan, smi, tmp, ckpt):
     res = eng.get_query_results()
     check(res[0].path == paths[5] and res[0].distance_from_query == 0.0, "int4: self-match not first at 0.0")
     t0 = time.perf_counter()
-    grow_semantic(eng, rng, N_ROWS, "syn4")
+    grow_semantic(eng, growth.pop("syn4"), N_ROWS)
     index = eng._sem_store.device_index
     log(f"[6] int4 library: 32 images, grown to {eng._sem_store.n:,} rows ({index.data.numel() / 2**20:.0f} MiB "
         f"of packed nibbles on the card, capacity {index.capacity:,}) in {time.perf_counter() - t0:.1f}s")
@@ -1737,7 +1831,8 @@ def phase_int4_engine(fs, scan, smi, tmp, ckpt):
 
     # duplicates by semantic over the cut library
     dup = Engine.new(os.path.join(tmp, "int4_dup.db"), **{**kw, "embedder": "none"})
-    grow_semantic(dup, rng, INT4_DUP_ROWS, "dup4")
+    grow_semantic(dup, synthetic_records("dup4", "visual_hash", near_dup_hashes(rng, INT4_DUP_ROWS)),
+                  INT4_DUP_ROWS)
     timing.reset_stats()
     t = time.perf_counter()
     pairs = dup.find_duplicate_pairs(max_distance=0.05, by="semantic")
@@ -1829,6 +1924,331 @@ def phase_int4_engine(fs, scan, smi, tmp, ckpt):
 
 
 # --------------------------------------------------------------------- #
+# Phase 6b: the IVF clustered index (scan_mode "ivf") on the card
+
+
+def ivf_work(args, out):
+    """(bytes, ops, split bytes) of K5's function on these inputs, the JAX
+    ``_ivf_probe_topk`` up to its selection: every distinct probed
+    bucket's rows and meta read once (data, sum, mag2, row id, valid), the
+    queries and their bucket ids; ops the int8 products of the valid
+    probed slots (D a slot, int4 buckets unpacked to D).  The [Q, P·cap]
+    (dist, id) buffer K1c then reads exists only because the port splits
+    the selection off: its bytes come apart, outside the bound."""
+    import torch
+
+    q_codes, bids, bdata, bvalid = args[0], args[5], args[6], args[10]
+    qn, d = q_codes.shape
+    cap = bdata.shape[1]
+    distinct = int(torch.unique(bids).numel())
+    per_bucket = cap * (bdata.shape[2] + 13)
+    valid_slots = int(bvalid[bids.long()].sum())
+    nbytes = distinct * per_bucket + qn * (d + 16) + bids.numel() * 4
+    return nbytes, 2 * valid_slots * d, out[0].numel() * 8
+
+
+def gathered_work(args, out):
+    """(bytes, ops, split bytes) of K5's gathered mode: each candidate's
+    id and row read once and the queries; ops 2·D a valid candidate.  The
+    [Q, M] (dist, id) buffer K1c selects from comes apart, as in
+    :func:`ivf_work`."""
+    q_codes, cand, rows = args[0], args[5], args[6]
+    qn, d = q_codes.shape
+    ok = int(((cand >= 0) & (cand < rows.shape[0])).sum())
+    return cand.numel() * 4 + ok * d + qn * (d + 16), 2 * ok * d, out[0].numel() * 8
+
+
+def l2_cold_ms(fn, reps=10):
+    """Device time of one launch with the 50 MB L2 flushed first (256 MiB
+    written just before it, so the launch queues behind the flush and the
+    events bracket its device work alone); median of ``reps``."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    del flush
+    return statistics.median(times)
+
+
+def time_ivf_kernel(call, smi, tag, reps=10):
+    """K5 (or its gathered mode): a call and on the device (CUDA events),
+    its plain version on the card, against its bound."""
+    from pixelbox_tpu_torch.ops import ivf
+
+    name, args, kwargs, out = call
+    kern, plain = getattr(ivf, name), getattr(ivf, name + "_plain")
+    k_ms = median_ms(lambda: kern(*args, **kwargs), reps)
+    g_ms = gpu_ms([lambda: kern(*args, **kwargs)])[0]
+    cold_ms = l2_cold_ms(lambda: kern(*args, **kwargs), reps)
+    with PlainOnCard.replaying():
+        p_ms = median_ms(lambda: plain(*args, **kwargs), 3)
+    nbytes, ops, split = (ivf_work if name == "ivf_probe_collect" else gathered_work)(args, out)
+    b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+    st = {"ms": k_ms, "gpu_ms": g_ms, "cold_gpu_ms": cold_ms, "plain_ms": p_ms,
+          "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+          "bytes": nbytes, "ops": ops, "split_out_bytes": split, "split_out_ms": split / HBM_BPS * 1e3,
+          "library_ms": None}
+    shape = f"Q={args[0].shape[0]} x {args[5].shape[1]}" + (
+        f" buckets x cap {args[6].shape[1]}" if name == "ivf_probe_collect" else " candidates")
+    log(f"{tag} {name} {shape}: kernel {k_ms:.4f} ms a call, {g_ms:.4f} device ({cold_ms:.4f} with L2 "
+        f"flushed before each launch); plain {p_ms:.4f} ms; "
+        f"bound {st['bound_ms']:.4f} ms ({st['bound_by']}: {nbytes:,} B, {ops:,} ops; the split-off "
+        f"selection's buffer {split:,} B more, {st['split_out_ms']:.4f} ms at the memory rate); no one library "
+        f"call computes it (median of {reps}, CUDA events; {smi})")
+    return st
+
+
+def device_kernels(fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` runs, counted by
+    ``torch.profiler`` (CUPTI)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def phase_ivf(fs, scan, hg, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
+    """Phase 6b: phase 4's 1M-row engine and phase 6's int4 engine under
+    ``scan_mode = "ivf"`` (default clusters), and the scans' k past MAX_K
+    once per kind.  Launches counted from 0 around each main-path step;
+    every launch recorded and replayed bit-identical through its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from pixelbox_tpu_torch.engine import Engine
+    from pixelbox_tpu_torch.ops import int4
+    from pixelbox_tpu_torch.ops import ivf as ivf_mod
+    from pixelbox_tpu_torch.ops import ivf_build
+    from pixelbox_tpu_torch.ops.packed import PackedHammingIndex, PackedSemanticIndex
+    from pixelbox_tpu_torch.records import IndexedImage
+    from pixelbox_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(SEED + 9)
+    counts = {n: 0 for n in fs.LAUNCHES}
+    replayed = {"calls": {}, "s": 0.0}
+    stats = {"by_q": {}}
+    rec = Recorder(fs)
+
+    def counted(fn):
+        """The main path: launch counts from 0 just before ``fn`` and read
+        just after, its calls recorded for the replays (the timings and
+        the reference scans around it are neither)."""
+        fs.reset_launch_counts()
+        with rec:
+            out = fn()
+        for n, c in fs.launch_counts().items():
+            counts[n] += c
+        return out
+
+    def results(e):
+        return [(r.id, r.distance_from_query) for r in e.get_query_results()]
+
+    eng, store = sem_eng, sem_eng._sem_store
+    eng.scan_mode, eng.ivf_nprobe, eng.ivf_clusters = "ivf", None, None
+    timing.reset_stats()
+    t0 = time.perf_counter()
+    counted(lambda: eng.query_by_image_hash_from_file(sem_paths[9]))  # trains and packs
+    first_s = time.perf_counter() - t0
+    spans = timing.get_stats()
+    ivf = eng._ivf
+    res = eng.get_query_results()
+    check(res[0].path == sem_paths[9] and res[0].distance_from_query == 0.0, "ivf: self-match")
+    nprobe = ivf_mod.default_nprobe(ivf.n_clusters)
+    mb = sum(t.numel() * t.element_size() for t in ivf[1:6]) / 2**20
+    log(f"[6b] ivf on {store.n:,} rows: {ivf.n_clusters:,} clusters (default), cap {ivf.bucket_cap}, "
+        f"{mb:.0f} MiB of buckets, spill {len(ivf_mod.live_spill_ids(ivf)):,} rows; first query "
+        f"{first_s:.2f}s: engine.ivf_train {spans['engine.ivf_train']['total_s']:.2f}s, "
+        f"engine.ivf_build {spans['engine.ivf_build']['total_s']:.2f}s; default nprobe {nprobe}; {smi}")
+    timing.reset_stats()
+    lat = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        counted(lambda: eng.query_by_image_hash_from_file(sem_paths[9]))
+        lat.append(time.perf_counter() - t)
+    spans = {n: round(v["mean_ms"], 3) for n, v in sorted(timing.get_stats().items())}
+    log(f"[6b] similar (ivf, nprobe {nprobe}) end-to-end median {statistics.median(lat) * 1e3:.2f} ms; "
+        f"spans, mean ms over the 5: {json.dumps(spans)}; {smi}")
+    replay_recorded(fs, err, rec, replayed)
+
+    # The scan alone at Q = 1 / 8 / 256 and K5 against its bound.
+    index, smp, meta = store.device_index, eng._get_scan_sample(), eng._get_row_meta()
+    qs = torch.from_numpy(perturb(rng, store._host_rows[rng.integers(0, store.n, MAIN_Q)])).cuda()
+    for qn in IVF_QS:
+        q = qs[:qn]
+        counted(lambda: ivf_mod.ivf_scan_topk(q, ivf, k=K))
+        k5 = next(c for c in rec.calls if c[0] == "ivf_probe_collect")
+        replay_recorded(fs, err, rec, replayed)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ivf_mod.ivf_scan_topk(q, ivf, k=K)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t)
+        scan_ms = median_ms(lambda: ivf_mod.ivf_scan_topk(q, ivf, k=K))
+        exact_ms = median_ms(lambda: scan.cosine_scan_topk_auto(q, index, k=K, sample=smp, row_meta=meta))
+        st = time_ivf_kernel(k5, smi, f"[6b] Q={qn}")
+        st.update(scan_ms=scan_ms, scan_host_ms=statistics.median(host) * 1e3, auto_ms=exact_ms,
+                  device_kernels=device_kernels(lambda: ivf_mod.ivf_scan_topk(q, ivf, k=K)),
+                  auto_device_kernels=device_kernels(
+                      lambda: scan.cosine_scan_topk_auto(q, index, k=K, sample=smp, row_meta=meta)))
+        stats["by_q"][qn] = st
+        log(f"[6b] ivf_scan_topk Q={qn} k={K} nprobe {nprobe}: {scan_ms:.4f} ms a call (CUDA events), "
+            f"{st['scan_host_ms']:.3f} ms host clock + synchronize, {st['device_kernels']} device kernels "
+            f"a call (torch.profiler); the exact auto scan {exact_ms:.4f} ms, {st['auto_device_kernels']} "
+            f"kernels; {smi}")
+    stats.update({key: stats["by_q"][MAIN_Q][key] for key in
+                  ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms", "bound_by", "split_out_bytes",
+                   "split_out_ms", "library_ms")})
+
+    # Full nprobe = the exact scan, bit for bit; recall@10 at the default.
+    q8 = qs[:8]
+    got = counted(lambda: ivf_mod.ivf_scan_topk(q8, ivf, k=K, nprobe=ivf.n_clusters))
+    want = scan.cosine_scan_topk_auto(q8, index, k=K, sample=smp, row_meta=meta)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "ivf at full nprobe differs from the exact scan")
+    replay_recorded(fs, err, rec, replayed)
+    _, gi = counted(lambda: ivf_mod.ivf_scan_topk(qs, ivf, k=10))
+    _, ei = scan.cosine_scan_topk_auto(qs, index, k=10, sample=smp, row_meta=meta)
+    gi, ei = gi.cpu().numpy(), ei.cpu().numpy()
+    recall = float(np.mean([len(set(gi[j]) & set(ei[j])) / 10 for j in range(MAIN_Q)]))
+    stats["recall_at_10"] = recall
+    replay_recorded(fs, err, rec, replayed)
+    log(f"[6b] ivf at full nprobe ({ivf.n_clusters:,}), Q=8 = the exact scan bit for bit; recall@10 at "
+        f"nprobe {nprobe} over {MAIN_Q} perturbed stored rows against the exact scan: {recall:.4f}")
+
+    # A pure append extends the spill; full nprobe still = the exact scan.
+    filler = clustered_hashes(rng, APPEND_ROWS, DIM)
+    eng.insert_records_batch([
+        IndexedImage(filename=f"ivf_{j:05d}.png", path=f"/synthetic/ivf_{j:05d}.png", visual_hash=filler[j])
+        for j in range(APPEND_ROWS)])
+    timing.reset_stats()
+    counted(lambda: eng.query_by_image_hash_from_id(eng._sem_image_ids[-3]))
+    spans = timing.get_stats()
+    check("engine.ivf_extend" in spans and "engine.ivf_build" not in spans and eng._ivf.bucket_data is
+          ivf.bucket_data, f"the append did not extend the spill: {sorted(spans)}")
+    check(results(eng)[0] == (eng._sem_image_ids[-3], 0.0), "ivf: the appended row's self-match")
+    ivf = eng._ivf
+    index, smp, meta = store.device_index, eng._get_scan_sample(), eng._get_row_meta()
+    got = counted(lambda: ivf_mod.ivf_scan_topk(q8, ivf, k=K, nprobe=ivf.n_clusters))
+    want = scan.cosine_scan_topk_auto(q8, index, k=K, sample=smp, row_meta=meta)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "ivf after the append: full nprobe differs from the exact scan")
+    replay_recorded(fs, err, rec, replayed)
+    log(f"[6b] +{APPEND_ROWS:,} rows ({store.n:,}): engine.ivf_extend "
+        f"{spans['engine.ivf_extend']['total_s'] * 1e3:.1f} ms, no engine.ivf_build; spill "
+        f"{len(ivf_mod.live_spill_ids(ivf)):,} rows; full nprobe = the exact scan")
+
+    # A reopen reads the sidecar: no retrain, the same results (at full
+    # nprobe: the reopened engine packs the appended rows into buckets).
+    eng.ivf_nprobe = 1 << 30
+    eng.query_by_image_hash_from_id(eng._sem_image_ids[-3])
+    want = results(eng)
+    eng.ivf_nprobe = None
+    timing.reset_stats()
+    t0 = time.perf_counter()
+    again = Engine.open(eng.db_path, device="cuda")
+    again.scan_mode, again.ivf_nprobe = "ivf", 1 << 30
+    counted(lambda: again.query_by_image_hash_from_id(eng._sem_image_ids[-3]))
+    check("engine.ivf_train" not in timing.get_stats(), "the reopened engine retrained")
+    check(np.array_equal(again._ivf_centroids, eng._ivf_centroids) and results(again) == want,
+          "the reopened engine differs")
+    log(f"[6b] reopened in {time.perf_counter() - t0:.1f}s: the sidecar read, no engine.ivf_train, "
+        f"results = before")
+    again.close()
+    del again
+    replay_recorded(fs, err, rec, replayed)
+
+    # The int4 engine: ivf with the rerank at full nprobe = the flat int4
+    # path; tune_nprobe once (the device rerank, K5's gathered mode).
+    i4 = i4_eng
+    ids = [int(x) for x in rng.choice(i4._sem_image_ids, 3, replace=False)]
+    i4.scan_mode = "auto"
+    flat = []
+    for i in ids:
+        i4.query_by_image_hash_from_id(i)
+        flat.append(results(i4))
+    i4.scan_mode, i4.ivf_nprobe = "ivf", 1 << 30
+    t0 = time.perf_counter()
+    for i, w in zip(ids, flat):
+        counted(lambda: i4.query_by_image_hash_from_id(i))
+        check(results(i4) == w, f"int4 ivf at full nprobe (rerank) differs from the flat path, id {i}")
+    i4_ivf = i4._ivf
+    log(f"[6b] int4 ivf: {i4_ivf.n_clusters:,} clusters, cap {i4_ivf.bucket_cap}, nibble buckets; "
+        f"{len(ids)} similar at full nprobe with the rerank = the flat int4 path "
+        f"({time.perf_counter() - t0:.1f}s, the build included)")
+    replay_recorded(fs, err, rec, replayed)
+    i4s = i4._sem_store
+    t0 = time.perf_counter()
+    tuned, rec_at = counted(lambda: ivf_build.tune_nprobe(
+        i4_ivf, i4s._host_rows[: i4s.n], target_recall=0.99, valid=i4s._host_valid[: i4s.n]))
+    tune_s = time.perf_counter() - t0
+    g = next(c for c in rec.calls if c[0] == "ivf_gathered_collect")
+    replay_recorded(fs, err, rec, replayed)
+    stats["gathered"] = time_ivf_kernel(g, smi, "[6b] tune_nprobe's rerank")
+    log(f"[6b] tune_nprobe(int4, target 0.99): nprobe {tuned}, recall@10 {rec_at:.4f}, {tune_s:.1f}s; {smi}")
+    i4.scan_mode, i4.ivf_nprobe = "auto", None
+
+    # k past MAX_K, once per kind, through the engines: = the plain versions.
+    eng.scan_mode = "auto"
+    h = store.get_rows([3])[0]
+    cpu_index = PackedSemanticIndex(*(t.cpu() for t in index))
+    got = counted(lambda: eng.similarity_scan(h, 1500, 1e3))
+    want = scan.cosine_scan_topk_auto(torch.as_tensor(h), cpu_index, k=1500)
+    check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), "u8 k=1500")
+    del cpu_index
+    replay_recorded(fs, err, rec, replayed)
+    h4 = i4s.get_rows([5])[0]
+    cpu4 = int4.PackedSemantic4Index(*(t.cpu() for t in i4s.device_index))
+    got = counted(lambda: i4._int4_scan_rerank(lambda c, md: i4.similarity_scan(h4, c, md), h4, 300, 1e3))
+
+    def plain4(c, md):
+        return tuple(x.numpy() for x in int4.cosine4_scan_topk_auto(torch.as_tensor(h4), cpu4, k=c,
+                                                                    max_distance=md))
+
+    want = int4.scan_with_u8_rerank(plain4, h4, i4s._host_rows, k=300)
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]), "int4 user k=300")
+    del cpu4
+    replay_recorded(fs, err, rec, replayed)
+    pst = ph_eng._ph_store
+    hp = pst.get_rows([7])
+    pidx = pst.device_index
+    got = counted(lambda: hg.hamming_gemm_scan_topk_auto(torch.from_numpy(hp).cuda(), pidx, k=1500))
+    cpuh = PackedHammingIndex(*(t.cpu() for t in pidx))
+    want = hg.hamming_gemm_scan_topk_auto(torch.from_numpy(hp), cpuh, k=1500)
+    check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), "phash k=1500")
+    replay_recorded(fs, err, rec, replayed)
+    log(f"[6b] k past MAX_K ({fs.MAX_K}): u8 k=1500 over {store.n:,} rows, int4 user k=300 "
+        f"(C={int4.default_rerank_candidates(300)}) over {i4s.n:,}, phash k=1500 over {pst.n:,} "
+        f"= their plain versions")
+    log(f"[6b] kernel launches on the ivf path: {json.dumps(counts)}")
+    for n in ("ivf_probe_collect", "ivf_gathered_collect", "lex_topk_select", "cosine_chunk_topk"):
+        check(counts[n] > 0, f"kernel {n} was not launched on the ivf path")
+    log(f"[6b] {sum(replayed['calls'].values())} kernel calls replayed bit-identical through their plain "
+        f"versions in {replayed['s']:.1f}s: {json.dumps(replayed['calls'])}")
+    check(replayed["calls"] == {n: c for n, c in counts.items() if c},
+          "the replays do not cover every launch of the ivf path")
+    return counts, stats
+
+
+# --------------------------------------------------------------------- #
 # Phase 7: the web server and its batching service on the card
 
 
@@ -1867,9 +2287,9 @@ def log_burst(tag, res, wall, smi):
             f"p50 {np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms")
 
 
-def service_burst(svc, queries):
-    """``svc.submit`` from one thread a query, all released at once;
-    returns the per-query (dist, rows)."""
+def service_burst(svc, queries, kind="semantic"):
+    """``svc.submit`` (of ``kind``) from one thread a query, all released
+    at once; returns the per-query (dist, rows)."""
     import threading
 
     out = [None] * len(queries)
@@ -1877,7 +2297,7 @@ def service_burst(svc, queries):
 
     def one(j):
         start.wait(timeout=60)
-        out[j] = svc.submit(queries[j], timeout=300)
+        out[j] = svc.submit(queries[j], timeout=300, kind=kind)
 
     threads = [threading.Thread(target=one, args=(j,)) for j in range(len(queries))]
     for t in threads:
@@ -1891,7 +2311,6 @@ def service_burst(svc, queries):
 def with_gc_ms(fn):
     """Run ``fn``; returns (its result, ms that Python's cyclic garbage
     collector ran meanwhile, the oldest generation it collected or -1)."""
-    import gc
 
     spent, start, oldest = [0.0], [0.0], [-1]
 
@@ -2045,7 +2464,7 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
             f"every result = the dist-path scan; {smi}")
         return full_q, got
 
-    def served_in_turns(s, full_q, got, tag, auto_name, rounds=6):
+    def served_in_turns(s, full_q, got, tag, auto_name, rounds=4):
         """The full bucket through a service again, on the distance (K1a /
         K4a) and on the cos key (K1d / K4d + K1e), the service's scan call
         ``auto_name`` wrapped to pass each epilogue, in turns, the first of
@@ -2113,6 +2532,21 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
     full_q, got = full_bucket(svc, sem_eng, "[7] u8")
     served_in_turns(svc, full_q, got, "[7] u8", "cosine_scan_topk_auto")
 
+    # The service's ivf kind: a full bucket = the engine's _ivf_query.
+    rows = sem_eng._sem_store.get_rows(rng.choice(sem_eng._sem_store.n, _BUCKETS[-1], replace=False))
+    ivf_q = perturb(rng, rows)
+    batches0 = svc.batches_run
+    t0 = time.perf_counter()
+    got = counted(lambda: service_burst(svc, ivf_q, kind="ivf"))
+    wall = time.perf_counter() - t0
+    want = sem_eng._ivf_query(ivf_q, svc.k, max_distance=svc.max_distance)
+    for j, (d, i) in enumerate(got):
+        check(np.array_equal(i, want[1][j]) and np.array_equal(d, want[0][j]),
+              f"[7] ivf full bucket: query {j} differs from the engine's _ivf_query")
+    log(f"[7] ivf full bucket: {len(ivf_q)} submits of kind ivf in {wall * 1e3:.1f} ms (the index "
+        f"repacked after this phase's mutations, inside), {svc.batches_run - batches0} batches; every "
+        f"result = the engine's _ivf_query; {smi}")
+
     # The int4 engine (exact-u8 rerank on), served on the distance (K4a).
     i4_svc, i4_url = counted(lambda: start(i4_eng))
     i4_ids = [int(x) for x in rng.choice(i4_eng._sem_image_ids, 32, replace=False)]
@@ -2133,7 +2567,7 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
         s.close()
     log(f"[7] kernel launches on the serving path: {json.dumps(counts)}")
     for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "hamming_threshold_collect",
-              "lex_topk_select"):
+              "lex_topk_select", "ivf_probe_collect"):
         check(counts[n] > 0, f"kernel {n} was not launched on the serving path")
     # Every batch selects on the distance: no served path takes the cos key.
     for n in ("cosine_coskey_collect", "cosine4_coskey_collect", "coskey_rescore"):
@@ -2195,6 +2629,12 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
         for i in i4_ids:
             i4_eng.query_by_image_hash_from_id(i)
             out[("int4", i)] = results(i4_eng)
+        # IVF at full nprobe (on the mesh: the sharded index, built here).
+        sem_eng.scan_mode, sem_eng.ivf_nprobe = "ivf", 1 << 30
+        for i in sem_ids[:2]:
+            sem_eng.query_by_image_hash_from_id(i)
+            out[("ivf", i)] = results(sem_eng)
+        sem_eng.scan_mode, sem_eng.ivf_nprobe = "auto", None
         return out
 
     def dup_cut():
@@ -2266,7 +2706,7 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
         f"duplicate cuts in {t_dup:.2f}s; {smi}")
     log(f"[8] kernel launches on the mesh path: {json.dumps(counts)}")
     for n in ("cosine_threshold_collect", "cosine_chunk_topk", "cosine4_threshold_collect",
-              "hamming_chunk_topk", "lex_topk_select"):
+              "hamming_chunk_topk", "lex_topk_select", "ivf_probe_collect"):
         check(counts[n] > 0, f"kernel {n} was not launched on the mesh path")
 
     for key, want in ref.items():
@@ -2277,7 +2717,8 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
                   f"mesh duplicates {key}: batch {j} differs from the one-device scan")
     log(f"[8] mesh = one device: u8 similar ({len(sem_ids)} ids, auto; pallas and exact modes; "
         f"one upload), phash-similar ({len(ph_ids)} at 32 B and at 24 B), int4 similar with the "
-        f"rerank ({len(i4_ids)}), duplicate cuts {[len(v) for v in got_dup.values()]} batches")
+        f"rerank ({len(i4_ids)}), ivf at full nprobe on the sharded index (2), duplicate cuts "
+        f"{[len(v) for v in got_dup.values()]} batches")
 
     # numpy oracle on sampled queries
     for i in sem_ids[:2]:
@@ -2299,6 +2740,7 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
     for e in engines:
         e.scan_mesh = None
         e._sem_mirror.index = e._ph_mirror.index = None
+    sem_eng._ivf_sharded = None
     torch.cuda.empty_cache()
     return counts, {"mesh": mesh, "q_id": sem_ids[3], "k1c_merge": st["merge"]}
 
@@ -2498,18 +2940,26 @@ def main() -> int:
     # [2] build: one nvcc for each source, started together
     from concurrent.futures import ThreadPoolExecutor
 
+    from pixelbox_tpu_torch.ops import ivf
     from pixelbox_tpu_torch.tools import measure_breakdown
 
     t0 = time.perf_counter()
-    loads = (fs.load_kernels, fs.load_tc_kernels, fs.load_theta_kernels, measure_breakdown.load_kernels)
+    loads = (fs.load_kernels, fs.load_tc_kernels, fs.load_theta_kernels, ivf.load_ivf_kernels,
+             measure_breakdown.load_kernels)
     with ThreadPoolExecutor(len(loads)) as pool:
         builds = [pool.submit(load) for load in loads]
+        t1 = time.perf_counter()
+        seeded3, growth = host_data()
+        gc.freeze()  # 3M long-lived records: out of the collector's way until they are inserted
+        log(f"[2] host data (phase 3's rows, phases 4-6's {sum(map(len, growth.values())):,} records) "
+            f"made in {time.perf_counter() - t1:.1f}s while the kernels build")
         kerns = [b.result() for b in builds]
     for kern in kerns:
         log(f"[2] built {os.path.basename(kern.path)} in {kern.build_seconds:.2f}s")
         lines = kern.ptxas.splitlines()
         for j, line in enumerate(lines):
-            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "tc_theta", "lex_topk_select", "tc_ladder")
+            named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "tc_theta", "lex_topk_select", "tc_ladder",
+                     "ivf_probe_kernel", "ivf_gathered_kernel")
             if "Compiling entry" in line and any(n in line for n in named):  # by name
                 name = line.split("'")[1]
                 at = min(name.find(n) for n in named if n in name)
@@ -2524,10 +2974,10 @@ def main() -> int:
     log(f"[2] {len(loads)} builds in {time.perf_counter() - t0:.2f}s (in parallel)")
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
-    err = {n: 0.0 for n in (*Recorder.NAMES, *PREVIOUS.values(), "lex_topk_segments")}
+    err = {n: 0.0 for n in (*Recorder.NAMES, *Recorder.IVF_NAMES, *PREVIOUS.values(), "lex_topk_segments")}
     PlainOnCard.install(fs)
     t0 = time.perf_counter()
-    stats, db = phase_kernels(fs, scan, smi, err)
+    stats, db = phase_kernels(fs, scan, smi, err, seeded3)
     t0 = phase_time("3", t0)
     stats.update(phase_hamming(fs, scan, hg, smi, err))
     t0 = phase_time("3b", t0)
@@ -2541,12 +2991,15 @@ def main() -> int:
     # [4] engine, [5] phash engine and duplicates, [6] int4 engine
     PlainOnCard.reset()  # phases 4-9 start here
     with tempfile.TemporaryDirectory(prefix="pixelbox_smoke_") as tmp:
-        counts4, sem_eng, ckpt, sem_paths = phase_engine(fs, scan, smi, tmp)
+        counts4, sem_eng, ckpt, sem_paths = phase_engine(fs, scan, smi, tmp, growth)
         t0 = phase_time("4", t0)
-        counts5, ph_eng, ph_paths = phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt)
+        counts5, ph_eng, ph_paths = phase_phash(fs, scan, hg, smi, tmp, sem_eng, ckpt, growth)
         t0 = phase_time("5", t0)
-        counts6, i4_eng = phase_int4_engine(fs, scan, smi, tmp, ckpt)
+        counts6, i4_eng = phase_int4_engine(fs, scan, smi, tmp, ckpt, growth)
+        gc.unfreeze()
         t0 = phase_time("6", t0)
+        counts6b, ivf_st = phase_ivf(fs, scan, hg, smi, err, sem_eng, sem_paths, ph_eng, i4_eng)
+        t0 = phase_time("6b", t0)
         counts8, carry = phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng)
         stats["lex_topk_select"]["by_shape"]["mesh_merge"] = carry["k1c_merge"]
         t0 = phase_time("8", t0)
@@ -2560,9 +3013,11 @@ def main() -> int:
     phase_time("9", t0)
 
     check("jax" not in sys.modules, "jax was imported")
-    main_counts = (counts4, counts5, counts6, counts7, counts8, counts8b, counts9, {
+    main_counts = (counts4, counts5, counts6, counts6b, counts7, counts8, counts8b, counts9, {
         "sample_theta_chain": PlainOnCard.counts["sample_theta_chain"],
-        "mini_sample_theta_on_card": PlainOnCard.counts["mini_sample_theta"]})
+        "mini_sample_theta_on_card": PlainOnCard.counts["mini_sample_theta"],
+        "ivf_probe_collect_plain_on_card": PlainOnCard.counts["ivf_probe_collect_plain"],
+        "ivf_gathered_collect_plain_on_card": PlainOnCard.counts["ivf_gathered_collect_plain"]})
     for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
                      ("cosine_chunk_topk_dp4a", "cosine_chunk_topk"),
                      ("cosine4_threshold_collect_dp4a", "cosine4_threshold_collect"),
@@ -2572,7 +3027,9 @@ def main() -> int:
                      ("lex_topk_segments", "lex_topk_select"),
                      ("breakdown_ladder_dp4a", "breakdown_ladder"),
                      ("sample_theta_chain", "sample_theta"),
-                     ("mini_sample_theta_on_card", "sample_theta")):
+                     ("mini_sample_theta_on_card", "sample_theta"),
+                     ("ivf_probe_collect_plain_on_card", "ivf_probe_collect"),
+                     ("ivf_gathered_collect_plain_on_card", "ivf_gathered_collect")):
         n_old, n_new = (sum(c.get(n, 0) for c in main_counts) for n in (old, new))
         check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
         log(f"main paths (phases 4-9): {new} {n_new} launches, the first port's {old} {n_old}")
@@ -2619,6 +3076,24 @@ def main() -> int:
         "ms": k1b["previous_ms"], "gpu_ms": k1b["previous_gpu_ms"],
         **{key: k1b[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
+    for n, st, rep_ in (("ivf_probe_collect", ivf_st, "pixelbox_tpu/ops/ivf.py:498"),
+                        ("ivf_gathered_collect", ivf_st["gathered"], "pixelbox_tpu/ops/ivf_build.py:645")):
+        kernels.append({
+            "name": n,
+            "route": "cuda",
+            "source": "pixelbox_tpu_torch/csrc/ivf_probe.cu",
+            "replaces": rep_,
+            "jax_route": "XLA, no pallas_call",  # the JAX package computes these in XLA
+            "launches": sum(c.get(n, 0) for c in main_counts),
+            "max_abs_err": err[n],
+            **{key: st[key] for key in ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "split_out_bytes", "split_out_ms", "library_ms")},
+            **({"by_q": {q: {key: v[key] for key in ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms",
+                                                    "split_out_ms", "scan_ms", "scan_host_ms", "auto_ms",
+                                                    "device_kernels", "auto_device_kernels")}
+                         for q, v in st["by_q"].items()}, "recall_at_10": st["recall_at_10"]}
+               if n == "ivf_probe_collect" else {}),
+        })
     gemm = ladder["rungs"]["gemm"]
     kernels.append({
         "name": "breakdown_ladder",

@@ -23,9 +23,10 @@ Subcommands (the JAX CLI's names and flags):
     stats <db>                     — index statistics
     serve <db>                     — the web UI + JSON API (micro-batched scans)
 
-``--device`` defaults to ``cuda`` and never falls back to the CPU.  Scan
-modes ``auto``/``exact``/``fast``/``pallas`` are ported; ``ivf`` exits with
-a "not yet ported" error.  ``--precision int4`` packs the semantic index
+``--device`` defaults to ``cuda`` and never falls back to the CPU.  Every
+scan mode is ported: ``auto``/``exact``/``fast``/``pallas``, and ``ivf``
+(the clustered ANN; ``--nprobe``, ``--ivf-clusters`` and
+``--ivf-target-recall`` tune it).  ``--precision int4`` packs the semantic index
 two 4-bit codes a byte and rescores its candidates with the exact u8
 metric (``--no-int4-rerank`` turns the rescore off).  Not yet ported:
 ``face-similar``, ``faces``, ``index-faces``, ``train`` and ``finalize``.
@@ -56,6 +57,12 @@ def _open_engine(args, create=False):
     eng = Engine(args.db, create=create, **kwargs)
     if args.scan_mode:
         eng.scan_mode = args.scan_mode
+    if args.nprobe:
+        eng.ivf_nprobe = int(args.nprobe)
+    if args.ivf_target_recall:
+        eng.ivf_target_recall = float(args.ivf_target_recall)
+    if args.ivf_clusters:
+        eng.ivf_clusters = int(args.ivf_clusters)
     return eng
 
 
@@ -150,8 +157,27 @@ def _parser() -> argparse.ArgumentParser:
             "--scan-mode", dest="scan_mode", default=None,
             choices=("auto", "exact", "fast", "pallas", "ivf"),
             help="similarity scan mode (default auto: verified-exact; fast "
-            "is served as auto; pallas = the fused exact kernel scan; ivf "
-            "is not yet ported)",
+            "is served as auto; pallas = the fused exact kernel scan; ivf = "
+            "clustered ANN — approximate selection over the --nprobe nearest "
+            "clusters, exact distances; composes with --precision int4: "
+            "half-byte buckets + exact-u8 rerank)",
+        )
+        sp.add_argument(
+            "--nprobe", type=int, default=None,
+            help="ivf mode: clusters probed per query (default: "
+            "recall-governed — 2%% of clusters, floor 8; higher = "
+            "better recall, slower)",
+        )
+        sp.add_argument(
+            "--ivf-target-recall", dest="ivf_target_recall", type=float, default=None,
+            help="ivf mode: MEASURE nprobe instead of the 2%% policy — "
+            "tune on held-out noisy copies of indexed rows until "
+            "recall@10 vs the exact scan meets this target (e.g. 0.99); "
+            "--nprobe overrides",
+        )
+        sp.add_argument(
+            "--ivf-clusters", dest="ivf_clusters", type=int, default=None,
+            help="ivf mode: k-means cluster count (default ~4*sqrt(N))",
         )
         sp.add_argument(
             "--precision", default=None, choices=("int8", "int4"),

@@ -421,6 +421,11 @@ lex_topk_segments_kernel(const float* __restrict__ in_d,
 // 3. The keys at or below the k-th (k of them; a key repeated past k
 //    fills the rest) are compacted and bitonic-sorted, next_pow2(k) <=
 //    1,024 of them; at most k keys are sorted as they are.
+// A k past 1,024 is selected in rounds (the wrapper's lex_topk): each
+// round passes floor[q], the key of the last entry the round before took,
+// and only keys strictly above it are valid.  Keys are unique (a row id
+// appears once in a query's candidates), so the rounds' outputs laid end
+// to end are the first k.
 
 constexpr int kSelectThreads = 256;  // one thread a histogram bin
 constexpr int kSelectSlots = 16384;  // entries a block holds in shared memory
@@ -435,8 +440,9 @@ __host__ __device__ constexpr size_t select_smem(int slots, int k) {
 __global__ void __launch_bounds__(kSelectThreads)
 lex_topk_select_kernel(const float* __restrict__ in_d,
                        const int* __restrict__ in_i,
-                       const int* __restrict__ lens, int M, int S, int k,
-                       int n_seg, float* __restrict__ out_d,
+                       const int* __restrict__ lens,
+                       const unsigned long long* __restrict__ floor_key, int M,
+                       int S, int k, int n_seg, float* __restrict__ out_d,
                        int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned long long sel_smem[];
   const int slots = min(S, M);
@@ -449,6 +455,7 @@ lex_topk_select_kernel(const float* __restrict__ in_d,
   const int q = blockIdx.x, seg = blockIdx.y;
   const int len = lens ? min(lens[q], M) : M;
   const int lo = seg * S, hi = min(lo + S, len);
+  const unsigned long long above = floor_key ? floor_key[q] : 0ull;
   if (tid < 2) scal[tid] = 0;
   __syncthreads();
 
@@ -461,8 +468,8 @@ lex_topk_select_kernel(const float* __restrict__ in_d,
     if (p < hi) {
       const float d = in_d[row + p];
       const int id = in_i[row + p];
-      ok = id >= 0 && fabsf(d) < __int_as_float(0x7f800000);
       key = make_key(d, id);
+      ok = id >= 0 && fabsf(d) < __int_as_float(0x7f800000) && (!floor_key || key > above);
     }
     warp_append(ok, key, keys, scal);
   }
@@ -696,10 +703,11 @@ PX_EXPORT int px_lex_topk_segments(const void* in_d, const void* in_i,
 }
 
 // K1c in one launch: per (query, segment of S <= kSelectSlots entries of
-// its row), the first k <= kSelectMaxK by (dist, id) into [Q, n_seg, k].
-PX_EXPORT int px_lex_topk(const void* in_d, const void* in_i, const void* lens, int Q,
-                          int M, int S, int k, int n_seg, void* out_d, void* out_i,
-                          void* stream) {
+// its row), the first k <= kSelectMaxK by (dist, id) into [Q, n_seg, k];
+// with floor_key (u64 [Q], nullable) only the keys above floor_key[q].
+PX_EXPORT int px_lex_topk(const void* in_d, const void* in_i, const void* lens,
+                          const void* floor_key, int Q, int M, int S, int k, int n_seg,
+                          void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > kSelectMaxK || S < 1 || S > kSelectSlots || n_seg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Q <= 0) return 0;
@@ -708,8 +716,8 @@ PX_EXPORT int px_lex_topk(const void* in_d, const void* in_i, const void* lens, 
   lex_topk_select_kernel<<<dim3(Q, n_seg), kSelectThreads, select_smem(min(S, M), k),
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in_d), static_cast<const int*>(in_i),
-      static_cast<const int*>(lens), M, S, k, n_seg, static_cast<float*>(out_d),
-      static_cast<int*>(out_i));
+      static_cast<const int*>(lens), static_cast<const unsigned long long*>(floor_key), M, S,
+      k, n_seg, static_cast<float*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }
 

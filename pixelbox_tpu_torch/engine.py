@@ -26,8 +26,10 @@ server's batching service (``serve.py``), and multi-device serving:
 :meth:`Engine.serve_on_mesh` row-shards the semantic and phash indexes
 over a mesh of devices (``parallel/``; one process drives them all, and
 one card may hold several shards), and ``Engine.mesh`` splits the ingest
-and query embed batches over a mesh.  The BLIP, face and IVF mixins (and
-their mesh branches) and multi-process meshes wait (ROADMAP.md).
+and query embed batches over a mesh; the IVF clustered index
+(``scan_mode = "ivf"``, :class:`serving.ivf.IvfServing`) on one device or
+row-sharded over the mesh.  The BLIP and face mixins (and their mesh
+branches) and multi-process meshes wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,7 +54,13 @@ from pixelbox_tpu_torch.ops.int4 import cosine4a_distance_np, rerank_candidates_
 from pixelbox_tpu_torch.parallel.sharded_scan import ShardedMirror
 from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
-from pixelbox_tpu_torch.serving import DuplicateFinding, PhashServing, SemanticServing, WatchMixin
+from pixelbox_tpu_torch.serving import (
+    DuplicateFinding,
+    IvfServing,
+    PhashServing,
+    SemanticServing,
+    WatchMixin,
+)
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.device import resolve_device
 from pixelbox_tpu_torch.utils.rwlock import RWLock
@@ -63,7 +71,7 @@ DEFAULT_MAX_SEARCH_RESULTS = 100  # engine.rs:24
 RECENT_IMAGES_TO_SHOW = 10  # engine.rs:25
 
 
-class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
+class Engine(SemanticServing, IvfServing, PhashServing, DuplicateFinding, WatchMixin):
     """Index + query engine over a catalog DB and a device vector store.
 
     ``device`` ("cuda" by default, "cpu", or a torch.device) holds the
@@ -179,8 +187,49 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
         self.max_distance_from_query: float = DEFAULT_MAX_QUERY_DISTANCE
         #: "auto" (default): fused threshold scan + exact repair, results
         #: identical to "exact"; "exact": the blocked exact scan; "fast":
-        #: served as "auto"; "pallas": the fused exact kernel scan.
+        #: served as "auto"; "pallas": the fused exact kernel scan; "ivf":
+        #: clustered ANN — probe the ivf_nprobe nearest k-means clusters
+        #: only (approximate selection, exact distances; ops/ivf.py).
         self.scan_mode: str = "auto"
+        #: IVF knobs, active when scan_mode == "ivf": the index builds
+        #: lazily from the u8 host mirror; k-means retrains when the library
+        #: doubles since training or ivf_clusters changes; row-sharded over
+        #: the mesh under serve_on_mesh (parallel/sharded_ivf).
+        #: ``ivf_nprobe=None`` = the recall-governed default (2% of the
+        #: clusters, floor 8 — ops.ivf.default_nprobe).
+        self.ivf_nprobe: Optional[int] = None
+        #: Opt-in MEASURED nprobe: when set (e.g. 0.99) and ivf_nprobe is
+        #: unset, each full repack tunes nprobe on held-out noisy copies of
+        #: store rows until recall@10 against the exact scan meets it
+        #: (ops.ivf_build.tune_nprobe).
+        self.ivf_target_recall: Optional[float] = None
+        self._ivf_tuned_nprobe: Optional[int] = None
+        self.ivf_clusters: Optional[int] = None  # default ~4*sqrt(N)
+        self._ivf = None
+        self._ivf_version = -1
+        self._ivf_centroids = None
+        self._ivf_trained_n = 0
+        self._ivf_trained_want = 0  # the requested knob at training (0 = auto)
+        # The store state at the last full bucket pack, and the knobs the
+        # cached index was built with.
+        self._ivf_structural = -1
+        self._ivf_packed_n = 0
+        self._ivf_cfg = None
+        # Bumped on every retrain, so both packed caches (one device and
+        # sharded) invalidate when either path retrains.
+        self._ivf_centroid_gen = 0
+        self._ivf_gen = -1
+        # The mesh-sharded IVF mirror (serve_on_mesh + scan_mode == "ivf").
+        self._ivf_sharded = None
+        self._ivf_sharded_at_ver = -1
+        self._ivf_sharded_struct = -1
+        self._ivf_sharded_packed_n = 0
+        self._ivf_sharded_cfg = None
+        self._ivf_sharded_gen = -1
+        self._ivf_sharded_spill_ids = None
+        # Queries hold the read lock, so concurrent ivf queries could both
+        # pay the k-means train; the build is serialized.
+        self._ivf_build_lock = threading.Lock()
         self._row_meta = None
         self._row_meta_at_ver = -1
         self._scan_sample = None
@@ -329,6 +378,15 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
             self._pipeline = None
         return done
 
+    def insert_image_from_path(self, path: str) -> Optional[int]:
+        """Decode, hash and insert one image file (engine.rs:218); None if
+        its path is already indexed.  Raises IOError on an undecodable
+        file."""
+        record = self.load_image(path)
+        if record is None:
+            raise IOError(f"cannot decode image: {path}")
+        return self.insert_image_from_memory(record)
+
     def insert_image_from_memory(self, record: IndexedImage) -> Optional[int]:
         """Insert one fully-hashed record; None if its path is already
         indexed (the one-record case of :meth:`insert_records_batch`)."""
@@ -363,38 +421,47 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
 
         new = [(i, r) for i, r in zip(ids, records) if i is not None]
         if new:
-            sem = [(i, r.visual_hash) for i, r in new if r.visual_hash is not None]
-            if sem:
-                if self._sem_store is None:
-                    self._sem_store = self._new_sem_store(len(sem[0][1]))
-                row_ids = self._sem_store.append(np.stack([h for _, h in sem]))
-                for (img_id, _), row in zip(sem, row_ids):
-                    self._sem_image_ids.append(img_id)
-                    self._sem_row_by_image[img_id] = int(row)
-            ph = [(i, r.phash) for i, r in new if r.phash is not None]
-            if ph:
-                if self._ph_store is None:
-                    self._ph_store = VectorStore(
-                        dim=len(ph[0][1]), kind="hamming", device=self.device
-                    )
-                # Never truncate: a wider hash grows the whole store
-                # (existing rows zero-pad; true widths stay recorded).
-                w = max(self._ph_store.dim, max(len(h) for _, h in ph))
-                if w > self._ph_store.dim:
-                    self._ph_store.grow_dim(w)
-                mat = np.zeros((len(ph), w), dtype=np.uint8)
-                for j, (_, h) in enumerate(ph):
-                    mat[j, : len(h)] = h
-                row_ids = self._ph_store.append(mat)
-                for (img_id, h), row in zip(ph, row_ids):
-                    self._ph_image_ids.append(img_id)
-                    self._ph_widths.append(len(h))
-                    self._ph_row_by_image[img_id] = int(row)
+            self._append_hashes(
+                [i for i, _ in new], [r.visual_hash for _, r in new], [r.phash for _, r in new]
+            )
             with self._recent_lock:
                 self._recently_indexed.extend(r.path for _, r in new)
                 del self._recently_indexed[:-RECENT_IMAGES_TO_SHOW]
         self._cached_index_size = None
         return ids
+
+    def _append_hashes(self, image_ids, visual_hashes, phashes) -> None:
+        """Append the new images' semantic hashes and phashes to the device
+        stores, one store append each (the JAX engine's single-record
+        ``_append_hashes``, taken a batch at a time; None entries are
+        skipped).  Call under the index write lock."""
+        sem = [(i, h) for i, h in zip(image_ids, visual_hashes) if h is not None]
+        if sem:
+            if self._sem_store is None:
+                self._sem_store = self._new_sem_store(len(sem[0][1]))
+            row_ids = self._sem_store.append(np.stack([h for _, h in sem]))
+            for (img_id, _), row in zip(sem, row_ids):
+                self._sem_image_ids.append(img_id)
+                self._sem_row_by_image[img_id] = int(row)
+        ph = [(i, h) for i, h in zip(image_ids, phashes) if h is not None]
+        if ph:
+            if self._ph_store is None:
+                self._ph_store = VectorStore(
+                    dim=len(ph[0][1]), kind="hamming", device=self.device
+                )
+            # Never truncate: a wider hash grows the whole store
+            # (existing rows zero-pad; true widths stay recorded).
+            w = max(self._ph_store.dim, max(len(h) for _, h in ph))
+            if w > self._ph_store.dim:
+                self._ph_store.grow_dim(w)
+            mat = np.zeros((len(ph), w), dtype=np.uint8)
+            for j, (_, h) in enumerate(ph):
+                mat[j, : len(h)] = h
+            row_ids = self._ph_store.append(mat)
+            for (img_id, h), row in zip(ph, row_ids):
+                self._ph_image_ids.append(img_id)
+                self._ph_widths.append(len(h))
+                self._ph_row_by_image[img_id] = int(row)
 
     # ------------------------------------------------------------------ #
     # Record construction (indexed_image.rs:35-91)
@@ -763,14 +830,20 @@ class Engine(SemanticServing, PhashServing, DuplicateFinding, WatchMixin):
         self._ph_mirror = ShardedMirror()
 
     def attach_scan_service(self, service) -> None:
-        """Register this engine's batched phash scan on a
+        """Register this engine's batched phash and IVF scans on a
         BatchingScanService (``serve.build_scan_service`` calls this), so
-        concurrent phash queries coalesce into device batches beside the
-        semantic ones.  BLIP ``text:``, faces and IVF are not ported."""
+        concurrent queries of those kinds coalesce into device batches
+        beside the semantic ones.  BLIP ``text:`` and faces are not
+        ported."""
         if self._ph_store is not None:
             service.register_kind(
                 "phash", lambda q, k, md: self.phash_scan_batched(q, k, md)
             )
+        # IVF (used when scan_mode == "ivf"): the clustered index builds
+        # lazily on first use, so registration is free.
+        service.register_kind(
+            "ivf", lambda q, k, md, n_real=None: self.ivf_scan_batched(q, k, md, n_real=n_real)
+        )
 
     def _build_results(self, rows, dists) -> List[IndexedImage]:
         ids = [self._sem_image_ids[int(row)] for row in rows]

@@ -22,7 +22,9 @@ kernel family (``pallas_scan.py:_threshold_kernel``; kinds "cosine",
   second launch): only the filled slots are read, a radix select finds
   the k-th key in shared memory and the k at or below it are sorted.  It
   finishes K1a's buffer and K1b's partials, and the id as the second key
-  makes both independent of atomic order.  The first port's segmented
+  makes both independent of atomic order.  A k past :data:`MAX_K` is
+  selected in rounds, each launch taking only the keys above the last
+  one the round before took.  The first port's segmented
   bitonic sort, :func:`lex_topk_segments` (re-launched until one segment
   was left, :func:`lex_topk_segments_chain`), stays as its timing
   reference.
@@ -83,7 +85,9 @@ collect and chunk kernels:
   JAX package ran its XLA ``cosine4(a)_scan_topk``;
   :func:`fused_hamming_scan_topk`): K1b/K4b/K2b + K1c, unconditionally
   exact — the auto paths' repair, ``--scan-mode pallas``, and the
-  mixed-width phash and duplicate scans.
+  mixed-width phash and duplicate scans.  The chunk kernels keep a
+  chunk's first :data:`MAX_K`, so a larger k takes K1a/K4a/K2a with θ =
+  max_distance and a buffer of every row, then K1c's rounds.
 
 Dispatch is by device and nothing else: a CUDA tensor goes to the kernel
 (or the wrapper raises), a CPU tensor goes to the kernel's plain PyTorch
@@ -311,7 +315,7 @@ def _build_and_load() -> _Kernels:
     lib.px_lex_topk_segments.restype = ci
     lib.px_lex_topk_segments.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
     lib.px_lex_topk.restype = ci
-    lib.px_lex_topk.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
+    lib.px_lex_topk.argtypes = [vp] * 4 + [ci] * 5 + [vp] * 3
     lib.px_hamming_collect.restype = ci
     lib.px_hamming_collect.argtypes = [vp] * 4 + [ci] * 5 + [cf, ci] + [vp] * 4
     lib.px_hamming_chunk_topk.restype = ci
@@ -397,6 +401,8 @@ LAUNCHES = {
     "cosine4_coskey_collect": 0,
     "coskey_rescore": 0,
     "sample_theta": 0,
+    "ivf_probe_collect": 0,
+    "ivf_gathered_collect": 0,
 }
 
 
@@ -1181,25 +1187,30 @@ def coskey_rescore_plain(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind, le
 # K1c: the top-k by (dist, id)
 
 
-def _keys(dist, idx, lens):
+def _keys(dist, idx, lens, floor=None):
     """(dist, id) → int64 keys (dist >= 0: its f32 bits order like the
-    value); empty entries (non-finite, id < 0, or at/after lens) → max."""
+    value); empty entries (non-finite, id < 0, at/after lens, or at or
+    below ``floor``, see :func:`lex_topk_select`) → max."""
     valid = torch.isfinite(dist) & (idx >= 0)
     if lens is not None:
         pos = torch.arange(dist.shape[1], device=dist.device)
         valid &= pos[None, :] < lens[:, None]
     bits = dist.contiguous().view(torch.int32).to(torch.int64)
     key = (bits << 32) | idx.to(torch.int64)
+    if floor is not None:
+        valid &= (floor[:, None] >= 0) & (key > floor[:, None])
     return torch.where(valid, key, torch.full_like(key, torch.iinfo(torch.int64).max))
 
 
-def _check_topk_args(dist, idx, lens):
+def _check_topk_args(dist, idx, lens, floor=None):
     dev = dist.device
     qn, m = dist.shape
     _require(dist, "dist", torch.float32, (qn, m), dev)
     _require(idx, "idx", torch.int32, (qn, m), dev)
     if lens is not None:
         _require(lens, "lens", torch.int32, (qn,), dev)
+    if floor is not None:
+        _require(floor, "floor", torch.int64, (qn,), dev)
     return dev, qn, m
 
 
@@ -1211,16 +1222,43 @@ def lex_topk(dist, idx, k: int, lens=None):
     K1c's select kernel (:func:`lex_topk_select`) in one launch for rows
     of up to :data:`SELECT_SLOTS` entries; a longer row (the exact scans'
     chunk partials) is first cut into slices whose top-k a second launch
-    selects from (rows past ``SELECT_SLOTS² / k`` entries take a third)."""
+    selects from (rows past ``SELECT_SLOTS² / k`` entries take a third).
+    A k past :data:`MAX_K` is selected in rounds of at most ``MAX_K``:
+    each round takes the first entries above the key of the last entry
+    the round before took (:func:`floor_keys`).  The ids of a row are
+    distinct, so the rounds laid end to end are the first k."""
+    if k <= MAX_K:
+        return _lex_topk_round(dist, idx, k, lens, None)
+    outs_d, outs_i = [], []
+    floor = None
+    for r0 in range(0, k, MAX_K):
+        d, i = _lex_topk_round(dist, idx, min(MAX_K, k - r0), lens, floor)
+        outs_d.append(d)
+        outs_i.append(i)
+        floor = floor_keys(d[:, -1], i[:, -1])
+    return torch.cat(outs_d, 1), torch.cat(outs_i, 1)
+
+
+def _lex_topk_round(dist, idx, k: int, lens, floor):
+    """One round of :func:`lex_topk` (k <= MAX_K), above ``floor`` if
+    given (only the first launch reads it: its outputs are all above)."""
     qn, m = dist.shape
-    if k > SEGMENT // 2:
-        raise ValueError(f"k={k} exceeds half the segment ({SEGMENT})")
+    above = {} if floor is None else {"floor": floor}
     while m > SELECT_SLOTS:
-        d, i = lex_topk_select(dist, idx, k, lens, segment=_slice(m, k))
-        dist, idx, lens = d.reshape(qn, -1), i.reshape(qn, -1), None
+        d, i = lex_topk_select(dist, idx, k, lens, segment=_slice(m, k), **above)
+        dist, idx, lens, above = d.reshape(qn, -1), i.reshape(qn, -1), None, {}
         m = dist.shape[1]
-    d, i = lex_topk_select(dist, idx, k, lens)
+    d, i = lex_topk_select(dist, idx, k, lens, **above)
     return d[:, 0], i[:, 0]
+
+
+def floor_keys(dist, idx) -> torch.Tensor:
+    """[Q] int64 floor of the next selection round from the last entry a
+    round took: its (dist, id) key, or -1 — nothing left above — where
+    that entry was empty."""
+    bits = dist.contiguous().view(torch.int32).to(torch.int64)
+    key = (bits << 32) | idx.to(torch.int64)
+    return torch.where(torch.isfinite(dist) & (idx >= 0), key, torch.full_like(key, -1)).contiguous()
 
 
 def _slice(m: int, k: int) -> int:
@@ -1232,11 +1270,13 @@ def _slice(m: int, k: int) -> int:
     return s
 
 
-def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None):
+def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None, floor=None):
     """Per (query, segment of ``segment`` entries of its row; the whole
     row by default) the segment's first k by (dist, id): ([Q, n_seg, k]
     f32, [Q, n_seg, k] i32), empty entries +inf / -1; entries at or past
-    ``lens[q]``, non-finite or with a negative id are empty.
+    ``lens[q]``, non-finite or with a negative id are empty, and so are,
+    with ``floor`` (int64 [Q], :func:`floor_keys`), the entries whose
+    (dist, id) key is not above ``floor[q]`` (all of them where it is -1).
 
     Replaces the selection half of ``pallas_scan.py:_threshold_kernel``
     (its sorted carry insertion) and the buffer wrapper's final top-k.  On
@@ -1246,14 +1286,14 @@ def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None)
     radix-selects the k-th (8-bit digits, MSB first, into the id bits on a
     tie plateau) and sorts the k at or below it — bound by the launch and
     the filled entries' bytes, not by the row's length."""
-    dev, qn, m = _check_topk_args(dist, idx, lens)
+    dev, qn, m = _check_topk_args(dist, idx, lens, floor)
     seg = max(m, 1) if segment is None else int(segment)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside the select kernel's 1..{MAX_K}")
     if not 1 <= seg <= SELECT_SLOTS:
         raise ValueError(f"segment {seg} outside the select kernel's 1..{SELECT_SLOTS}")
     if dev.type != "cuda":
-        return lex_topk_select_plain(dist, idx, k, lens, seg)
+        return lex_topk_select_plain(dist, idx, k, lens, seg, floor)
     kern = load_kernels()
     n_seg = max(1, -(-m // seg))
     out_d = torch.empty((qn, n_seg, k), dtype=torch.float32, device=dev)
@@ -1262,6 +1302,7 @@ def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None)
         rc = kern.lib.px_lex_topk(
             _ptr(dist), _ptr(idx),
             ctypes.c_void_p(None if lens is None else lens.data_ptr()),
+            ctypes.c_void_p(None if floor is None else floor.data_ptr()),
             qn, m, seg, k, n_seg, _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "lex_topk_select")
@@ -1269,11 +1310,11 @@ def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None)
     return out_d, out_i
 
 
-def lex_topk_select_plain(dist, idx, k, lens=None, segment=None):
+def lex_topk_select_plain(dist, idx, k, lens=None, segment=None, floor=None):
     """Plain PyTorch version of K1c's select kernel: one ``torch.sort`` of
     each segment's int64 (dist, id) keys, the first k."""
     seg = max(dist.shape[1], 1) if segment is None else segment
-    return lex_topk_segments_plain(dist, idx, k, lens, seg)
+    return lex_topk_segments_plain(dist, idx, k, lens, seg, floor)
 
 
 def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
@@ -1303,12 +1344,13 @@ def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
     return out_d, out_i
 
 
-def lex_topk_segments_plain(dist, idx, k, lens=None, segment: int = SEGMENT):
+def lex_topk_segments_plain(dist, idx, k, lens=None, segment: int = SEGMENT, floor=None):
     """Plain PyTorch version of both K1c kernels: per segment one sort of
-    the int64 keys, the first k (a segment narrower than k padded)."""
+    the int64 keys, the first k (a segment narrower than k padded);
+    ``floor`` as :func:`lex_topk_select`'s."""
     qn, m = dist.shape
     n_seg = max(1, -(-m // segment))
-    key = _keys(dist, idx, lens)
+    key = _keys(dist, idx, lens, floor)
     big = torch.iinfo(torch.int64).max
     key = torch.cat([key, key.new_full((qn, n_seg * segment - m), big)], 1)
     key = key.reshape(qn, n_seg, segment)
@@ -2036,9 +2078,44 @@ def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap, epi
 
 
 def _exact_scan(qk, qn, data, meta, k, max_distance):
-    """K1b/K4b/K2b + K1c: the exact top-k of ``WHERE dist < max_distance``."""
+    """K1b/K4b/K2b + K1c: the exact top-k of ``WHERE dist < max_distance``.
+
+    The chunk kernels keep a chunk's first :data:`MAX_K`, so a larger k
+    takes the collect instead (:func:`_exact_collect_scan`)."""
+    if k > MAX_K:
+        return _exact_collect_scan(qk, qn, data, meta, k, max_distance)
     part_d, part_i = qk.chunk_topk(max_distance, data, meta, k)
     return lex_topk(part_d.reshape(qn, -1), part_i.reshape(qn, -1), k)
+
+
+#: Bytes of the [Q, N] (dist, id) buffer one block of queries of
+#: :func:`_exact_collect_scan` may fill.
+EXACT_COLLECT_BYTES = 1 << 30
+
+
+def _exact_collect_scan(qk, qn, data, meta, k, max_distance):
+    """The exact top-k for k past :data:`MAX_K`: the width's collect
+    (K1a/K4a/K2a) with θ = max_distance for every query and a buffer of
+    every row (cap = N, so its exact count never overflows), then K1c's
+    rounds.  Queries go in blocks whose buffers stay under
+    :data:`EXACT_COLLECT_BYTES`."""
+    n = data.shape[0]
+    cap = max(1, n)
+    step = max(1, EXACT_COLLECT_BYTES // (8 * cap))
+    outs = []
+    for s in range(0, qn, step):
+        e = min(qn, s + step)
+        theta = torch.full((e - s,), float(np.float32(max_distance)), dtype=torch.float32, device=data.device)
+        count, cand_d, cand_i = _query_rows(qk, s, e).collect(theta, data, meta, cap)
+        outs.append(lex_topk(cand_d, cand_i, k, lens=torch.clamp(count, max=cap)))
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def _query_rows(qk, start: int, end: int):
+    """Queries ``start:end`` of a kind object (its tensor fields sliced)."""
+    return qk._replace(**{
+        f: getattr(qk, f)[start:end] for f in qk._fields if torch.is_tensor(getattr(qk, f))
+    })
 
 
 def _squeezed(out, squeeze):

@@ -80,6 +80,27 @@ def merge_sorted_topk(dist_a, idx_a, dist_b, idx_b, k: int):
     return d[..., :k], i[..., :k]
 
 
+def tree_merge_sorted(bd: torch.Tensor, bi: torch.Tensor, k: int):
+    """Fold [..., S, k] per-segment (dist, idx)-ascending candidate lists
+    into the global top-k with log2(S) pairwise bitonic merges (all
+    segment pairs of a level at once).  Exactly the top-k of the union:
+    each segment contributes at most k survivors.  The plain selection of
+    the CPU route (the JAX ``ops/topk.py`` function of the same name)."""
+    batch = bd.shape[:-2]
+    nseg = bd.shape[-2]
+    while nseg > 1:
+        if nseg % 2:
+            shape = batch + (1, k)
+            bd = torch.cat([bd, bd.new_full(shape, float("inf"))], -2)
+            bi = torch.cat([bi, bi.new_full(shape, _IDX_SENTINEL)], -2)
+            nseg += 1
+        d2 = bd.reshape(*batch, nseg // 2, 2, k)
+        i2 = bi.reshape(*batch, nseg // 2, 2, k)
+        bd, bi = merge_sorted_topk(d2[..., 0, :], i2[..., 0, :], d2[..., 1, :], i2[..., 1, :], k)
+        nseg //= 2
+    return bd.reshape(*batch, k), bi.reshape(*batch, k)
+
+
 def empty_topk(batch_shape, k: int, device=None):
     """An empty carry: all +inf distances, -1 indices."""
     shape = tuple(batch_shape) + (k,)

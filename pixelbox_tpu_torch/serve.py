@@ -31,7 +31,9 @@ Endpoints:
   POST /api/settings          {"max_search_results": N, "max_distance": X, ...}
 
 Not yet ported, answered with 501: ``/api/faces``, ``/api/face-similar``,
-``text:`` and ``face:`` queries, the ``ivf`` scan mode and its settings.
+``text:`` and ``face:`` queries.  Under ``scan_mode: ivf`` similarity
+requests coalesce under the service's own ``ivf`` kind (the clustered
+index's probed result set, not the exact scan's).
 A request thread's error reaches the client as 500; nothing falls back
 to the CPU or to a plain version when the card or a kernel fails.
 """
@@ -52,6 +54,7 @@ import numpy as np
 
 from pixelbox_tpu_torch.ingest.decode import split_zip_path
 from pixelbox_tpu_torch.ingest.thumbnail import qoi_decode
+from pixelbox_tpu_torch.ops.ivf import default_nprobe
 from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
 from pixelbox_tpu_torch.serving import BatchingScanService
@@ -89,9 +92,11 @@ max results <input id="maxres" type="number" min="1" max="10000">
 max distance <input id="maxdist" type="number" step="0.05" min="0">
 min search len <input id="minlen" type="number" min="0" max="255" title="auto-search after this many characters; 0 disables">
 thumb px <input id="thumbsz" type="number" min="60" max="512">
-scan <select id="scanmode" title="every mode returns the exact results">
+scan <select id="scanmode" title="auto = guaranteed-exact; ivf = clustered ANN (approximate selection, exact distances)">
 <option>auto</option><option>exact</option><option>fast</option>
-<option>pallas</option></select>
+<option>pallas</option><option>ivf</option></select>
+nprobe <input id="nprobe" type="number" min="0" style="width:3.5em"
+ title="ivf mode: clusters probed per query (higher = better recall; 0 = auto, 2% of clusters)">
 <button onclick="saveSettings()">apply</button>
 </div>
 <div id="pager">
@@ -142,6 +147,10 @@ async function saveSettings(){
   const ts = +document.getElementById('thumbsz').value;
   if (ts >= 60) { applyThumbSize(ts); body.thumbnail_size = ts; }
   body.scan_mode = document.getElementById('scanmode').value;
+  const npEl = document.getElementById('nprobe');
+  // 0 resets to the recall-governed auto default; an untouched empty
+  // field is omitted.
+  if (npEl.value !== '') body.ivf_nprobe = Math.max(0, +npEl.value || 0);
   await fetch('/api/settings', {method:'POST', body:JSON.stringify(body)});
 }
 function applyThumbSize(px){
@@ -162,6 +171,8 @@ async function poll(){
   const sm = document.getElementById('scanmode');
   if (!sm.dataset.touched) sm.value = r.scan_mode;
   sm.onchange = () => { sm.dataset.touched = 1; };
+  const np = document.getElementById('nprobe');
+  if (np.value === '' && r.ivf_nprobe) np.value = r.ivf_nprobe;
   if (r.indexing) setTimeout(poll, 1000);
 }
 function render(items){
@@ -303,19 +314,22 @@ def make_handler(engine, lock: threading.Lock, scan_service=None):
         device batches instead of serializing behind the engine lock;
         assembling results stays on the request thread (the catalog uses
         per-thread connections).  The service scans with the
-        guaranteed-exact auto path, result-identical to every ported scan
-        mode, so those modes coalesce freely.
+        guaranteed-exact auto path, result-identical to auto, exact, fast
+        and pallas, so those modes coalesce freely.  IVF returns another
+        (probed) result set, so it coalesces under its own kind
+        (``engine.ivf_scan_batched``; both give store row ids).
         """
-        if engine.scan_mode not in SCAN_MODES:
-            raise NotImplementedError(f"scan mode {engine.scan_mode!r} {_NOT_PORTED}")
-        if scan_service is not None and engine._sem_store is not None \
+        ivf = engine.scan_mode == "ivf"
+        if scan_service is not None \
+                and (not ivf or "ivf" in scan_service.kinds) \
+                and engine._sem_store is not None \
                 and engine._sem_store.size > 0:
             scan_service.k = int(engine.max_search_results)
             scan_service.max_distance = float(engine.max_distance_from_query)
             # Read lock across scan→assemble: a compaction renumbering
             # between them would map rows through the wrong id table.
             with engine.index_rwlock.read_locked():
-                dist, idx = scan_service.submit(rec.visual_hash, kind="semantic")
+                dist, idx = scan_service.submit(rec.visual_hash, kind="ivf" if ivf else "semantic")
                 keep = idx >= 0
                 results = engine._build_results(idx[keep], dist[keep])
             with lock:
@@ -519,6 +533,19 @@ def make_handler(engine, lock: threading.Lock, scan_service=None):
                     "max_search_results": engine.max_search_results,
                     "max_distance": engine.max_distance_from_query,
                     "scan_mode": engine.scan_mode,
+                    "ivf_nprobe": engine.ivf_nprobe,  # null = auto
+                    # What auto resolves to on the live clustered index
+                    # (one device or sharded; null until an ivf query
+                    # built one).
+                    "ivf_nprobe_effective": (
+                        engine.ivf_nprobe
+                        or engine._ivf_tuned_nprobe
+                        or (default_nprobe(engine._ivf.n_clusters)
+                            if engine._ivf is not None else None)
+                        or (default_nprobe(engine._ivf_sharded.n_clusters)
+                            if engine._ivf_sharded is not None else None)
+                    ),
+                    "ivf_clusters": engine.ivf_clusters,  # null = auto
                     "semantic_precision": engine.semantic_precision,
                     "embedder": engine._embedder_name,
                     "phash_compat": engine.phash_compat,
@@ -595,9 +622,6 @@ def make_handler(engine, lock: threading.Lock, scan_service=None):
         def _settings(self, data):
             # Validate every field BEFORE applying any, so a bad value is a
             # clean 400 with nothing half-applied.
-            for key in ("ivf_nprobe", "ivf_clusters"):
-                if key in data:
-                    raise NotImplementedError(f"{key} (the ivf scan mode) {_NOT_PORTED}")
             try:
                 staged = {}
                 if "max_search_results" in data:
@@ -608,12 +632,17 @@ def make_handler(engine, lock: threading.Lock, scan_service=None):
                     staged["search_min_length"] = min(255, max(0, int(data["search_min_length"])))
                 if "thumbnail_size" in data:
                     staged["thumbnail_size"] = min(512, max(60, int(data["thumbnail_size"])))
+                for key in ("ivf_nprobe", "ivf_clusters"):
+                    # null/0 = back to auto (the 2% nprobe policy, ~4·sqrt(N)
+                    # clusters); a new cluster count retrains on the next
+                    # ivf query.
+                    if key in data:
+                        v = data[key]
+                        staged[key] = None if v in (None, 0, "0", "") else max(1, int(v))
             except (TypeError, ValueError) as e:
                 return self._send(400, {"error": f"bad value: {e}"})
             if "scan_mode" in data:
                 mode = str(data["scan_mode"])
-                if mode == "ivf":
-                    raise NotImplementedError(f"scan mode 'ivf' {_NOT_PORTED}")
                 if mode not in SCAN_MODES:
                     return self._send(400, {"error": f"bad scan_mode: {mode}"})
                 staged["scan_mode"] = mode
@@ -626,6 +655,10 @@ def make_handler(engine, lock: threading.Lock, scan_service=None):
                     ui_settings[key] = staged[key]
             if "scan_mode" in staged:
                 engine.scan_mode = staged["scan_mode"]
+            if "ivf_nprobe" in staged:
+                engine.ivf_nprobe = staged["ivf_nprobe"]
+            if "ivf_clusters" in staged:
+                engine.ivf_clusters = staged["ivf_clusters"]
             return self._send(200, {"ok": True})
 
     return Handler
@@ -659,6 +692,11 @@ def build_scan_service(engine) -> BatchingScanService:
             and engine.phash_store_uniform()
         ):
             service.warmup(ph.dim, kinds=("phash",))
+        if engine.scan_mode == "ivf" and engine._sem_store is not None \
+                and engine._sem_store.size > 0:
+            # Serving in ivf mode: train and pack the clustered index (and
+            # run its probe at every bucket) before traffic arrives.
+            service.warmup(engine._sem_store.dim, kinds=("ivf",))
     return service
 
 

@@ -11,9 +11,12 @@ Scan-mode dispatch on one device (reference engine.rs:352-396):
 - ``exact``: the blocked exact scan (plain PyTorch);
 - ``pallas``: the fused exact kernel scan (``fused_cosine_scan_topk``) —
   the flag keeps its name;
-- ``ivf`` raises NotImplementedError.
+- ``ivf``: the clustered ANN (``serving/ivf.py``, ``ops/ivf.py``): the
+  ``ivf_nprobe`` nearest clusters' buckets (K5 + K1c) and the exact spill,
+  at the library's precision (int4 buckets: the exact-u8 rerank).
 
-On a mesh (``parallel/sharded_scan``), as the JAX package dispatches:
+On a mesh (``parallel/sharded_scan``; ``ivf``: ``parallel/sharded_ivf``),
+as the JAX package dispatches:
 ``auto`` → the sharded auto (per-shard K1a + K1c, merged, repaired);
 the other modes → the sharded exact scan (per shard: the plain blocked
 scan for ``exact``, K1b + K1c for ``pallas`` and ``fast``).  An int4
@@ -65,7 +68,7 @@ from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.serving.service import ScanInputs
 from pixelbox_tpu_torch.utils.timing import timed
 
-SCAN_MODES = ("auto", "exact", "fast", "pallas")
+SCAN_MODES = ("auto", "exact", "fast", "pallas", "ivf")
 
 
 class SemanticServing:
@@ -160,10 +163,9 @@ class SemanticServing:
         engine's scan mode, in the index's own metric (an int4 library:
         the asymmetric int4 metric, before any rerank)."""
         if self.scan_mode not in SCAN_MODES:
-            raise NotImplementedError(
-                f"scan mode {self.scan_mode!r} is not yet ported to "
-                f"pixelbox_tpu_torch (ported: {', '.join(SCAN_MODES)})"
-            )
+            raise ValueError(f"unknown scan mode {self.scan_mode!r} (modes: {', '.join(SCAN_MODES)})")
+        if self.scan_mode == "ivf":
+            return self._ivf_scan(np.asarray(visual_hash, dtype=np.uint8), k, max_distance)
         if self.scan_mesh is not None:
             return self._sharded_scan(visual_hash, k, max_distance)
         index = self._sem_store.device_index
@@ -219,7 +221,12 @@ class SemanticServing:
         k = int(self.max_search_results)
         md = float(self.max_distance_from_query)
         with timed("engine.similarity_scan"):
-            if self.semantic_precision == "int4" and self.int4_rerank:
+            if self.scan_mode == "ivf":
+                # Clustered ANN: probe the nprobe nearest clusters; the
+                # selection is approximate, the distances exact (int4
+                # libraries: asymmetric candidates + the exact-u8 rerank).
+                dist, idx = self._ivf_query(np.asarray(record.visual_hash, dtype=np.uint8), k)
+            elif self.semantic_precision == "int4" and self.int4_rerank:
                 dist, idx = self._int4_scan_rerank(
                     lambda c, cmd: self.similarity_scan(record.visual_hash, c, cmd),
                     record.visual_hash, k, md,

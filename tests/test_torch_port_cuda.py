@@ -907,3 +907,108 @@ def test_sample_theta_other_widths_take_the_chunk_kernels(kind, width):
     assert counts["sample_theta"] == 0 and counts["lex_topk_select"] == 2
     assert sum(c for n, c in counts.items() if "chunk_topk" in n) == 1
     assert torch.equal(got, fs.sample_theta_plain(qk, smp, 1e3, 20))
+
+
+# --------------------------------------------------------------------- #
+# K5 (ivf_probe_collect, csrc/ivf_probe.cu) and the scans' k past MAX_K
+
+
+def _ivf(precision, dev, n=6000, d=128, c=40, cap=96):
+    from pixelbox_tpu_torch.ops import ivf
+
+    rng = np.random.default_rng(17)
+    centers = rng.normal(size=(12, d)) * 40.0
+    rows = np.clip(centers[rng.integers(0, 12, n)] + rng.normal(size=(n, d)) * 10 + 128, 0, 255)
+    rows = rows.astype(np.uint8)
+    valid = rng.uniform(size=n) > 0.02
+    cents = ivf.spherical_kmeans(rows, valid, c, iters=4, seed=0, device=dev)
+    index = ivf.build_ivf(rows, valid, cents, bucket_cap=cap, precision=precision, device=dev)
+    # One bucket with every slot invalid.
+    bv = index.bucket_valid.clone()
+    bv[3] = False
+    q = rows[rng.integers(0, n, 9)].copy()
+    q[0] = rng.integers(0, 256, d)
+    return index._replace(bucket_valid=bv), rows, valid, torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.parametrize("precision", ["u8", "int4"])
+def test_ivf_probe_collect_matches_plain(precision):
+    from pixelbox_tpu_torch.ops import ivf
+
+    dev = _card()
+    index, _, _, q = _ivf(precision, dev)
+    qc, qs, qm, qr = fs._prep(q)
+    for nprobe, md in ((1, 1e3), (7, 0.05), (index.n_clusters, 1e3)):
+        bids = ivf.probe_order(q, index.centroids, nprobe)
+        args = (qc, qs, qm, qr, md, bids, index.bucket_data, index.bucket_sum, index.bucket_mag2,
+                index.bucket_rows, index.bucket_valid)
+        fs.reset_launch_counts()
+        got = ivf.ivf_probe_collect(*args)
+        torch.cuda.synchronize()
+        assert fs.launch_counts()["ivf_probe_collect"] == 1
+        want = ivf.ivf_probe_collect_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(torch.isfinite(got[0]).any())
+
+
+def test_ivf_gathered_collect_matches_plain():
+    from pixelbox_tpu_torch.ops import ivf
+
+    dev = _card()
+    _, rows, _, q = _ivf("u8", dev, n=3000)
+    rng = np.random.default_rng(5)
+    cand = torch.from_numpy(rng.integers(-3, 3010, (9, 1200)).astype(np.int32)).to(dev)
+    qc, qs, qm, qr = fs._prep(q)
+    rows_dev = torch.from_numpy(rows).to(dev)
+    for md in (1e3, 0.1):
+        got = ivf.ivf_gathered_collect(qc, qs, qm, qr, md, cand, rows_dev)
+        want = ivf.ivf_gathered_collect_plain(qc, qs, qm, qr, md, cand, rows_dev)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("precision", ["u8", "int4"])
+def test_ivf_scan_on_the_card_matches_cpu_and_exact(precision):
+    """The whole probe (K5 + K1c, the spill's K1b/K4b + K1c) equals the
+    CPU route; at full nprobe it equals the exact scan."""
+    from pixelbox_tpu_torch.ops import ivf
+
+    dev = _card()
+    index, rows, valid, q = _ivf(precision, dev)
+    cpu = ivf.IVFIndex(*(t.cpu() for t in index[:6]), type(index.spill)(*(t.cpu() for t in index.spill)),
+                       index.spill_rows.cpu(), index.spill_meta.cpu())
+    assert index.spill_count > 0
+    for nprobe, k in ((None, 100), (5, 300), (index.n_clusters, 50)):
+        fs.reset_launch_counts()
+        got = ivf.ivf_scan_topk(q, index, k=k, nprobe=nprobe)
+        assert fs.launch_counts()["ivf_probe_collect"] > 0
+        want = ivf.ivf_scan_topk(q.cpu(), cpu, k=k, nprobe=nprobe)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    full = ivf.build_ivf(rows, valid, index.centroids.cpu().numpy(), bucket_cap=96, precision=precision,
+                         device=dev)
+    got = ivf.ivf_scan_topk(q, full, k=50, nprobe=full.n_clusters)
+    if precision == "u8":
+        data, rs, rm = semantic_rows_from_u8(rows)
+        flat = PackedSemanticIndex(*(torch.from_numpy(v).to(dev) for v in (data, rs, rm, valid)))
+        want = fs.fused_cosine_scan_topk(q, flat, fs.build_row_meta(flat), k=50)
+    else:
+        data, rs, rm = int4.semantic4_rows_from_u8(rows)
+        flat = int4.PackedSemantic4Index(*(torch.from_numpy(v).to(dev) for v in (data, rs, rm, valid)))
+        want = fs.fused_cosine4_scan_topk(q, flat, fs.build_row_meta(flat), k=50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_scans_past_max_k_match_plain():
+    """k past MAX_K: K1c in rounds and the exact scans' collect route, on
+    the card equal to their plain versions."""
+    dev = _card()
+    idx, q = _index(65536, 128, seed=4, dev=dev)
+    cpu = PackedSemanticIndex(*(t.cpu() for t in idx))
+    for k in (1500, 2 * fs.MAX_K + 7):
+        got = fs.fused_cosine_scan_topk(q[:9], idx, fs.build_row_meta(idx), k=k)
+        want = fs.fused_cosine_scan_topk(q[:9].cpu(), cpu, fs.build_row_meta(cpu), k=k)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    big, qb = _index(262144, 128, seed=6, dev=dev)
+    got = tscan.cosine_scan_topk_auto(qb[:8], big, k=1500)
+    bcpu = PackedSemanticIndex(*(t.cpu() for t in big))
+    want = tscan.cosine_scan_topk_auto(qb[:8].cpu(), bcpu, k=1500)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])

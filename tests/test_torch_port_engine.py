@@ -268,8 +268,10 @@ def test_cli_recipe_on_cpu(shared, tmp_path):
     assert res[0]["distance"] == 0.0
     r = cli("search", db, "cat_3")
     assert r.returncode == 0 and "cat_3.png" in r.stdout
-    r = cli("similar", db, os.path.join(photos, "dog.jpg"), "--scan-mode", "ivf")
-    assert r.returncode == 1 and "not yet ported" in r.stderr
+    r = cli("similar", db, os.path.join(photos, "dog.jpg"), "--scan-mode", "ivf", "--json")
+    assert r.returncode == 0
+    res = json.loads(r.stdout)
+    assert res[0]["path"] == os.path.realpath(os.path.join(photos, "dog.jpg"))
     r = cli("show", db, "1")
     assert r.returncode == 0 and '"filename"' in r.stdout
     r = cli("stats", db)
@@ -284,6 +286,11 @@ def test_port_never_imports_jax():
         "'pixelbox_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) > 30, mods\n"
+        "new = {'pixelbox_tpu_torch.ops.ivf', 'pixelbox_tpu_torch.ops.ivf_build',\n"
+        "       'pixelbox_tpu_torch.serving.ivf', 'pixelbox_tpu_torch.parallel.sharded_ivf'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
+        "import pixelbox_tpu_torch.ops.ivf as ivf\n"
+        "assert callable(ivf.load_ivf_kernels) and ivf._IVF_SOURCES == ('ivf_probe.cu',)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'pixelbox_tpu.'))"
         " or m == 'pixelbox_tpu']\n"
         "assert not bad, bad\n"

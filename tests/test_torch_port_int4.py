@@ -362,16 +362,19 @@ def test_int4_mesh_serving_raises(int4_library):
         eng.close()
 
 
-def test_lex_topk_refuses_oversize_k_on_every_device():
-    """k above half a segment cannot shrink the pool; the plain version
-    refuses it as the kernel does (it used to loop forever)."""
-    d = torch.rand(2, 5000)
-    i = torch.arange(5000, dtype=torch.int32).expand(2, -1).contiguous()
-    with pytest.raises(ValueError, match="exceeds half the segment"):
-        fs.lex_topk(d, i, fs.SEGMENT // 2 + 1)
-    got = fs.lex_topk(d, i, fs.SEGMENT // 2)
-    want = torch.sort(d, dim=1, stable=True)
-    assert torch.equal(got[0], want.values[:, : fs.SEGMENT // 2])
+def test_lex_topk_past_max_k_in_rounds():
+    """k past the select kernel's MAX_K (half the first port's segment) is
+    selected in rounds, each above the last key the round before took: the
+    result equals ``torch.sort``'s first k, at k = SEGMENT // 2 + 1 and k =
+    SEGMENT // 2, on a row past SELECT_SLOTS (sliced) and on a shorter one."""
+    for m in (5000, fs.SELECT_SLOTS + 3000):
+        d = torch.rand(2, m)
+        i = torch.arange(m, dtype=torch.int32).expand(2, -1).contiguous()
+        want = torch.sort(d, dim=1, stable=True)
+        for k in (fs.SEGMENT // 2 + 1, fs.SEGMENT // 2):
+            got = fs.lex_topk(d, i, k)
+            assert torch.equal(got[0], want.values[:, :k])
+            assert torch.equal(got[1], want.indices[:, :k].to(torch.int32))
 
 
 @pytest.fixture(scope="module")

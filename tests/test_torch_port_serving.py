@@ -427,7 +427,7 @@ def test_service_phash_kind_and_errors_reach_submit(rng, tmp_path):
     eng = _hash_engine(tmp_path, "ph", rows, ph)
     svc = build_scan_service(eng)
     try:
-        assert svc.kinds == ("semantic", "phash")
+        assert svc.kinds == ("semantic", "ivf", "phash")  # ivf registers always, as in the JAX engine
         got = _burst(svc, ph[[3, 4, 5, 6]], kind="phash")
         for j, r in enumerate((3, 4, 5, 6)):
             eng.query_by_phash(ph[r])
@@ -654,7 +654,12 @@ def test_server_refuses_what_is_not_ported(served):
     assert _http(port_url, "/api/face-similar", open(files[0], "rb").read())[0] == 501
     code, body = _http(port_url, "/api/search?q=text:cat")
     assert code == 501 and "not yet ported" in body["error"]
-    assert _http(port_url, "/api/settings", json.dumps({"scan_mode": "ivf"}).encode())[0] == 501
+    # The ivf scan mode is ported: accepted, served, then set back.
+    assert _http(port_url, "/api/settings", json.dumps({"scan_mode": "ivf"}).encode())[0] == 200
+    code, res = _http(port_url, "/api/similar?id=2")
+    assert code == 200 and res[0]["id"] == 2 and res[0]["distance"] == 0.0
+    assert _http(port_url, "/api/status")[1]["ivf_nprobe_effective"] is not None
+    assert _http(port_url, "/api/settings", json.dumps({"scan_mode": "auto"}).encode())[0] == 200
     assert _http(port_url, "/api/settings", json.dumps({"max_distance": "x"}).encode())[0] == 400
     assert _http(port_url, "/api/similar?id=999")[0] == 404
     assert _http(port_url, "/api/similar?id=abc")[0] == 500
