@@ -11,7 +11,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. Build: compiles ``pixelbox_tpu_torch/csrc/fused_scan.cu``,
    ``csrc/tc_scan.cu`` (the tensor-core K1a, K4a, K2a, K1b, K2b and K4b),
    ``csrc/tc_theta.cu`` (the θ stage), ``csrc/ivf_probe.cu`` (K5, the IVF
-   probe, and its gathered mode) and ``csrc/breakdown.cu`` (the
+   probe, its work list, the first port's K5 and the gathered mode) and ``csrc/breakdown.cu`` (the
    tensor-core ladder and the first port's) for sm_90a, one nvcc each, in
    parallel; logs the tensor-core and select kernels' registers and
    spills and ptxas's wgmma warnings.  Meanwhile the main thread makes
@@ -114,9 +114,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    4's engine: the train and build spans; ``similar`` end to end (median
    of 5 after the first query); ``ivf_scan_topk`` at Q ∈ {1, 8, 256} at
    the default nprobe (and the device kernels a call, by
-   ``torch.profiler``), and K5 (``ivf_probe_collect``) a call and on the
-   device, warm and with L2 flushed, against its bound and its plain
-   version; at full nprobe (Q = 8)
+   ``torch.profiler``), and K5 (``ivf_probe_topk``, with its work list
+   ``ivf_probe_invert`` where Q · nprobe > clusters) in turns with the first port's
+   ``ivf_probe_collect_dp4a``, a call and on the device, warm and with
+   L2 flushed, each alone and with its K1c, against its bound and its
+   plain version; at full nprobe (Q = 8)
    the result equal to ``cosine_scan_topk_auto`` bit for bit; recall@10
    at the default nprobe over 256 perturbed stored rows against the
    exact scan; an append of 1,024 rows that must extend the spill
@@ -355,8 +357,9 @@ class Recorder:
         "sample_theta",
     )
 
-    #: K5 and its gathered mode, whose wrappers live in ops/ivf.py.
-    IVF_NAMES = ("ivf_probe_collect", "ivf_gathered_collect")
+    #: K5, its work list and its gathered mode, whose wrappers live in
+    #: ops/ivf.py.
+    IVF_NAMES = ("ivf_probe_topk", "ivf_probe_invert", "ivf_gathered_collect")
 
     def __init__(self, fs):
         from pixelbox_tpu_torch.ops import ivf
@@ -387,11 +390,13 @@ class PlainOnCard:
     """Counts plain versions run on the card outside replays: the θ
     stage's old composition (``sample_theta_chain`` and the plain-torch
     mini-sample ``mini_sample_theta`` on a CUDA sample) and K5's plain
-    versions (``ivf_probe_collect_plain``, ``ivf_gathered_collect_plain``
-    on CUDA queries).  Phases 4-9 must call none of them."""
+    versions (``ivf_probe_topk_plain``, ``ivf_probe_collect_plain``,
+    ``ivf_probe_invert_plain``, ``ivf_gathered_collect_plain`` on CUDA
+    tensors).  Phases 4-9 must call none of them."""
 
     NAMES = ("sample_theta_chain", "mini_sample_theta")
-    IVF_NAMES = ("ivf_probe_collect_plain", "ivf_gathered_collect_plain")
+    IVF_NAMES = ("ivf_probe_topk_plain", "ivf_probe_collect_plain", "ivf_probe_invert_plain",
+                 "ivf_gathered_collect_plain")
     counts = {n: 0 for n in NAMES + IVF_NAMES}
     _replay = 0
 
@@ -407,7 +412,7 @@ class PlainOnCard:
     @classmethod
     def _wrap(cls, name, fn):
         def wrapper(first, *args, **kwargs):
-            # K5 plain: (q_codes, ...); the θ stage: (qk, smp, ...)
+            # K5 plain: (q_codes, ...) or (bids, ...); the θ stage: (qk, smp, ...)
             on_card = first.is_cuda if name in cls.IVF_NAMES else args[0].data.is_cuda
             if on_card and not cls._replay:
                 cls.counts[name] += 1
@@ -467,6 +472,15 @@ def replay(fs, call):
     import torch
 
     name, args, kwargs, out = call
+    if name == "ivf_probe_invert":
+        from pixelbox_tpu_torch.ops import ivf
+
+        with PlainOnCard.replaying():
+            want = ivf.ivf_probe_invert_plain(*args, **kwargs)
+        got, want = ivf.probe_work_pairs(out.cpu()), ivf.probe_work_pairs(want.cpu())
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              "ivf_probe_invert differs from plain (up to the order of a bucket's pairs)")
+        return 0.0
     if name in Recorder.IVF_NAMES:
         from pixelbox_tpu_torch.ops import ivf
 
@@ -1928,13 +1942,14 @@ def phase_int4_engine(fs, scan, smi, tmp, ckpt, growth):
 
 
 def ivf_work(args, out):
-    """(bytes, ops, split bytes) of K5's function on these inputs, the JAX
-    ``_ivf_probe_topk`` up to its selection: every distinct probed
+    """(bytes, ops, K1c's bytes) of K5's function on these inputs, the JAX
+    ``_ivf_probe_topk`` up to its tree merge: every distinct probed
     bucket's rows and meta read once (data, sum, mag2, row id, valid), the
-    queries and their bucket ids; ops the int8 products of the valid
-    probed slots (D a slot, int4 buckets unpacked to D).  The [Q, P·cap]
-    (dist, id) buffer K1c then reads exists only because the port splits
-    the selection off: its bytes come apart, outside the bound."""
+    queries and their bucket ids, and the [Q, P, k'] (dist, id) partials
+    written (the first port's kernel: [Q, P·cap], every slot); ops the
+    int8 products of the valid probed slots (D a slot, int4 buckets
+    unpacked to D).  K1c then reads those partials: their bytes are
+    logged beside the bound."""
     import torch
 
     q_codes, bids, bdata, bvalid = args[0], args[5], args[6], args[10]
@@ -1943,66 +1958,152 @@ def ivf_work(args, out):
     distinct = int(torch.unique(bids).numel())
     per_bucket = cap * (bdata.shape[2] + 13)
     valid_slots = int(bvalid[bids.long()].sum())
-    nbytes = distinct * per_bucket + qn * (d + 16) + bids.numel() * 4
-    return nbytes, 2 * valid_slots * d, out[0].numel() * 8
+    partials = out[0].numel() * 8
+    nbytes = distinct * per_bucket + qn * (d + 16) + bids.numel() * 4 + partials
+    return nbytes, 2 * valid_slots * d, partials
 
 
 def gathered_work(args, out):
     """(bytes, ops, split bytes) of K5's gathered mode: each candidate's
     id and row read once and the queries; ops 2·D a valid candidate.  The
-    [Q, M] (dist, id) buffer K1c selects from comes apart, as in
-    :func:`ivf_work`."""
+    [Q, M] (dist, id) buffer K1c selects from comes apart, outside the
+    bound."""
     q_codes, cand, rows = args[0], args[5], args[6]
     qn, d = q_codes.shape
     ok = int(((cand >= 0) & (cand < rows.shape[0])).sum())
     return cand.numel() * 4 + ok * d + qn * (d + 16), 2 * ok * d, out[0].numel() * 8
 
 
-def l2_cold_ms(fn, reps=10):
-    """Device time of one launch with the 50 MB L2 flushed first (256 MiB
-    written just before it, so the launch queues behind the flush and the
-    events bracket its device work alone); median of ``reps``."""
+def l2_cold_ms(fns, reps=10):
+    """Device time of one launch of each function, in turns, with the 50 MB
+    L2 flushed first (256 MiB written just before it, so the launch queues
+    behind the flush and the events bracket its device work alone);
+    medians of ``reps``."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    fn()
-    times = []
+    for f in fns:
+        f()
+    times = [[] for _ in fns]
     for _ in range(reps):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
+        for j, f in enumerate(fns):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            f()
+            e.record()
+            torch.cuda.synchronize()
+            times[j].append(s.elapsed_time(e))
     del flush
-    return statistics.median(times)
+    return [statistics.median(t) for t in times]
+
+
+def bound_of(nbytes, ops):
+    """(bound ms, what bounds it): bytes at the HBM rate, int8 ops at the
+    tensor cores' rate."""
+    b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
+def time_ivf_probe(fs, call, smi, tag, err, reps=10):
+    """K5's recorded call (``ivf_probe_topk``): the first port's kernel on
+    the same inputs, its K1c result held equal to the new kernel's and its
+    partials to its plain version (errors under its own name); then in
+    turns with it, a call, on the device and with L2 flushed, each kernel
+    alone and with its K1c; the plain versions; the work list
+    (``ivf_probe_invert``, where the probe builds one) alone; against their
+    bounds."""
+    import torch
+
+    from pixelbox_tpu_torch.ops import ivf
+
+    name, args, kwargs, out = call
+    k, qn, bids = args[-1], args[0].shape[0], args[5]
+    new = lambda: ivf.ivf_probe_topk(*args)  # noqa: E731
+    old = lambda: ivf.ivf_probe_collect_dp4a(*args[:-1])  # noqa: E731
+
+    def new_k1c():
+        d, i = new()
+        return fs.lex_topk(d.reshape(qn, -1), i.reshape(qn, -1), k)
+
+    def old_k1c():
+        return fs.lex_topk(*old(), k)
+
+    a, b = new_k1c(), old_k1c()
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          f"{tag} K5 + K1c differs from the first port's K5 + K1c")
+    old_out = old()
+    with PlainOnCard.replaying():
+        ref = ivf.ivf_probe_collect_plain(*args[:-1])
+    check(torch.equal(old_out[0], ref[0]) and torch.equal(old_out[1], ref[1]),
+          f"{tag} ivf_probe_collect_dp4a differs from plain")
+    err["ivf_probe_collect_dp4a"] = max(err["ivf_probe_collect_dp4a"], max_abs_err(a[0], b[0]),
+                                        max_abs_err(old_out[0], ref[0]))
+    ms, prev_ms = interleaved_ms([new, old], reps)
+    g_ms, prev_g = gpu_ms([new, old])
+    cold, prev_cold = l2_cold_ms([new, old], reps)
+    comp_ms, prev_comp_ms = interleaved_ms([new_k1c, old_k1c], reps)
+    comp_g, prev_comp_g = gpu_ms([new_k1c, old_k1c])
+    with PlainOnCard.replaying():
+        p_ms = median_ms(lambda: ivf.ivf_probe_topk_plain(*args), 3)
+        prev_p_ms = median_ms(lambda: ivf.ivf_probe_collect_plain(*args[:-1]), 3)
+    nbytes, ops, k1c_bytes = ivf_work(args, out)
+    prev_bytes, _, prev_k1c_bytes = ivf_work(args[:-1], old_out)
+    bound, by = bound_of(nbytes, ops)
+    prev_bound, prev_by = bound_of(prev_bytes, ops)
+    st = {"ms": ms, "gpu_ms": g_ms, "cold_gpu_ms": cold, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+          "bytes": nbytes, "ops": ops, "k1c_buffer_bytes": k1c_bytes, "library_ms": None,
+          "with_k1c_ms": comp_ms, "with_k1c_gpu_ms": comp_g,
+          "previous_ms": prev_ms, "previous_gpu_ms": prev_g, "previous_cold_gpu_ms": prev_cold,
+          "previous_plain_ms": prev_p_ms, "previous_bound_ms": prev_bound, "previous_bound_by": prev_by,
+          "previous_k1c_buffer_bytes": prev_k1c_bytes, "previous_with_k1c_ms": prev_comp_ms,
+          "previous_with_k1c_gpu_ms": prev_comp_g, "k_prime": out[0].shape[-1]}
+    log(f"{tag} ivf_probe_topk Q={qn} x {bids.shape[1]} buckets x cap {args[6].shape[1]}, k={k} (k'="
+        f"{st['k_prime']}) vs ivf_probe_collect_dp4a in turns (K1c results equal): {ms:.4f} / {prev_ms:.4f} "
+        f"ms a call, device {g_ms:.4f} / {prev_g:.4f} ({prev_g / g_ms:.2f}x), L2 flushed {cold:.4f} / "
+        f"{prev_cold:.4f}; with K1c {comp_ms:.4f} / {prev_comp_ms:.4f} ms a call, device {comp_g:.4f} / "
+        f"{prev_comp_g:.4f}; plain {p_ms:.4f} / {prev_p_ms:.4f} ms; bound {bound:.4f} / {prev_bound:.4f} ms "
+        f"({by}: {nbytes:,} / {prev_bytes:,} B, {ops:,} ops; K1c reads {k1c_bytes:,} / {prev_k1c_bytes:,} "
+        f"B); no one library call computes it (CUDA events; {smi})")
+    c = args[6].shape[0]
+    if ivf.shares_buckets(qn, bids.shape[1], c):
+        inv = lambda: ivf.ivf_probe_invert(bids, c)  # noqa: E731
+        work = inv()
+        with PlainOnCard.replaying():
+            inv_p_ms = median_ms(lambda: ivf.ivf_probe_invert_plain(bids, c), 3)
+        inv_bytes = bids.numel() * 4 + (1 + int(work[0]) * (1 + ivf.IVF_PROBE_NQ)) * 4
+        inv_bound, inv_by = bound_of(inv_bytes, 0)
+        st["invert"] = {"ms": median_ms(inv, reps), "gpu_ms": gpu_ms([inv])[0], "plain_ms": inv_p_ms,
+                        "bound_ms": inv_bound, "bound_by": inv_by, "items": int(work[0]),
+                        "library_ms": None}
+        log(f"{tag} ivf_probe_invert {bids.numel():,} pairs over {c:,} buckets -> {int(work[0]):,} work items: "
+            f"{st['invert']['ms']:.4f} ms a call, {st['invert']['gpu_ms']:.4f} device; plain {inv_p_ms:.4f} ms; "
+            f"bound {inv_bound:.4f} ms ({inv_bytes:,} B) ({smi})")
+    return st
 
 
 def time_ivf_kernel(call, smi, tag, reps=10):
-    """K5 (or its gathered mode): a call and on the device (CUDA events),
-    its plain version on the card, against its bound."""
+    """K5's gathered mode: a call and on the device (CUDA events), its
+    plain version on the card, against its bound."""
     from pixelbox_tpu_torch.ops import ivf
 
     name, args, kwargs, out = call
     kern, plain = getattr(ivf, name), getattr(ivf, name + "_plain")
     k_ms = median_ms(lambda: kern(*args, **kwargs), reps)
     g_ms = gpu_ms([lambda: kern(*args, **kwargs)])[0]
-    cold_ms = l2_cold_ms(lambda: kern(*args, **kwargs), reps)
+    cold_ms = l2_cold_ms([lambda: kern(*args, **kwargs)], reps)[0]
     with PlainOnCard.replaying():
         p_ms = median_ms(lambda: plain(*args, **kwargs), 3)
-    nbytes, ops, split = (ivf_work if name == "ivf_probe_collect" else gathered_work)(args, out)
-    b_bytes, b_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+    nbytes, ops, split = gathered_work(args, out)
+    bound, by = bound_of(nbytes, ops)
     st = {"ms": k_ms, "gpu_ms": g_ms, "cold_gpu_ms": cold_ms, "plain_ms": p_ms,
-          "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+          "bound_ms": bound, "bound_by": by,
           "bytes": nbytes, "ops": ops, "split_out_bytes": split, "split_out_ms": split / HBM_BPS * 1e3,
           "library_ms": None}
-    shape = f"Q={args[0].shape[0]} x {args[5].shape[1]}" + (
-        f" buckets x cap {args[6].shape[1]}" if name == "ivf_probe_collect" else " candidates")
-    log(f"{tag} {name} {shape}: kernel {k_ms:.4f} ms a call, {g_ms:.4f} device ({cold_ms:.4f} with L2 "
-        f"flushed before each launch); plain {p_ms:.4f} ms; "
-        f"bound {st['bound_ms']:.4f} ms ({st['bound_by']}: {nbytes:,} B, {ops:,} ops; the split-off "
+    log(f"{tag} {name} Q={args[0].shape[0]} x {args[5].shape[1]} candidates: kernel {k_ms:.4f} ms a call, "
+        f"{g_ms:.4f} device ({cold_ms:.4f} with L2 flushed before each launch); plain {p_ms:.4f} ms; "
+        f"bound {bound:.4f} ms ({by}: {nbytes:,} B, {ops:,} ops; the split-off "
         f"selection's buffer {split:,} B more, {st['split_out_ms']:.4f} ms at the memory rate); no one library "
         f"call computes it (median of {reps}, CUDA events; {smi})")
     return st
@@ -2093,7 +2194,7 @@ def phase_ivf(fs, scan, hg, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
     for qn in IVF_QS:
         q = qs[:qn]
         counted(lambda: ivf_mod.ivf_scan_topk(q, ivf, k=K))
-        k5 = next(c for c in rec.calls if c[0] == "ivf_probe_collect")
+        k5 = next(c for c in rec.calls if c[0] == "ivf_probe_topk")
         replay_recorded(fs, err, rec, replayed)
         host = []
         for _ in range(5):
@@ -2104,7 +2205,7 @@ def phase_ivf(fs, scan, hg, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
             host.append(time.perf_counter() - t)
         scan_ms = median_ms(lambda: ivf_mod.ivf_scan_topk(q, ivf, k=K))
         exact_ms = median_ms(lambda: scan.cosine_scan_topk_auto(q, index, k=K, sample=smp, row_meta=meta))
-        st = time_ivf_kernel(k5, smi, f"[6b] Q={qn}")
+        st = time_ivf_probe(fs, k5, smi, f"[6b] Q={qn}", err)
         st.update(scan_ms=scan_ms, scan_host_ms=statistics.median(host) * 1e3, auto_ms=exact_ms,
                   device_kernels=device_kernels(lambda: ivf_mod.ivf_scan_topk(q, ivf, k=K)),
                   auto_device_kernels=device_kernels(
@@ -2114,9 +2215,7 @@ def phase_ivf(fs, scan, hg, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
             f"{st['scan_host_ms']:.3f} ms host clock + synchronize, {st['device_kernels']} device kernels "
             f"a call (torch.profiler); the exact auto scan {exact_ms:.4f} ms, {st['auto_device_kernels']} "
             f"kernels; {smi}")
-    stats.update({key: stats["by_q"][MAIN_Q][key] for key in
-                  ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms", "bound_by", "split_out_bytes",
-                   "split_out_ms", "library_ms")})
+    stats.update(stats["by_q"][MAIN_Q])
 
     # Full nprobe = the exact scan, bit for bit; recall@10 at the default.
     q8 = qs[:8]
@@ -2239,7 +2338,8 @@ def phase_ivf(fs, scan, hg, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
         f"(C={int4.default_rerank_candidates(300)}) over {i4s.n:,}, phash k=1500 over {pst.n:,} "
         f"= their plain versions")
     log(f"[6b] kernel launches on the ivf path: {json.dumps(counts)}")
-    for n in ("ivf_probe_collect", "ivf_gathered_collect", "lex_topk_select", "cosine_chunk_topk"):
+    for n in ("ivf_probe_topk", "ivf_probe_invert", "ivf_gathered_collect", "lex_topk_select",
+              "cosine_chunk_topk"):
         check(counts[n] > 0, f"kernel {n} was not launched on the ivf path")
     log(f"[6b] {sum(replayed['calls'].values())} kernel calls replayed bit-identical through their plain "
         f"versions in {replayed['s']:.1f}s: {json.dumps(replayed['calls'])}")
@@ -2567,7 +2667,7 @@ def phase_serving(fs, smi, sem_eng, sem_paths, ph_eng, ph_paths, i4_eng):
         s.close()
     log(f"[7] kernel launches on the serving path: {json.dumps(counts)}")
     for n in ("cosine_threshold_collect", "cosine4_threshold_collect", "hamming_threshold_collect",
-              "lex_topk_select", "ivf_probe_collect"):
+              "lex_topk_select", "ivf_probe_topk", "ivf_probe_invert"):
         check(counts[n] > 0, f"kernel {n} was not launched on the serving path")
     # Every batch selects on the distance: no served path takes the cos key.
     for n in ("cosine_coskey_collect", "cosine4_coskey_collect", "coskey_rescore"):
@@ -2706,7 +2806,7 @@ def phase_mesh(fs, scan, smi, err, sem_eng, sem_paths, ph_eng, i4_eng):
         f"duplicate cuts in {t_dup:.2f}s; {smi}")
     log(f"[8] kernel launches on the mesh path: {json.dumps(counts)}")
     for n in ("cosine_threshold_collect", "cosine_chunk_topk", "cosine4_threshold_collect",
-              "hamming_chunk_topk", "lex_topk_select", "ivf_probe_collect"):
+              "hamming_chunk_topk", "lex_topk_select", "ivf_probe_topk"):
         check(counts[n] > 0, f"kernel {n} was not launched on the mesh path")
 
     for key, want in ref.items():
@@ -2959,7 +3059,7 @@ def main() -> int:
         lines = kern.ptxas.splitlines()
         for j, line in enumerate(lines):
             named = ("tc_cosine", "tc_hamming", "tc_chunk_topk", "tc_theta", "lex_topk_select", "tc_ladder",
-                     "ivf_probe_kernel", "ivf_gathered_kernel")
+                     "ivf_probe_tc_kernel", "ivf_invert_kernel", "ivf_probe_dp4a_kernel", "ivf_gathered_kernel")
             if "Compiling entry" in line and any(n in line for n in named):  # by name
                 name = line.split("'")[1]
                 at = min(name.find(n) for n in named if n in name)
@@ -2974,7 +3074,8 @@ def main() -> int:
     log(f"[2] {len(loads)} builds in {time.perf_counter() - t0:.2f}s (in parallel)")
 
     # [3] kernels vs plain, [3b] Hamming, [3c] large batches
-    err = {n: 0.0 for n in (*Recorder.NAMES, *Recorder.IVF_NAMES, *PREVIOUS.values(), "lex_topk_segments")}
+    err = {n: 0.0 for n in (*Recorder.NAMES, *Recorder.IVF_NAMES, *PREVIOUS.values(), "lex_topk_segments",
+                            "ivf_probe_collect_dp4a")}
     PlainOnCard.install(fs)
     t0 = time.perf_counter()
     stats, db = phase_kernels(fs, scan, smi, err, seeded3)
@@ -3016,8 +3117,7 @@ def main() -> int:
     main_counts = (counts4, counts5, counts6, counts6b, counts7, counts8, counts8b, counts9, {
         "sample_theta_chain": PlainOnCard.counts["sample_theta_chain"],
         "mini_sample_theta_on_card": PlainOnCard.counts["mini_sample_theta"],
-        "ivf_probe_collect_plain_on_card": PlainOnCard.counts["ivf_probe_collect_plain"],
-        "ivf_gathered_collect_plain_on_card": PlainOnCard.counts["ivf_gathered_collect_plain"]})
+        **{n + "_on_card": c for n, c in PlainOnCard.counts.items() if n in PlainOnCard.IVF_NAMES}})
     for old, new in (("cosine_threshold_collect_dp4a", "cosine_threshold_collect"),
                      ("cosine_chunk_topk_dp4a", "cosine_chunk_topk"),
                      ("cosine4_threshold_collect_dp4a", "cosine4_threshold_collect"),
@@ -3028,7 +3128,10 @@ def main() -> int:
                      ("breakdown_ladder_dp4a", "breakdown_ladder"),
                      ("sample_theta_chain", "sample_theta"),
                      ("mini_sample_theta_on_card", "sample_theta"),
-                     ("ivf_probe_collect_plain_on_card", "ivf_probe_collect"),
+                     ("ivf_probe_collect_dp4a", "ivf_probe_topk"),
+                     ("ivf_probe_topk_plain_on_card", "ivf_probe_topk"),
+                     ("ivf_probe_collect_plain_on_card", "ivf_probe_topk"),
+                     ("ivf_probe_invert_plain_on_card", "ivf_probe_invert"),
                      ("ivf_gathered_collect_plain_on_card", "ivf_gathered_collect")):
         n_old, n_new = (sum(c.get(n, 0) for c in main_counts) for n in (old, new))
         check(n_new > 0 and n_old == 0, f"main paths: {new} {n_new} launches, {old} {n_old}")
@@ -3076,8 +3179,31 @@ def main() -> int:
         "ms": k1b["previous_ms"], "gpu_ms": k1b["previous_gpu_ms"],
         **{key: k1b[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
-    for n, st, rep_ in (("ivf_probe_collect", ivf_st, "pixelbox_tpu/ops/ivf.py:498"),
-                        ("ivf_gathered_collect", ivf_st["gathered"], "pixelbox_tpu/ops/ivf_build.py:645")):
+    ivf_by_q = ivf_st["by_q"]
+    inv = ivf_by_q[MAIN_Q]["invert"]
+    ivf_entries = (
+        ("ivf_probe_topk", "pixelbox_tpu/ops/ivf.py:498", ivf_st["ms"], ivf_st["gpu_ms"],
+         {key: ivf_st[key] for key in ("cold_gpu_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "with_k1c_ms", "with_k1c_gpu_ms", "k1c_buffer_bytes", "k_prime")}
+         | {"by_q": {q: {key: v[key] for key in ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms",
+                                                  "with_k1c_ms", "with_k1c_gpu_ms", "previous_ms",
+                                                  "previous_gpu_ms", "previous_cold_gpu_ms",
+                                                  "previous_with_k1c_ms", "previous_with_k1c_gpu_ms",
+                                                  "scan_ms", "scan_host_ms", "auto_ms", "device_kernels",
+                                                  "auto_device_kernels")} for q, v in ivf_by_q.items()},
+            "recall_at_10": ivf_st["recall_at_10"]}),
+        ("ivf_probe_invert", "pixelbox_tpu/ops/ivf.py:498", inv["ms"], inv["gpu_ms"],
+         {key: inv[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms", "items")}),
+        ("ivf_probe_collect_dp4a", "pixelbox_tpu/ops/ivf.py:498", ivf_st["previous_ms"], ivf_st["previous_gpu_ms"],
+         {"cold_gpu_ms": ivf_st["previous_cold_gpu_ms"], "plain_ms": ivf_st["previous_plain_ms"],
+          "bound_ms": ivf_st["previous_bound_ms"], "bound_by": ivf_st["previous_bound_by"], "library_ms": None,
+          "with_k1c_ms": ivf_st["previous_with_k1c_ms"], "with_k1c_gpu_ms": ivf_st["previous_with_k1c_gpu_ms"]}),
+        ("ivf_gathered_collect", "pixelbox_tpu/ops/ivf_build.py:645", ivf_st["gathered"]["ms"],
+         ivf_st["gathered"]["gpu_ms"],
+         {key: ivf_st["gathered"][key] for key in ("cold_gpu_ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "split_out_bytes", "split_out_ms", "library_ms")}),
+    )
+    for n, rep_, ms_, gpu_, extra in ivf_entries:
         kernels.append({
             "name": n,
             "route": "cuda",
@@ -3086,13 +3212,9 @@ def main() -> int:
             "jax_route": "XLA, no pallas_call",  # the JAX package computes these in XLA
             "launches": sum(c.get(n, 0) for c in main_counts),
             "max_abs_err": err[n],
-            **{key: st[key] for key in ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "split_out_bytes", "split_out_ms", "library_ms")},
-            **({"by_q": {q: {key: v[key] for key in ("ms", "gpu_ms", "cold_gpu_ms", "plain_ms", "bound_ms",
-                                                    "split_out_ms", "scan_ms", "scan_host_ms", "auto_ms",
-                                                    "device_kernels", "auto_device_kernels")}
-                         for q, v in st["by_q"].items()}, "recall_at_10": st["recall_at_10"]}
-               if n == "ivf_probe_collect" else {}),
+            "ms": ms_,
+            "gpu_ms": gpu_,
+            **extra,
         })
     gemm = ladder["rungs"]["gemm"]
     kernels.append({

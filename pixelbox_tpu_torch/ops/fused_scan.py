@@ -401,7 +401,9 @@ LAUNCHES = {
     "cosine4_coskey_collect": 0,
     "coskey_rescore": 0,
     "sample_theta": 0,
-    "ivf_probe_collect": 0,
+    "ivf_probe_topk": 0,
+    "ivf_probe_invert": 0,
+    "ivf_probe_collect_dp4a": 0,
     "ivf_gathered_collect": 0,
 }
 

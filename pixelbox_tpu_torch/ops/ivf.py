@@ -22,12 +22,13 @@ asymmetric int4 metric for int4 buckets) — only the candidate
   ``nprobe == n_clusters`` equals the exact flat scan, ties included.
 - The probe (:func:`ivf_scan_topk`): the centroid scores are an f32
   ``torch.matmul``, the top ``nprobe`` a stable descending sort (ties to
-  the lower cluster id, as ``lax.top_k``).  The probed buckets' exact
-  distances come from the hand-written kernel K5
-  (:func:`ivf_probe_collect`, ``csrc/ivf_probe.cu``: the buckets read in
-  place, no gather copy) and K1c (``fused_scan.lex_topk``) takes their
-  top k by (dist, row id) — equal to the JAX package's per-bucket top-k
-  and tree merge, since a row sits in one bucket.  The spill is scanned
+  the lower cluster id, as ``lax.top_k``).  The hand-written kernel K5
+  (:func:`ivf_probe_topk`, ``csrc/ivf_probe.cu``: a probed bucket read
+  once a batch, in place, as int8 ``wgmma``'s operand for the queries
+  that probe it) gives each (query, bucket)'s top k' = min(k, cap) — the
+  JAX package's per-bucket top-k — and K1c (``fused_scan.lex_topk``)
+  takes the top k of those by (dist, row id), equal to the JAX tree merge
+  since a row sits in one bucket.  The spill is scanned
   by the port's exact scan (K1b/K4b + K1c) and K1c merges the two.  On a
   CPU index every kernel is its plain version.
 
@@ -437,32 +438,49 @@ def ivf_from_jax(arrays, device="cuda") -> IVFIndex:
 
 
 # --------------------------------------------------------------------- #
-# K5: the probed buckets' exact distances (csrc/ivf_probe.cu)
+# K5: the probed buckets' top-k (csrc/ivf_probe.cu)
 
 _IVF_KERNELS = None
 _IVF_KERNELS_LOCK = threading.Lock()
 _IVF_SOURCES = ("ivf_probe.cu",)
-#: Bytes of the [Q, nprobe · cap] (dist, id) candidate buffer one block of
-#: queries fills (the probe cuts a batch into query blocks under it).
+#: Bytes of the [Q, nprobe · k'] (dist, id) partials one block of queries
+#: fills (the probe cuts a batch into query blocks under it).
 IVF_PROBE_BYTES = 256 << 20
 _NO_ROW = 2 ** 31 - 1
 #: Element budget of the plain K5's gathered [Q, probes, cap, D] block.
 _PLAIN_PROBE_ELEMS = 1 << 24
-#: Queries one K5 launch takes (its grid's y dimension).
+#: Queries one launch of the first port's K5 takes (its grid's y dimension).
 _MAX_GRID_Y = 65535
+#: (query, probe) pairs of a work item of the tensor-core K5 (its wgmma N;
+#: ``kProbeNQ`` in ``csrc/ivf_probe.cu``).
+IVF_PROBE_NQ = 8
+#: The largest bucket cap the tensor-core K5 selects in (its [NQ, cap] keys
+#: in shared memory; ``kSelectMaxCap``): past it every slot is written.
+IVF_SELECT_MAX_CAP = 2048
+#: The largest bucket cap the tensor-core K5 takes (a bucket's slot meta in
+#: shared memory; ``kTcMaxCap``); larger caps take the first port's kernel.
+IVF_TC_MAX_CAP = 8192
+#: Buckets whose counters the inversion kernel keeps in shared memory
+#: (``kInvertSmemBuckets``); more take a scratch buffer.
+_INVERT_SMEM_BUCKETS = 16384
 
 
 def load_ivf_kernels():
-    """Compile ``csrc/ivf_probe.cu`` (K5 and its gathered mode) for sm_90a
-    into its own library, beside the scan kernels', so that the builds
-    run in parallel.  Raises on any failure — there is no fallback."""
+    """Compile ``csrc/ivf_probe.cu`` (K5, its work list, the first port's
+    K5 and the gathered mode) for sm_90a into its own library, beside the
+    scan kernels', so that the builds run in parallel.  Raises on any
+    failure — there is no fallback."""
     global _IVF_KERNELS
     with _IVF_KERNELS_LOCK:
         if _IVF_KERNELS is None:
             kern = fs.build_library(_IVF_SOURCES, "libpixelbox_ivf_probe")
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            kern.lib.px_ivf_probe_collect.restype = ci
-            kern.lib.px_ivf_probe_collect.argtypes = [vp] * 4 + [cf] + [vp] * 6 + [ci] * 6 + [vp] * 3
+            kern.lib.px_ivf_invert.restype = ci
+            kern.lib.px_ivf_invert.argtypes = [vp, ci, ci, vp, vp, vp]
+            kern.lib.px_ivf_probe_topk.restype = ci
+            kern.lib.px_ivf_probe_topk.argtypes = [vp] * 4 + [cf] + [vp] * 7 + [ci] * 7 + [vp] * 3
+            kern.lib.px_ivf_probe_collect_dp4a.restype = ci
+            kern.lib.px_ivf_probe_collect_dp4a.argtypes = [vp] * 4 + [cf] + [vp] * 6 + [ci] * 6 + [vp] * 3
             kern.lib.px_ivf_gathered_collect.restype = ci
             kern.lib.px_ivf_gathered_collect.argtypes = [vp] * 4 + [cf] + [vp] * 2 + [ci] * 4 + [vp] * 3
             _IVF_KERNELS = kern
@@ -495,53 +513,235 @@ def _check_probe_args(q_codes, q_sum, q_mag2, qr, bids, bucket_data, bucket_sum,
     return dev, qn, d, c, cap
 
 
-def ivf_probe_collect(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data, bucket_sum,
-                      bucket_mag2, bucket_rows, bucket_valid):
-    """K5: the exact distance of every slot of each query's probed buckets.
+def tc_probe_width(d: int, int4: bool, cap: int) -> bool:
+    """Whether the tensor-core K5 takes queries of width d over u8 (or,
+    ``int4``, packed int4) buckets of ``cap`` slots: K1a's and K4a's
+    widths, and caps that are multiples of 4 (the kernel copies a bucket's
+    slot meta 16 bytes at a time; the packs' default caps are multiples of
+    8) up to :data:`IVF_TC_MAX_CAP` (the meta in shared memory)."""
+    return ((d in fs.TC_COSINE4_DIMS if int4 else d in fs.TC_COSINE_DIMS) and cap % 4 == 0
+            and cap <= IVF_TC_MAX_CAP)
+
+
+def shares_buckets(qn: int, nprobe: int, n_clusters: int) -> bool:
+    """Whether the tensor-core K5 inverts the probe list first: where the
+    batch's probes outnumber the buckets (some bucket is likely probed by
+    several queries: each is then read once for them all).  Else every
+    (query, probe) is its own work item — always at Q = 1."""
+    return qn * nprobe > n_clusters
+
+
+def probe_width(k: int, cap: int, d: int, int4: bool) -> int:
+    """Entries per (query, probe) that :func:`ivf_probe_topk` returns: k'
+    = min(k, cap) where the tensor-core K5 selects (its widths, caps up
+    to :data:`IVF_SELECT_MAX_CAP`), else the cap (every slot)."""
+    if tc_probe_width(d, int4, cap) and cap <= IVF_SELECT_MAX_CAP:
+        return max(1, min(int(k), cap))
+    return cap
+
+
+def ivf_probe_topk(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data, bucket_sum,
+                   bucket_mag2, bucket_rows, bucket_valid, k: int):
+    """K5: per (query, probed bucket) the k' smallest (dist, row id) of the
+    bucket's slots, k' = :func:`probe_width`.
 
     ``q_codes`` int8 [Q, D] (u8 − 128) with the u8 moments (``fused_scan.
     _prep``); ``bids`` int32 [Q, P] the probed bucket ids; the buckets as
-    :class:`IVFIndex` holds them (int8 [C, cap, D]: kind "cosine";
-    packed uint8 [C, cap, D/2]: kind "cosine4a").  Returns (dist [Q, P·cap]
-    f32, idx [Q, P·cap] int32): the spec distance and the slot's row id
-    where the slot is valid and ``dist < max_distance``, (+inf, 2^31 − 1)
-    elsewhere, in (probe, slot) order.  K1c then takes the top k.
+    :class:`IVFIndex` holds them (int8 [C, cap, D]: kind "cosine"; packed
+    uint8 [C, cap, D/2]: kind "cosine4a").  A slot's entry is its spec
+    distance and row id where the slot is valid and ``dist <
+    max_distance``.  Returns (dist [Q, P, k'] f32, idx [Q, P, k'] int32):
+    where k' < cap, each (q, p)'s k' smallest by (dist, row id) in slot
+    order, then (+inf, 2^31 − 1); where k' = cap, every slot in place,
+    (+inf, 2^31 − 1) where filtered.  K1c then takes the top k.
 
-    Replaces the distance half of the JAX ``_ivf_probe_topk``
-    (``pixelbox_tpu/ops/ivf.py:498``, XLA, no ``pallas_call``).  On the
-    card ``csrc/ivf_probe.cu`` ``ivf_probe_kernel`` (one block a (bucket,
-    query), the bucket read in place, ``__dp4a``); on the CPU
-    :func:`ivf_probe_collect_plain`."""
+    Replaces the JAX ``_ivf_probe_topk`` up to its tree merge
+    (``pixelbox_tpu/ops/ivf.py:498``, XLA, no ``pallas_call``: a gather,
+    an einsum, ``block_topk``).  On the card where :func:`tc_probe_width`
+    the tensor-core kernel (``csrc/ivf_probe.cu`` ``ivf_probe_tc_kernel``:
+    a work item a (bucket, ≤ :data:`IVF_PROBE_NQ` queries probing it), the
+    bucket read once in place by TMA as int8 ``wgmma``'s A, the select in
+    shared memory), after :func:`ivf_probe_invert` where
+    :func:`shares_buckets`; at other
+    widths the first port's kernel (:func:`ivf_probe_collect_dp4a`,
+    every slot).  On the CPU :func:`ivf_probe_topk_plain`."""
     dev, qn, d, c, cap = _check_probe_args(
         q_codes, q_sum, q_mag2, qr, bids, bucket_data, bucket_sum, bucket_mag2, bucket_rows,
         bucket_valid,
     )
     md = float(np.float32(max_distance))
+    args = (q_codes, q_sum, q_mag2, qr, md, bids, bucket_data, bucket_sum, bucket_mag2,
+            bucket_rows, bucket_valid)
     if dev.type != "cuda":
-        return ivf_probe_collect_plain(q_codes, q_sum, q_mag2, qr, md, bids, bucket_data,
-                                       bucket_sum, bucket_mag2, bucket_rows, bucket_valid)
+        return ivf_probe_topk_plain(*args, k)
+    p = bids.shape[1]
+    int4 = bucket_data.dtype == torch.uint8
+    if not tc_probe_width(d, int4, cap):
+        out_d, out_i = ivf_probe_collect_dp4a(*args)
+        return out_d.reshape(qn, p, cap), out_i.reshape(qn, p, cap)
+    kp = probe_width(k, cap, d, int4)
+    # The kernel reads query rows and copies slot meta 16 bytes at a time.
+    q_codes, bucket_sum, bucket_mag2, bucket_rows, bucket_valid = (
+        t.clone() if t.data_ptr() % 16 else t
+        for t in (q_codes, bucket_sum, bucket_mag2, bucket_rows, bucket_valid))
+    work = ivf_probe_invert(bids, c) if shares_buckets(qn, p, c) else None
+    kern = load_ivf_kernels()
+    out_d = torch.empty((qn, p, kp), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, p, kp), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_ivf_probe_topk(
+            fs._ptr(q_codes), fs._ptr(q_sum), fs._ptr(q_mag2), fs._ptr(qr), md, fs._ptr(bids),
+            ctypes.c_void_p(None if work is None else work.data_ptr()),
+            fs._ptr(bucket_data), fs._ptr(bucket_sum), fs._ptr(bucket_mag2),
+            fs._ptr(bucket_rows), fs._ptr(bucket_valid), qn, p, c, cap, d,
+            fs._KIND_CODES["cosine4a" if int4 else "cosine"], kp,
+            fs._ptr(out_d), fs._ptr(out_i), fs._stream(dev),
+        )
+    fs._check(rc, "ivf_probe_topk")
+    fs.LAUNCHES["ivf_probe_topk"] += 1
+    return out_d, out_i
+
+
+def ivf_probe_topk_plain(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data, bucket_sum,
+                         bucket_mag2, bucket_rows, bucket_valid, k: int):
+    """Plain PyTorch version of :func:`ivf_probe_topk`: the slots'
+    entries of :func:`ivf_probe_collect_plain`; where k' < cap, each (q,
+    p)'s k'-th smallest (dist, row id) key by a sort, the keys at or below
+    it kept in slot order."""
+    qn, d = q_codes.shape
+    p = bids.shape[1]
+    cap = bucket_data.shape[1]
+    dist, idx = ivf_probe_collect_plain(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data,
+                                        bucket_sum, bucket_mag2, bucket_rows, bucket_valid)
+    dist, idx = dist.reshape(qn, p, cap), idx.reshape(qn, p, cap)
+    kp = probe_width(k, cap, d, bucket_data.dtype == torch.uint8)
+    if kp == cap:
+        return dist, idx
+    live = idx != _NO_ROW
+    key = (dist.view(torch.int32).to(torch.int64) << 32) | idx.to(torch.int64)
+    key = torch.where(live, key, torch.full_like(key, torch.iinfo(torch.int64).max))
+    kth = torch.sort(key, dim=-1).values[..., kp - 1 : kp]
+    take = live & (key <= kth)
+    # The taken slots first, in slot order (a stable sort of "not taken").
+    order = torch.sort((~take).to(torch.uint8), dim=-1, stable=True).indices[..., :kp]
+    took = torch.gather(take, -1, order)
+    return (
+        torch.where(took, torch.gather(dist, -1, order), torch.full_like(dist[..., :kp], float("inf"))),
+        torch.where(took, torch.gather(idx, -1, order), torch.full_like(idx[..., :kp], _NO_ROW)),
+    )
+
+
+def ivf_probe_invert(bids, n_clusters: int):
+    """K5's work list: the probe list ``bids`` int32 [Q, P] (pair j = q·P
+    + p) inverted, bucket-major.  Returns int32 [1 + Q·P·(1 +
+    :data:`IVF_PROBE_NQ`)]: entry 0 the number of work items, then per item
+    its bucket (-1 for ids outside [0, n_clusters)) and up to
+    :data:`IVF_PROBE_NQ` pair ids (-1 past them); items in bucket order,
+    each bucket's pairs over ceil(count / NQ) items, all full but its last.
+
+    On the card one block (``csrc/ivf_probe.cu`` ``ivf_invert_kernel``: a
+    counting sort by bucket in shared memory), whose pairs within a bucket
+    follow its atomics' order; on the CPU :func:`ivf_probe_invert_plain`
+    (ascending pair ids).  :func:`probe_work_pairs` compares the two."""
+    dev = bids.device
+    m = bids.numel()
+    fs._require(bids, "bids", torch.int32, tuple(bids.shape), dev)
+    if dev.type != "cuda":
+        return ivf_probe_invert_plain(bids, n_clusters)
+    kern = load_ivf_kernels()
+    work = torch.empty((1 + m * (1 + IVF_PROBE_NQ),), dtype=torch.int32, device=dev)
+    scratch = None
+    if n_clusters + 1 > _INVERT_SMEM_BUCKETS:
+        scratch = torch.empty((2 * (n_clusters + 1),), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kern.lib.px_ivf_invert(
+            fs._ptr(bids), m, int(n_clusters),
+            ctypes.c_void_p(None if scratch is None else scratch.data_ptr()), fs._ptr(work),
+            fs._stream(dev),
+        )
+    fs._check(rc, "ivf_probe_invert")
+    fs.LAUNCHES["ivf_probe_invert"] += 1
+    return work
+
+
+def ivf_probe_invert_plain(bids, n_clusters: int):
+    """Plain PyTorch version of :func:`ivf_probe_invert`: a stable sort of
+    the pairs by bucket; a bucket's pairs ascend."""
+    nq = IVF_PROBE_NQ
+    flat = bids.reshape(-1).long()
+    m = flat.numel()
+    slot = torch.where((flat >= 0) & (flat < n_clusters), flat, torch.full_like(flat, n_clusters))
+    order = torch.sort(slot, stable=True).indices
+    sb = slot[order]
+    counts = torch.bincount(slot, minlength=n_clusters + 1)
+    items = (counts + nq - 1) // nq
+    first_item = torch.cumsum(items, 0) - items
+    rank = torch.arange(m, device=bids.device) - (torch.cumsum(counts, 0) - counts)[sb]
+    item = first_item[sb] + torch.div(rank, nq, rounding_mode="floor")
+    work = torch.full((1 + m * (1 + nq),), -1, dtype=torch.int32, device=bids.device)
+    work[0] = int(items.sum())
+    recs = work[1:].view(m, 1 + nq)
+    recs[item, 0] = torch.where(sb < n_clusters, sb, torch.full_like(sb, -1)).to(torch.int32)
+    recs[item, 1 + rank % nq] = order.to(torch.int32)
+    return work
+
+
+def probe_work_pairs(work):
+    """A work list in canonical form: (the items' buckets [n], their pair
+    counts [n], (bucket, pair id) of every pair sorted [Q·P, 2]) — equal
+    for two lists that differ only in the order of a bucket's pairs."""
+    n = int(work[0])
+    recs = work[1:].reshape(-1, 1 + IVF_PROBE_NQ)[:n].long()
+    pairs = recs[:, 1:]
+    live = pairs >= 0
+    b = recs[:, :1].expand_as(pairs)[live]
+    p = pairs[live]
+    order = torch.argsort(b * (p.max() + 1 if p.numel() else 1) + p)
+    return recs[:, 0], live.sum(1), torch.stack([b[order], p[order]], 1)
+
+
+def ivf_probe_collect_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data,
+                           bucket_sum, bucket_mag2, bucket_rows, bucket_valid):
+    """The first port's K5, for CUDA tensors only: the exact distance of
+    every slot of each query's probed buckets, (dist [Q, P·cap] f32, idx
+    [Q, P·cap] int32), the slot's row id where the slot is valid and
+    ``dist < max_distance``, (+inf, 2^31 − 1) elsewhere, in (probe, slot)
+    order.  ``csrc/ivf_probe.cu`` ``ivf_probe_dp4a_kernel`` (one block a
+    (bucket, query), the bucket read in place, ``__dp4a``): the path of
+    :func:`ivf_probe_topk` at the widths the tensor-core kernel does not
+    take, and its timing reference.  Its plain version is
+    :func:`ivf_probe_collect_plain`."""
+    dev, qn, d, c, cap = _check_probe_args(
+        q_codes, q_sum, q_mag2, qr, bids, bucket_data, bucket_sum, bucket_mag2, bucket_rows,
+        bucket_valid,
+    )
+    if dev.type != "cuda":
+        raise ValueError("ivf_probe_collect_dp4a runs on the card; its plain version is "
+                         "ivf_probe_collect_plain")
+    md = float(np.float32(max_distance))
     p = bids.shape[1]
     kern = load_ivf_kernels()
     out_d = torch.empty((qn, p * cap), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, p * cap), dtype=torch.int32, device=dev)
     kind = fs._KIND_CODES["cosine4a" if bucket_data.dtype == torch.uint8 else "cosine"]
     with torch.cuda.device(dev):
-        rc = kern.lib.px_ivf_probe_collect(
+        rc = kern.lib.px_ivf_probe_collect_dp4a(
             fs._ptr(q_codes), fs._ptr(q_sum), fs._ptr(q_mag2), fs._ptr(qr), md, fs._ptr(bids),
             fs._ptr(bucket_data), fs._ptr(bucket_sum), fs._ptr(bucket_mag2),
             fs._ptr(bucket_rows), fs._ptr(bucket_valid), qn, p, c, cap, d, kind,
             fs._ptr(out_d), fs._ptr(out_i), fs._stream(dev),
         )
-    fs._check(rc, "ivf_probe_collect")
-    fs.LAUNCHES["ivf_probe_collect"] += 1
+    fs._check(rc, "ivf_probe_collect_dp4a")
+    fs.LAUNCHES["ivf_probe_collect_dp4a"] += 1
     return out_d, out_i
 
 
 def ivf_probe_collect_plain(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data,
                             bucket_sum, bucket_mag2, bucket_rows, bucket_valid):
-    """Plain PyTorch version of K5: the probed buckets gathered in blocks
-    of probes, an exact float64 code dot, the kind's affine fix and the
-    spec epilogue (``fused_scan._spec_epilogue``, op for op the kernel's)."""
+    """Plain PyTorch version of the first port's K5: the probed buckets
+    gathered in blocks of probes, an exact float64 code dot, the kind's
+    affine fix and the spec epilogue (``fused_scan._spec_epilogue``, op for
+    op the kernels')."""
     qn, d = q_codes.shape
     p = bids.shape[1]
     cap = bucket_data.shape[1]
@@ -573,7 +773,7 @@ def ivf_probe_collect_plain(q_codes, q_sum, q_mag2, qr, max_distance, bids, buck
 def ivf_gathered_collect(q_codes, q_sum, q_mag2, qr, max_distance, cand, rows_u8):
     """K5's gathered mode: the exact u8 distance of per-query candidate
     rows.  ``cand`` int32 [Q, M] row ids into ``rows_u8`` uint8 [N, D]
-    (ids outside [0, N) are empty); queries as :func:`ivf_probe_collect`
+    (ids outside [0, N) are empty); queries as :func:`ivf_probe_topk`
     (u8 codes and moments).  Returns (dist [Q, M] f32, idx [Q, M] int32):
     the spec distance and the id where ``dist < max_distance``, (+inf,
     2^31 − 1) elsewhere; the row moments are computed from the bytes.
@@ -647,22 +847,24 @@ def probe_order(query_u8: torch.Tensor, centroids: torch.Tensor, nprobe: int) ->
 
 
 def _ivf_probe_topk(query_u8, prep, ivf: IVFIndex, k: int, nprobe: int, max_distance):
-    """Probe ``nprobe`` buckets a query; exact distances within them (K5),
-    top k by (dist, row id) (K1c), in query blocks whose candidate buffer
-    stays under :data:`IVF_PROBE_BYTES`.  ``prep`` is ``fused_scan._prep``
-    of the queries.  [Q, k] sorted, +inf / -1 empty."""
+    """Probe ``nprobe`` buckets a query; each (query, bucket)'s k' smallest
+    (K5), then the top k of their [Q, nprobe · k'] by (dist, row id) (K1c),
+    in query blocks whose partials stay under :data:`IVF_PROBE_BYTES`.
+    ``prep`` is ``fused_scan._prep`` of the queries.  [Q, k] sorted, +inf
+    / -1 empty."""
     qn = query_u8.shape[0]
     q_codes, q_sum, q_mag2, qr = prep
     bids = probe_order(query_u8, ivf.centroids, nprobe)
-    step = max(1, min(_MAX_GRID_Y, IVF_PROBE_BYTES // (8 * nprobe * ivf.bucket_cap)))
+    kp = probe_width(k, ivf.bucket_cap, q_codes.shape[1], ivf.kind == "cosine4a")
+    step = max(1, min(_MAX_GRID_Y, IVF_PROBE_BYTES // (8 * nprobe * kp)))
     outs = []
     for s in range(0, qn, step):
         e = min(qn, s + step)
-        dist, idx = ivf_probe_collect(
+        dist, idx = ivf_probe_topk(
             q_codes[s:e], q_sum[s:e], q_mag2[s:e], qr[s:e], max_distance, bids[s:e],
-            ivf.bucket_data, ivf.bucket_sum, ivf.bucket_mag2, ivf.bucket_rows, ivf.bucket_valid,
+            ivf.bucket_data, ivf.bucket_sum, ivf.bucket_mag2, ivf.bucket_rows, ivf.bucket_valid, k,
         )
-        outs.append(fs.lex_topk(dist, idx, k))
+        outs.append(fs.lex_topk(dist.reshape(e - s, -1), idx.reshape(e - s, -1), k))
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 

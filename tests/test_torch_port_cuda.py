@@ -910,7 +910,8 @@ def test_sample_theta_other_widths_take_the_chunk_kernels(kind, width):
 
 
 # --------------------------------------------------------------------- #
-# K5 (ivf_probe_collect, csrc/ivf_probe.cu) and the scans' k past MAX_K
+# K5 (ivf_probe_topk and its work list, csrc/ivf_probe.cu; the first
+# port's ivf_probe_collect_dp4a) and the scans' k past MAX_K
 
 
 def _ivf(precision, dev, n=6000, d=128, c=40, cap=96):
@@ -920,7 +921,9 @@ def _ivf(precision, dev, n=6000, d=128, c=40, cap=96):
     centers = rng.normal(size=(12, d)) * 40.0
     rows = np.clip(centers[rng.integers(0, 12, n)] + rng.normal(size=(n, d)) * 10 + 128, 0, 255)
     rows = rows.astype(np.uint8)
+    rows[n - 40 :] = rows[5]  # copies: ties inside one bucket
     valid = rng.uniform(size=n) > 0.02
+    valid[5] = True
     cents = ivf.spherical_kmeans(rows, valid, c, iters=4, seed=0, device=dev)
     index = ivf.build_ivf(rows, valid, cents, bucket_cap=cap, precision=precision, device=dev)
     # One bucket with every slot invalid.
@@ -928,6 +931,7 @@ def _ivf(precision, dev, n=6000, d=128, c=40, cap=96):
     bv[3] = False
     q = rows[rng.integers(0, n, 9)].copy()
     q[0] = rng.integers(0, 256, d)
+    q[1] = rows[5]
     return index._replace(bucket_valid=bv), rows, valid, torch.from_numpy(q).to(dev)
 
 
@@ -943,12 +947,66 @@ def test_ivf_probe_collect_matches_plain(precision):
         args = (qc, qs, qm, qr, md, bids, index.bucket_data, index.bucket_sum, index.bucket_mag2,
                 index.bucket_rows, index.bucket_valid)
         fs.reset_launch_counts()
-        got = ivf.ivf_probe_collect(*args)
+        got = ivf.ivf_probe_collect_dp4a(*args)
         torch.cuda.synchronize()
-        assert fs.launch_counts()["ivf_probe_collect"] == 1
+        assert fs.launch_counts()["ivf_probe_collect_dp4a"] == 1
         want = ivf.ivf_probe_collect_plain(*args)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert bool(torch.isfinite(got[0]).any())
+
+
+@pytest.mark.parametrize("precision,d", [("u8", 32), ("u8", 64), ("u8", 128), ("int4", 128)])
+def test_ivf_probe_topk_matches_plain(precision, d):
+    """The tensor-core K5 = its plain version (torch.equal) at k < cap, k =
+    cap and k > cap, with and without a work list, a max_distance cut,
+    ties inside a bucket, partly filled and empty buckets, and a batch of
+    equal queries (a bucket probed by more queries than a work item holds);
+    the first port's kernel is not launched."""
+    from pixelbox_tpu_torch.ops import ivf
+
+    dev = _card()
+    index, _, _, q = _ivf(precision, dev, d=d, cap=160)
+    fill = index.bucket_valid.sum(1)
+    assert int(fill.max()) == 160 and 0 < int(fill[fill > 0].min()) < 160
+    batches = (q, q[:1], q[1:2].repeat(20, 1))
+    for qb in batches:
+        qc, qs, qm, qr = fs._prep(qb)
+        for nprobe, k, md in ((1, 10, 1e3), (7, 50, 0.05), (7, 160, 1e3), (12, 300, 1e3),
+                              (index.n_clusters, 100, 1e3)):
+            bids = ivf.probe_order(qb, index.centroids, nprobe)
+            args = (qc, qs, qm, qr, md, bids, index.bucket_data, index.bucket_sum, index.bucket_mag2,
+                    index.bucket_rows, index.bucket_valid)
+            fs.reset_launch_counts()
+            got = ivf.ivf_probe_topk(*args, k)
+            torch.cuda.synchronize()
+            counts = fs.launch_counts()
+            assert counts["ivf_probe_topk"] == 1 and counts["ivf_probe_collect_dp4a"] == 0
+            assert counts["ivf_probe_invert"] == int(ivf.shares_buckets(len(qb), nprobe, index.n_clusters))
+            want = ivf.ivf_probe_topk_plain(*args, k)
+            assert got[0].shape == (len(qb), nprobe, min(k, 160))
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert md < 1 or bool(torch.isfinite(got[0]).any())
+
+
+def test_ivf_probe_invert_matches_plain():
+    """The work-list kernel = its plain version up to the order of a
+    bucket's pairs, with ids outside [0, C) and one bucket probed by every
+    query."""
+    from pixelbox_tpu_torch.ops import ivf
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    for qn, p, c in ((2, 3, 5), (256, 82, 4094), (300, 20, 20000)):
+        bids = rng.integers(0, c, (qn, p)).astype(np.int32)
+        bids[:, 0] = 1
+        bids[0, -1], bids[-1, -1] = -1, c
+        bt = torch.from_numpy(bids)
+        fs.reset_launch_counts()
+        got = ivf.ivf_probe_invert(bt.to(dev), c)
+        assert fs.launch_counts()["ivf_probe_invert"] == 1
+        want = ivf.ivf_probe_invert_plain(bt, c)
+        for a, b in zip(ivf.probe_work_pairs(got.cpu()), ivf.probe_work_pairs(want)):
+            assert torch.equal(a, b)
 
 
 def test_ivf_gathered_collect_matches_plain():
@@ -980,7 +1038,8 @@ def test_ivf_scan_on_the_card_matches_cpu_and_exact(precision):
     for nprobe, k in ((None, 100), (5, 300), (index.n_clusters, 50)):
         fs.reset_launch_counts()
         got = ivf.ivf_scan_topk(q, index, k=k, nprobe=nprobe)
-        assert fs.launch_counts()["ivf_probe_collect"] > 0
+        counts = fs.launch_counts()
+        assert counts["ivf_probe_topk"] > 0 and counts["ivf_probe_collect_dp4a"] == 0
         want = ivf.ivf_scan_topk(q.cpu(), cpu, k=k, nprobe=nprobe)
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     full = ivf.build_ivf(rows, valid, index.centroids.cpu().numpy(), bucket_cap=96, precision=precision,

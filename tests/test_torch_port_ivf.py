@@ -318,6 +318,189 @@ def test_sharded_full_nprobe_equals_one_device(lib, precision):
 
 
 # --------------------------------------------------------------------- #
+# K5: the per-bucket top-k' (ivf_probe_topk) and its work list
+
+
+@pytest.fixture(scope="module")
+def probe_lib():
+    """A D = 128 library (the tensor-core widths of both packings) of 8
+    clusters at cap 96: full buckets with a spill beside partly filled
+    ones; 30 copies of one row (ties at the k-th inside its bucket); ten
+    equal queries (one bucket probed by more queries than a work item
+    holds) and two others."""
+    rng = np.random.default_rng(21)
+    rows, _ = clustered(rng, 640, 128, n_blobs=8, spread=10.0)
+    rows[600:630] = rows[3]
+    valid = np.ones(len(rows), dtype=bool)
+    valid[::41] = False
+    valid[3] = True
+    cents = jivf.spherical_kmeans(rows, valid, 8, iters=5, seed=0)
+    q = np.concatenate([np.repeat(rows[3:4], 10, 0), rows[[17, 250]]])
+    return {"rows": rows, "valid": valid, "cents": cents, "q": q}
+
+
+@pytest.mark.parametrize("precision", ["u8", "int4"])
+def test_probe_topk_plain_matches_jax_and_the_first_port(probe_lib, precision):
+    """ivf_probe_topk_plain + K1c = the JAX ``_ivf_probe_topk`` and the
+    first port's every-slot probe + K1c, bit for bit, at k < cap, k = cap
+    and k > cap, with an emptied bucket and a max_distance cut."""
+    nprobe = 3
+    q = probe_lib["q"]
+    assert_no_probe_ties(q, probe_lib["cents"], nprobe)
+    jidx = jivf.build_ivf(probe_lib["rows"], probe_lib["valid"], probe_lib["cents"], bucket_cap=96,
+                          precision=precision)
+    tidx = tivf.ivf_from_jax(as_np(jidx), device="cpu")
+    qt = torch.from_numpy(q)
+    bids = tivf.probe_order(qt, tidx.centroids, nprobe)
+    fill = tidx.bucket_valid.sum(1)
+    assert int(fill.max()) == 96 and 0 < int(fill.min()) < 96 and tidx.spill_count > 0
+    empty = int(bids[-1, 1])  # a probed bucket, emptied
+    tidx = tidx._replace(bucket_valid=tidx.bucket_valid.index_fill(0, torch.tensor([empty]), False))
+    jidx = jidx._replace(bucket_valid=jnp.asarray(tidx.bucket_valid.numpy()))
+    assert torch.bincount(bids.flatten().long()).max() > tivf.IVF_PROBE_NQ
+    prep = tfs._prep(qt)
+    for k, md in ((10, 1e3), (10, 0.02), (96, 1e3), (120, 0.05)):
+        args = (*prep, md, bids, tidx.bucket_data, tidx.bucket_sum, tidx.bucket_mag2,
+                tidx.bucket_rows, tidx.bucket_valid)
+        d, i = tivf.ivf_probe_topk(*args, k)
+        kp = min(k, 96)
+        assert d.shape == (len(q), nprobe, kp)
+        got = tfs.lex_topk(d.reshape(len(q), -1), i.reshape(len(q), -1), k)
+        old = tivf.ivf_probe_collect_plain(*args)
+        want = tfs.lex_topk(*old, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        jd, ji = (np.asarray(x) for x in jivf._ivf_probe_topk(q, jidx, k, nprobe, md))
+        ji = np.where(np.isfinite(jd), ji, -1)
+        assert np.array_equal(got[0].numpy(), jd) and np.array_equal(got[1].numpy(), ji)
+        if kp < 96:  # the selected entries: (dist, row id) keys in slot order, then empties
+            live = i != 2 ** 31 - 1
+            assert torch.equal(live, torch.isfinite(d))
+            assert bool((live[..., 1:] <= live[..., :-1]).all())
+            assert not bool(live[-1, 1].any())
+        assert bool(torch.isfinite(got[0]).any())
+
+
+def test_probe_work_list_covers_each_pair_once():
+    """ivf_probe_invert: every (query, probe) pair in exactly one work item,
+    items grouped by bucket in bucket order (ids outside [0, C) last, as
+    bucket -1), at most IVF_PROBE_NQ pairs an item, all but a bucket's last
+    item full."""
+    nq = tivf.IVF_PROBE_NQ
+    rng = np.random.default_rng(3)
+    c = 7
+    bids = rng.integers(0, c, (13, 5)).astype(np.int32)
+    bids[:11, 0] = 2  # one bucket probed by 11 queries
+    bids[4, 3], bids[9, 1] = -1, c
+    work = tivf.ivf_probe_invert(torch.from_numpy(bids), c)
+    n = int(work[0])
+    recs = work[1:].reshape(-1, 1 + nq)[:n].numpy()
+    flat = bids.reshape(-1)
+    slot = np.where((flat >= 0) & (flat < c), flat, c)
+    counts = np.bincount(slot, minlength=c + 1)
+    assert n == int(((counts + nq - 1) // nq).sum())
+    pairs = recs[:, 1:]
+    lens = (pairs >= 0).sum(1)
+    assert (lens >= 1).all() and (lens <= nq).all()
+    assert sorted(pairs[pairs >= 0].tolist()) == list(range(flat.size))
+    for rec, ln in zip(recs, lens):
+        assert (pairs_of := rec[1 : 1 + ln]).size == ln and (rec[1 + ln :] == -1).all()
+        assert all(slot[j] == (rec[0] if rec[0] >= 0 else c) for j in pairs_of)
+    order = np.where(recs[:, 0] >= 0, recs[:, 0], c)
+    assert (np.diff(order) >= 0).all()
+    for b in range(c + 1):
+        ln = lens[order == b]
+        assert ln.sum() == counts[b] and (ln[:-1] == nq).all()
+    buckets, got_lens, pb = tivf.probe_work_pairs(work)
+    assert np.array_equal(buckets.numpy(), recs[:, 0]) and np.array_equal(got_lens.numpy(), lens)
+    assert pb.shape == (flat.size, 2) and bool((pb[1:, 0] >= pb[:-1, 0]).all())
+
+
+def _select_bins_model(bits, rows, kp):
+    """The tensor-core K5's per-(query, bucket) select (``csrc/ivf_probe.cu``
+    ``select_bins``), step for step: the passing keys' distance bits
+    (0xffffffff where the slot did not pass) and row ids; returns the mask
+    of the k' keys it takes (its path for many copies of one distance, the
+    radix select of 64-bit keys, as the sort that it equals)."""
+    live = bits != 0xFFFFFFFF
+    keys = (bits << 32) | rows
+    take = live.copy()
+    if int(live.sum()) <= kp:
+        return take
+    lo, hi = int(bits[live].min()), int(bits[live].max())
+    base, width = lo, hi - lo + 1
+    sh = max(0, int(width - 1).bit_length() - 8)
+
+    def digit(i):
+        off = int(bits[i]) - base
+        return off >> sh if live[i] and 0 <= off < width else -1
+
+    r = kp
+    while True:
+        dg = np.array([digit(i) for i in range(len(bits))])
+        hist = np.bincount(dg[dg >= 0], minlength=256)
+        cum = np.cumsum(hist)
+        kbin = int(np.searchsorted(cum, r))
+        r, m = r - int(cum[kbin] - hist[kbin]), int(hist[kbin])
+        if r == m:
+            tau = None
+            break
+        if m <= 32:
+            tau = np.sort(keys[dg == kbin])[r - 1]
+            break
+        if sh == 0:  # ties: the radix select of the 64-bit keys
+            take[:] = False
+            idx = np.flatnonzero(live)
+            take[idx[np.argsort(keys[idx])[:kp]]] = True
+            return take
+        base += kbin << sh
+        width, sh = 1 << sh, max(0, sh - 8)
+    for i in np.flatnonzero(live):
+        d = digit(i)
+        take[i] = bits[i] < base or 0 <= d < kbin or (d == kbin and (tau is None or keys[i] <= tau))
+    return take
+
+
+def test_probe_select_model_matches_sort():
+    """The kernel's select, modelled: the k' smallest (dist, row id) keys of
+    a bucket, as a sort gives them — with far distances (up to
+    max_distance), ties on one distance (more than a bin's 32 keys), zero
+    distances and filtered slots."""
+    rng = np.random.default_rng(11)
+    for trial in range(60):
+        cap = int(rng.choice([64, 96, 160, 512]))
+        kp = int(rng.integers(1, cap))
+        dist = rng.gamma(2.0, 0.3, cap).astype(np.float32)
+        if trial % 3 == 0:
+            dist[rng.integers(0, cap, 5)] = rng.uniform(100, 999, 5).astype(np.float32)
+        if trial % 4 == 0:
+            dist[rng.integers(0, cap, cap // 3)] = np.float32(0.5)
+        if trial % 5 == 0:
+            dist[:] = np.float32(0.25)
+        if trial % 7 == 0:
+            dist[rng.integers(0, cap, 3)] = 0.0
+        bits = dist.view(np.uint32).astype(np.int64)
+        bits[rng.uniform(size=cap) < 0.3] = 0xFFFFFFFF
+        rows = rng.permutation(1 << 20)[:cap].astype(np.int64)
+        keys = (bits << 32) | rows
+        want = np.zeros(cap, dtype=bool)
+        live = np.flatnonzero(bits != 0xFFFFFFFF)
+        want[live[np.argsort(keys[live])[:kp]]] = True
+        assert np.array_equal(_select_bins_model(bits, rows, kp), want), trial
+
+
+def test_probe_width():
+    assert tivf.probe_width(100, 512, 128, False) == 100
+    assert tivf.probe_width(100, 512, 128, True) == 100
+    assert tivf.probe_width(700, 512, 64, False) == 512
+    assert tivf.probe_width(100, 512, 48, False) == 512   # the first port's width: every slot
+    assert tivf.probe_width(100, 512, 32, True) == 512
+    assert tivf.probe_width(100, 510, 128, False) == 510  # a cap the kernel's 16-byte copies do not take
+    assert tivf.probe_width(100, tivf.IVF_SELECT_MAX_CAP + 8, 128, False) == tivf.IVF_SELECT_MAX_CAP + 8
+    assert tivf.tc_probe_width(128, False, tivf.IVF_TC_MAX_CAP)
+    assert not tivf.tc_probe_width(128, False, tivf.IVF_TC_MAX_CAP + 8)
+
+
+# --------------------------------------------------------------------- #
 # k past 1,024: every auto scan answers what the JAX package answers
 
 
