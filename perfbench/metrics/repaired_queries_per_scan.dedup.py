@@ -1,0 +1,11 @@
+"""Queries a scan call's threshold pass could not prove and re-scanned:
+the program's ``repaired_queries`` counter over its ``dedup.scan`` count
+(pixelbox_tpu_torch/utils/timing.py, read by
+:func:`perfbench.program_spans.scan_split`).  The whole run, warm-up
+included; None where the program has no such span."""
+
+from perfbench.program_spans import read as _read
+
+
+def read(trace):
+    return _read("repaired_queries_per_scan.dedup")

@@ -392,8 +392,6 @@ def main(argv=None) -> int:
             )
             print(json.dumps(info, indent=2))
         elif args.cmd == "stats":
-            from pixelbox_tpu_torch.utils.timing import get_stats
-
             print(
                 json.dumps(
                     {
@@ -407,7 +405,6 @@ def main(argv=None) -> int:
                         "phash_compat": engine.phash_compat,
                         "phash_dim": engine._ph_store.dim if engine._ph_store else None,
                         "device": str(engine.device),
-                        "timings": get_stats(),
                     },
                     indent=2,
                 )

@@ -64,7 +64,7 @@ from pixelbox_tpu_torch.serving import (
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.utils.device import resolve_device
 from pixelbox_tpu_torch.utils.rwlock import RWLock
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import span
 
 DEFAULT_MAX_QUERY_DISTANCE = 1e3  # engine.rs:23
 DEFAULT_MAX_SEARCH_RESULTS = 100  # engine.rs:24
@@ -434,34 +434,38 @@ class Engine(SemanticServing, IvfServing, PhashServing, DuplicateFinding, WatchM
         """Append the new images' semantic hashes and phashes to the device
         stores, one store append each (the JAX engine's single-record
         ``_append_hashes``, taken a batch at a time; None entries are
-        skipped).  Call under the index write lock."""
-        sem = [(i, h) for i, h in zip(image_ids, visual_hashes) if h is not None]
-        if sem:
-            if self._sem_store is None:
-                self._sem_store = self._new_sem_store(len(sem[0][1]))
-            row_ids = self._sem_store.append(np.stack([h for _, h in sem]))
-            for (img_id, _), row in zip(sem, row_ids):
-                self._sem_image_ids.append(img_id)
-                self._sem_row_by_image[img_id] = int(row)
-        ph = [(i, h) for i, h in zip(image_ids, phashes) if h is not None]
-        if ph:
-            if self._ph_store is None:
-                self._ph_store = VectorStore(
-                    dim=len(ph[0][1]), kind="hamming", device=self.device
-                )
-            # Never truncate: a wider hash grows the whole store
-            # (existing rows zero-pad; true widths stay recorded).
-            w = max(self._ph_store.dim, max(len(h) for _, h in ph))
-            if w > self._ph_store.dim:
-                self._ph_store.grow_dim(w)
-            mat = np.zeros((len(ph), w), dtype=np.uint8)
-            for j, (_, h) in enumerate(ph):
-                mat[j, : len(h)] = h
-            row_ids = self._ph_store.append(mat)
-            for (img_id, h), row in zip(ph, row_ids):
-                self._ph_image_ids.append(img_id)
-                self._ph_widths.append(len(h))
-                self._ph_row_by_image[img_id] = int(row)
+        skipped).  Call under the index write lock.  Spans:
+        ``engine.append``, with ``append.semantic`` and ``append.phash``."""
+        with span("engine.append"):
+            sem = [(i, h) for i, h in zip(image_ids, visual_hashes) if h is not None]
+            if sem:
+                with span("append.semantic"):
+                    if self._sem_store is None:
+                        self._sem_store = self._new_sem_store(len(sem[0][1]))
+                    row_ids = self._sem_store.append(np.stack([h for _, h in sem]))
+                    for (img_id, _), row in zip(sem, row_ids):
+                        self._sem_image_ids.append(img_id)
+                        self._sem_row_by_image[img_id] = int(row)
+            ph = [(i, h) for i, h in zip(image_ids, phashes) if h is not None]
+            if ph:
+                with span("append.phash"):
+                    if self._ph_store is None:
+                        self._ph_store = VectorStore(
+                            dim=len(ph[0][1]), kind="hamming", device=self.device
+                        )
+                    # Never truncate: a wider hash grows the whole store
+                    # (existing rows zero-pad; true widths stay recorded).
+                    w = max(self._ph_store.dim, max(len(h) for _, h in ph))
+                    if w > self._ph_store.dim:
+                        self._ph_store.grow_dim(w)
+                    mat = np.zeros((len(ph), w), dtype=np.uint8)
+                    for j, (_, h) in enumerate(ph):
+                        mat[j, : len(h)] = h
+                    row_ids = self._ph_store.append(mat)
+                    for (img_id, h), row in zip(ph, row_ids):
+                        self._ph_image_ids.append(img_id)
+                        self._ph_widths.append(len(h))
+                        self._ph_row_by_image[img_id] = int(row)
 
     # ------------------------------------------------------------------ #
     # Record construction (indexed_image.rs:35-91)
@@ -521,7 +525,7 @@ class Engine(SemanticServing, IvfServing, PhashServing, DuplicateFinding, WatchM
             self._embed_batch_size = b
         if frame is None:
             frame = fill_resize_u8(rgb, self.embedder.input_size)
-        with timed("engine.query_embed"):
+        with span("engine.query_embed"):
             frames = np.zeros((b,) + frame.shape, dtype=np.uint8)
             frames[0] = frame
             stacked = _normalize_frames(torch.from_numpy(frames).to(self.embedder.device))
@@ -748,7 +752,7 @@ class Engine(SemanticServing, IvfServing, PhashServing, DuplicateFinding, WatchM
             # subset; NO distance threshold on this path (engine.rs:294-315).
             int4 = self.semantic_precision == "int4"
             q_u8 = np.asarray(sim.visual_hash, dtype=np.uint8)
-            with timed("engine.text_query_scan"):
+            with span("engine.text_query_scan"):
                 if len(rows) > 16384:
                     # Broad filter: one exact device scan with the filter
                     # folded into the validity mask — of the sharded

@@ -37,7 +37,7 @@ from pixelbox_tpu_torch.ops import phash as phash_ops
 from pixelbox_tpu_torch.ops.preprocess import fill_resize_u8_with_big
 from pixelbox_tpu_torch.ops.quantize import quantize_embedding
 from pixelbox_tpu_torch.records import IndexedImage
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import span
 
 PARALLEL_FILE_PROCESSORS = 4  # engine.rs:22
 MAX_PENDING_TX = 128          # crawler.rs:8
@@ -226,7 +226,7 @@ class IngestPipeline:
         if embedder is None:
             hashes = [None] * m  # tags-only mode: no semantic hashes
         else:
-            with timed("ingest.embed_batch"):
+            with span("ingest.embed_batch"):
                 frames_u8 = torch.from_numpy(
                     self._pad_batch(np.stack([it.preprocessed for it in batch]))
                 ).to(embedder.device)

@@ -138,6 +138,7 @@ from pixelbox_tpu_torch.ops.packed import (
     query4_moments_from_u8,
     query_moments_from_u8,
 )
+from pixelbox_tpu_torch.utils.timing import bump, span
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("fused_scan.cu",)
@@ -2031,10 +2032,19 @@ def _tc_sample_theta(qk, smp, max_distance, j: int, plan=None):
     return out[1]
 
 
-def _as_queries(query_u8, device) -> Tuple[torch.Tensor, bool]:
+def _as_queries(query_u8, device, stage=None) -> Tuple[torch.Tensor, bool]:
     """u8 queries [Q, D] (or [D], promoted) on ``device``; the flag says
-    whether the caller should squeeze its results back to one query."""
+    whether the caller should squeeze its results back to one query.  A
+    copy between host memory and a card is a host sync (from pageable
+    memory it waits for the card's queue), counted in the caller's open
+    span ``stage`` where one is given."""
     q = query_u8 if torch.is_tensor(query_u8) else torch.as_tensor(np.asarray(query_u8))
+    to = device.type if isinstance(device, torch.device) else torch.device(device).type
+    if q.device.type != to:
+        if stage is None:
+            bump("host_syncs")
+        else:
+            stage.syncs += 1
     q = q.to(device=device, dtype=torch.uint8)
     squeeze = q.ndim == 1
     return (q[None, :] if squeeze else q), squeeze
@@ -2058,24 +2068,28 @@ def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap, epi
     if target_count is None:
         target_count = max(16 * k // 5, 256)
     j = min(s, max(1, -(-target_count * s // n_pad)))
-    theta_j = qk.widen(sample_theta(qk, smp, max_distance, j))
-    theta = torch.minimum(theta_j, md).contiguous()
-    unbound = ~(theta_j < md)
     if cap is None:
         cap = max(4096, topk_ops._next_pow2(8 * target_count))
-    if epilogue == "cos":
-        count, _, cand_i = qk.coskey_collect(cos_key_threshold(theta), data, meta, cap)
-        lens = torch.clamp(count, max=cap)
-        cand_d = qk.rescore(theta, data, meta, lens, cand_i)
-    else:
-        count, cand_d, cand_i = qk.collect(theta, data, meta, cap)
-        lens = torch.clamp(count, max=cap)
-    best_d, best_i = lex_topk(cand_d, cand_i, k, lens=lens)
-    # count <= cap: every row passing the filter (dist: exactly the θ rows;
-    # cos: a superset of them, the rest now +inf) was collected, so the
-    # collected top-k is the true top-k when k rows pass θ (the k-th
-    # distance is finite) or when θ is unbound (the WHERE-clause result).
-    exact = (count <= cap) & (torch.isfinite(best_d[:, k - 1]) | unbound)
+    with span("scan.theta") as stage:
+        theta_j = qk.widen(sample_theta(qk, smp, max_distance, j))
+        theta = torch.minimum(theta_j, md).contiguous()
+        unbound = ~(theta_j < md)
+        stage.then("scan.collect")
+        if epilogue == "cos":
+            count, _, cand_i = qk.coskey_collect(cos_key_threshold(theta), data, meta, cap)
+            lens = torch.clamp(count, max=cap)
+            cand_d = qk.rescore(theta, data, meta, lens, cand_i)
+        else:
+            count, cand_d, cand_i = qk.collect(theta, data, meta, cap)
+            lens = torch.clamp(count, max=cap)
+        stage.then("scan.select")
+        best_d, best_i = lex_topk(cand_d, cand_i, k, lens=lens)
+        # count <= cap: every row passing the filter (dist: exactly the θ
+        # rows; cos: a superset of them, the rest now +inf) was collected,
+        # so the collected top-k is the true top-k when k rows pass θ (the
+        # k-th distance is finite) or when θ is unbound (the WHERE-clause
+        # result).
+        exact = (count <= cap) & (torch.isfinite(best_d[:, k - 1]) | unbound)
     return best_d, best_i, exact
 
 
@@ -2150,10 +2164,9 @@ def fused_threshold_scan_topk(
     collected top-k the true top-k.  Use via
     ``ops.scan.cosine_scan_topk_auto``, which repairs unproven queries.
     """
-    q, squeeze = _as_queries(query_u8, index.device)
+    qk, squeeze = _cosine_queries(query_u8, index)
     out = _threshold_scan(
-        CosineQueries.from_u8(q), index.data, row_meta, smp, k, max_distance,
-        target_count, cap, epilogue,
+        qk, index.data, row_meta, smp, k, max_distance, target_count, cap, epilogue,
     )
     return _squeezed(out, squeeze)
 
@@ -2169,18 +2182,23 @@ def fused_cosine_scan_topk(
     (θ = max_distance for every query; K1b + K1c).  Unconditionally the
     exact top-k of ``WHERE dist < max_distance``: the auto path's repair
     and ``--scan-mode pallas``."""
-    q, squeeze = _as_queries(query_u8, index.device)
-    out = _exact_scan(
-        CosineQueries.from_u8(q), q.shape[0], index.data, row_meta, k, max_distance
-    )
+    qk, squeeze = _cosine_queries(query_u8, index)
+    out = _exact_scan(qk, qk.q_codes.shape[0], index.data, row_meta, k, max_distance)
     return _squeezed(out, squeeze)
 
 
+def _cosine_queries(query_u8, index):
+    with span("scan.prep") as stage:
+        q, squeeze = _as_queries(query_u8, index.device, stage)
+        return CosineQueries.from_u8(q), squeeze
+
+
 def _int4_queries(query_u8, index, query_mode):
-    q, squeeze = _as_queries(query_u8, index.device)
-    if q.shape[1] != index.dim:
-        raise ValueError(f"query width {q.shape[1]} != index dim {index.dim}")
-    return Int4Queries.from_u8(q, query_mode), squeeze
+    with span("scan.prep") as stage:
+        q, squeeze = _as_queries(query_u8, index.device, stage)
+        if q.shape[1] != index.dim:
+            raise ValueError(f"query width {q.shape[1]} != index dim {index.dim}")
+        return Int4Queries.from_u8(q, query_mode), squeeze
 
 
 def fused_threshold4_scan_topk(
@@ -2228,11 +2246,12 @@ def fused_cosine4_scan_topk(
 
 
 def _hamming_queries(query_u8, index, byte_limit, wrap_u8):
-    q, squeeze = _as_queries(query_u8, index.device)
-    if q.shape[1] != index.dim:
-        raise ValueError(f"query width {q.shape[1]} != store width {index.dim}")
-    limit = index.dim if byte_limit is None else int(byte_limit)
-    return HammingQueries(q.contiguous(), limit, bool(wrap_u8)), squeeze
+    with span("scan.prep") as stage:
+        q, squeeze = _as_queries(query_u8, index.device, stage)
+        if q.shape[1] != index.dim:
+            raise ValueError(f"query width {q.shape[1]} != store width {index.dim}")
+        limit = index.dim if byte_limit is None else int(byte_limit)
+        return HammingQueries(q.contiguous(), limit, bool(wrap_u8)), squeeze
 
 
 def fused_hamming_threshold_scan_topk(

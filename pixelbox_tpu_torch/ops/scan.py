@@ -42,6 +42,7 @@ from pixelbox_tpu_torch.ops.packed import (
     PackedSemanticIndex,
     query_moments_from_u8,
 )
+from pixelbox_tpu_torch.utils.timing import bump, span
 
 DEFAULT_BLOCK_ROWS = 32768
 
@@ -131,22 +132,42 @@ def build_scan_sample(index, sample_rows: Optional[int] = None) -> ScanSample:
 def repair_unproven(q, best_d, best_i, exact, exact_scan):
     """Splice exact re-scans over queries whose threshold results weren't
     proven.  ``exact_scan(q_bucket) -> (d, i)`` runs the exact path on a
-    zero-padded query bucket (bucket sizes 8·4^n, as in the JAX package)."""
-    if bool(exact.all()):
+    zero-padded query bucket (bucket sizes 8·4^n, as in the JAX package).
+    The proof's read (span ``scan.proof``) and the rows of the unproven
+    queries (``scan.unproven``) are host syncs; the re-scan is the span
+    ``scan.repair``."""
+    with span("scan.proof", wait=True) as w:
+        w.syncs += exact.is_cuda
+        proven = bool(exact.all())
+    if proven:
         return best_d, best_i
-    best_d = best_d.clone()
-    best_i = best_i.clone()
-    bad = torch.nonzero(~exact).flatten()
-    nb = int(bad.numel())
-    bucket = 8
-    while bucket < nb:
-        bucket *= 4
-    repair = torch.zeros((bucket, q.shape[1]), dtype=torch.uint8, device=q.device)
-    repair[:nb] = q[bad]
-    rd, ri = exact_scan(repair)
-    best_d[bad] = rd[:nb]
-    best_i[bad] = ri[:nb]
-    return best_d, best_i
+    with span("scan.repair"):
+        best_d = best_d.clone()
+        best_i = best_i.clone()
+        with span("scan.unproven", wait=True) as w:
+            w.syncs += exact.is_cuda
+            bad = torch.nonzero(~exact).flatten()
+        nb = int(bad.numel())
+        bump("repaired_queries", nb)
+        bucket = 8
+        while bucket < nb:
+            bucket *= 4
+        repair = torch.zeros((bucket, q.shape[1]), dtype=torch.uint8, device=q.device)
+        repair[:nb] = q[bad]
+        rd, ri = exact_scan(repair)
+        best_d[bad] = rd[:nb]
+        best_i[bad] = ri[:nb]
+        return best_d, best_i
+
+
+def to_host(*tensors) -> tuple:
+    """A scan's results as numpy arrays (span ``scan.download``), each
+    tensor on a card one count of ``host_syncs``: a copy the host waits
+    for."""
+    with span("scan.download", wait=True) as w:
+        for t in tensors:
+            w.syncs += t.is_cuda
+        return tuple(t.cpu().numpy() for t in tensors)
 
 
 def cosine_scan_topk_auto(

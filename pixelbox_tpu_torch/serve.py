@@ -59,6 +59,7 @@ from pixelbox_tpu_torch.query import parse_query
 from pixelbox_tpu_torch.records import IndexedImage
 from pixelbox_tpu_torch.serving import BatchingScanService
 from pixelbox_tpu_torch.serving.semantic import SCAN_MODES
+from pixelbox_tpu_torch.utils import timing
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>pixelbox-tpu</title><style>
@@ -557,6 +558,9 @@ def make_handler(engine, lock: threading.Lock, scan_service=None):
                 if scan_service is not None:
                     status["scan_batches"] = scan_service.batches_run
                     status["scan_queries"] = scan_service.queries_served
+                # The process's span aggregates and counters (utils/timing).
+                status["spans"] = timing.get_stats()
+                status["counters"] = timing.counters()
                 return self._send(200, status)
             return self._send(404, {"error": "not found"})
 

@@ -22,13 +22,13 @@ import numpy as np
 import torch
 
 from pixelbox_tpu_torch.ops.int4 import cosine4_scan_topk_auto
-from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto
+from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto, to_host
 from pixelbox_tpu_torch.parallel.sharded_scan import (
     sharded_cosine4_scan_topk_auto,
     sharded_cosine_scan_topk_auto,
 )
 from pixelbox_tpu_torch.serving.common import _read_locked
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import span
 
 
 class DuplicateFinding:
@@ -63,25 +63,30 @@ class DuplicateFinding:
 
         seen = set()
         out = []
-        with timed("engine.duplicate_scan"):
+        # Spans: the pass, its row gathers, and each batch's scan (upload,
+        # the scan's stages, download), then its pair loop.
+        with span("engine.duplicate_scan"):
             for rows, scan in groups:
-                qrows = store.get_rows(rows)
+                with span("dedup.gather"):
+                    qrows = store.get_rows(rows)
                 for s in range(0, len(rows), batch):
                     qb = qrows[s : s + batch]
-                    dists, idxs = scan(qb)
-                    for qi in range(len(qb)):
-                        a = image_ids[int(rows[s + qi])]
-                        for d, r in zip(dists[qi], idxs[qi]):
-                            if r < 0:
-                                break  # hits are sorted; -1 padding follows
-                            b = image_ids[int(r)]
-                            if b == a:
-                                continue
-                            key = (min(a, b), max(a, b))
-                            if key in seen:
-                                continue
-                            seen.add(key)
-                            out.append((key[0], key[1], float(d)))
+                    with span("dedup.scan") as stage:
+                        dists, idxs = scan(qb)
+                        stage.then("dedup.pairs")
+                        for qi in range(len(qb)):
+                            a = image_ids[int(rows[s + qi])]
+                            for d, r in zip(dists[qi], idxs[qi]):
+                                if r < 0:
+                                    break  # hits are sorted; -1 padding follows
+                                b = image_ids[int(r)]
+                                if b == a:
+                                    continue
+                                key = (min(a, b), max(a, b))
+                                if key in seen:
+                                    continue
+                                seen.add(key)
+                                out.append((key[0], key[1], float(d)))
         out.sort(key=lambda p: (p[2], p[0], p[1]))
         return out
 
@@ -135,7 +140,7 @@ class DuplicateFinding:
                             torch.from_numpy(qb), index, k=k,
                             max_distance=max_distance, meta=meta, byte_limit=w,
                         )
-                        return d.cpu().numpy(), i.cpu().numpy()
+                        return to_host(d, i)
 
                     groups.append((rows, scan))
         elif self.semantic_precision == "int4":
@@ -161,8 +166,7 @@ class DuplicateFinding:
                     )
             else:
                 def scan(qb):
-                    d, i = base_scan(qb, k, max_distance)
-                    return d.cpu().numpy(), i.cpu().numpy()
+                    return to_host(*base_scan(qb, k, max_distance))
 
             groups.append((live_rows, scan))
         else:
@@ -179,7 +183,7 @@ class DuplicateFinding:
                         torch.from_numpy(qb), index, k=k, max_distance=max_distance,
                         sample=self._get_scan_sample(), row_meta=self._get_row_meta(),
                     )
-                return d.cpu().numpy(), i.cpu().numpy()
+                return to_host(d, i)
 
             groups.append((live_rows, scan))
         return store, image_ids, groups

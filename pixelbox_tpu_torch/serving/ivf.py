@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 
 from pixelbox_tpu_torch.serving.service import _host
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import span
 
 
 class IvfServing:
@@ -75,7 +75,7 @@ class IvfServing:
         )
         if retrain:
             c = min(want_knob, n_live) if want_knob else ivf_ops.default_n_clusters(n_live)
-            with timed("engine.ivf_train"):
+            with span("engine.ivf_train"):
                 self._ivf_centroids = ivf_ops.spherical_kmeans(
                     rows, valid, c, iters=10, seed=0, device=self.device
                 )
@@ -125,13 +125,13 @@ class IvfServing:
             # Every query scans the spill exactly; repack once it stops
             # being a rounding error next to the probed buckets.
             if total_spill <= max(8192, (self._ivf_packed_n // 16)):
-                with timed("engine.ivf_extend"):
+                with span("engine.ivf_extend"):
                     self._ivf = ivf_ops.rebuild_spill(
                         self._ivf, rows, np.concatenate([base_spill, delta])
                     )
                 self._ivf_version = ver
                 return self._ivf
-        with timed("engine.ivf_build"):
+        with span("engine.ivf_build"):
             self._ivf = ivf_ops.build_ivf(
                 rows, valid, self._ivf_centroids, precision=self._ivf_precision(),
                 device=self.device,
@@ -147,7 +147,7 @@ class IvfServing:
         if self.ivf_nprobe is None and self.ivf_target_recall:
             from pixelbox_tpu_torch.ops.ivf_build import tune_nprobe
 
-            with timed("engine.ivf_tune_nprobe"):
+            with span("engine.ivf_tune_nprobe"):
                 tuned, rec = tune_nprobe(
                     self._ivf, rows, target_recall=float(self.ivf_target_recall), valid=valid,
                 )
@@ -234,14 +234,14 @@ class IvfServing:
                     np.concatenate([b, delta[(delta // local_rows) == s]])
                     for s, b in enumerate(bases)
                 ]
-                with timed("engine.ivf_extend"):
+                with span("engine.ivf_extend"):
                     self._ivf_sharded = sivf_mod.rebuild_sharded_spill(
                         self._ivf_sharded, rows, per_shard
                     )
                 self._ivf_sharded_spill_ids = per_shard
                 self._ivf_sharded_at_ver = ver
                 return self._ivf_sharded
-        with timed("engine.ivf_build"):
+        with span("engine.ivf_build"):
             self._ivf_sharded, spill_ids = sivf_mod.build_sharded_ivf(
                 rows, valid, self._ivf_centroids, self.scan_mesh, precision=self._ivf_precision(),
             )
@@ -273,7 +273,7 @@ class IvfServing:
                 def _scan(qs, nprobe):
                     return sivf_mod.sharded_ivf_scan_topk(qs, sivf, mesh, k=10, nprobe=nprobe)
 
-            with timed("engine.ivf_tune_nprobe"):
+            with span("engine.ivf_tune_nprobe"):
                 tuned, rec = tune_nprobe(
                     sivf, rows, target_recall=float(self.ivf_target_recall), valid=valid,
                     scan_fn=_scan,

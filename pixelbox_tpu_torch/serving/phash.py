@@ -20,9 +20,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pixelbox_tpu_torch.ops.scan import to_host
 from pixelbox_tpu_torch.parallel.sharded_scan import sharded_hamming_scan_topk
 from pixelbox_tpu_torch.serving.common import _read_locked
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import span
 
 
 class PhashServing:
@@ -47,7 +48,7 @@ class PhashServing:
         kk = int(k or self.max_search_results)
         md = float(self.max_distance_from_query)
 
-        with timed("engine.phash_scan"):
+        with span("engine.phash_scan"):
             if wq >= dim and self.phash_store_uniform():
                 if self.scan_mesh is not None:
                     dist, idx = self._phash_sharded_scan(ph[:dim], kk, md)
@@ -58,7 +59,7 @@ class PhashServing:
                 dist, idx = self._phash_mixed_scan(ph, wq, widths, kk, md)
         keep = idx >= 0
         ids = [self._ph_image_ids[int(row)] for row in idx[keep]]
-        with timed("engine.build_results"):
+        with span("engine.build_results"):
             self._cached_search_results = self._results_from_image_ids(ids, dist[keep])
 
     def phash_store_uniform(self) -> bool:
@@ -108,7 +109,7 @@ class PhashServing:
             max_distance=max_distance, sample=self._ph_gemm_sample,
             meta=self._ph_gemm_meta,
         )
-        return dist.cpu().numpy(), idx.cpu().numpy()
+        return to_host(dist, idx)
 
     def _ensure_ph_sharded(self):
         """The phash store's row-sharded mirror over ``scan_mesh``, synced

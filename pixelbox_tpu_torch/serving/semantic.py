@@ -66,7 +66,7 @@ from pixelbox_tpu_torch.parallel.sharded_scan import (
 from pixelbox_tpu_torch.records import IndexedImage
 from pixelbox_tpu_torch.serving.common import _read_locked
 from pixelbox_tpu_torch.serving.service import ScanInputs
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import span
 
 SCAN_MODES = ("auto", "exact", "fast", "pallas", "ivf")
 
@@ -131,7 +131,7 @@ class SemanticServing:
             self._cached_search_results = []
             return
         t0 = time.perf_counter()
-        with timed("engine.load_image"):
+        with span("engine.load_image"):
             record = self.load_image(path)
         print(f"Time to compute image hash: {time.perf_counter()-t0:.3f}s", file=sys.stderr)
         if record is None:
@@ -220,7 +220,7 @@ class SemanticServing:
         t0 = time.perf_counter()
         k = int(self.max_search_results)
         md = float(self.max_distance_from_query)
-        with timed("engine.similarity_scan"):
+        with span("engine.similarity_scan"):
             if self.scan_mode == "ivf":
                 # Clustered ANN: probe the nprobe nearest clusters; the
                 # selection is approximate, the distances exact (int4
@@ -236,7 +236,7 @@ class SemanticServing:
                 dist = dist.cpu().numpy()
                 idx = idx.cpu().numpy()
         keep = idx >= 0
-        with timed("engine.build_results"):
+        with span("engine.build_results"):
             self._cached_search_results = self._build_results(idx[keep], dist[keep])
         n = len(self._cached_search_results)
         print(f"Time to search DB: {time.perf_counter()-t0:.3f}s  Results: {n}", file=sys.stderr)
@@ -249,11 +249,11 @@ class SemanticServing:
         rescore together.  Returns host (dist [.., k] f32, idx int64)."""
 
         def candidates(c, cmd):
-            with timed("engine.int4_scan"):
+            with span("engine.int4_scan"):
                 d, i = scan(c, cmd)
                 return d.cpu().numpy(), i.cpu().numpy()
 
-        with timed("engine.int4_scan_rerank"):
+        with span("engine.int4_scan_rerank"):
             return scan_with_u8_rerank(
                 candidates, np.asarray(query_u8, dtype=np.uint8),
                 self._sem_store._host_rows, k=k, max_distance=max_distance,

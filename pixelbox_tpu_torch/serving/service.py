@@ -35,7 +35,7 @@ from pixelbox_tpu_torch.ops.int4 import (
     scan_with_u8_rerank,
 )
 from pixelbox_tpu_torch.ops.scan import cosine_scan_topk_auto
-from pixelbox_tpu_torch.utils.timing import timed
+from pixelbox_tpu_torch.utils.timing import add_span, span
 
 #: Batch shapes of the semantic scans.  Every batch selects on the
 #: distance (``epilogue="dist"``): the tensor-core K1a and K4a filter on
@@ -71,6 +71,7 @@ class ScanInputs(NamedTuple):
 class _Request:
     query: np.ndarray
     kind: str = "semantic"
+    enqueued_ns: int = field(default_factory=time.perf_counter_ns)
     event: threading.Event = field(default_factory=threading.Event)
     dist: Optional[np.ndarray] = None
     idx: Optional[np.ndarray] = None
@@ -193,14 +194,15 @@ class BatchingScanService:
                 continue
             batch: List[_Request] = [first]
             t0 = time.monotonic()
-            while len(batch) < self.max_batch:
-                remaining = self.max_wait_s - (time.monotonic() - t0)
-                if remaining <= 0:
-                    break
-                try:
-                    batch.append(self._q.get(timeout=remaining))
-                except queue.Empty:
-                    break
+            with span("serving.fill", wait=True):
+                while len(batch) < self.max_batch:
+                    remaining = self.max_wait_s - (time.monotonic() - t0)
+                    if remaining <= 0:
+                        break
+                    try:
+                        batch.append(self._q.get(timeout=remaining))
+                    except queue.Empty:
+                        break
             # One device pass per (kind, query width) group; widths can
             # differ for compat phashes and must not be zero-padded into
             # one another.
@@ -208,7 +210,13 @@ class BatchingScanService:
             for r in batch:
                 groups.setdefault((r.kind, r.query.shape[0]), []).append(r)
             for (kind, _w), grp in groups.items():
-                self._run_group(kind, grp)
+                # A group's device pass, with each request's wait from its
+                # submit to this pass inside it.
+                with span(f"serving.batch.{kind}"):
+                    taken = time.perf_counter_ns()
+                    for r in grp:
+                        add_span("serving.queue_wait", r.enqueued_ns, taken, wait=True)
+                    self._run_group(kind, grp)
 
     def _run_group(self, kind: str, batch: List[_Request]) -> None:
         try:
@@ -216,15 +224,14 @@ class BatchingScanService:
             queries = np.zeros((_bucket(m), batch[0].query.shape[0]), dtype=np.uint8)
             for i, r in enumerate(batch):
                 queries[i] = r.query
-            with timed(f"serving.batched_scan.{kind}"):
-                if kind == "semantic":
-                    dist, idx = self._semantic_scan(queries, n_real=m)
-                elif self._scan_n_real.get(kind):
-                    dist, idx = self._scan_fns[kind](
-                        queries, self.k, self.max_distance, n_real=m
-                    )
-                else:
-                    dist, idx = self._scan_fns[kind](queries, self.k, self.max_distance)
+            if kind == "semantic":
+                dist, idx = self._semantic_scan(queries, n_real=m)
+            elif self._scan_n_real.get(kind):
+                dist, idx = self._scan_fns[kind](
+                    queries, self.k, self.max_distance, n_real=m
+                )
+            else:
+                dist, idx = self._scan_fns[kind](queries, self.k, self.max_distance)
             dist, idx = _host(dist), _host(idx)
             for i, r in enumerate(batch):
                 r.dist = dist[i]

@@ -1071,3 +1071,22 @@ def test_scans_past_max_k_match_plain():
     bcpu = PackedSemanticIndex(*(t.cpu() for t in big))
     want = tscan.cosine_scan_topk_auto(qb[:8].cpu(), bcpu, k=1500)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_threshold_scan_counts_its_host_syncs():
+    """A threshold scan of host queries on the card: the upload (in
+    ``scan.prep``), the proof and the two result copies are its host
+    syncs, the last two in wait spans."""
+    from pixelbox_tpu_torch.utils import timing
+
+    dev = _card()
+    idx, q = _index(262144, 128, seed=8, dev=dev)
+    sample, meta = tscan.build_scan_sample(idx), fs.build_row_meta(idx)
+    tscan.to_host(*tscan.cosine_scan_topk_auto(q.cpu(), idx, k=10, sample=sample, row_meta=meta))
+    with timing.recorded() as rec:
+        tscan.to_host(*tscan.cosine_scan_topk_auto(q.cpu(), idx, k=10, sample=sample, row_meta=meta))
+    waits = [s.name for s in rec.spans if s.wait]
+    assert waits[0] == "scan.proof" and waits[-1] == "scan.download"
+    # The upload and each wait one, the download two (a repair adds its
+    # ``scan.unproven``).
+    assert sum(b.n for b in rec.bumps if b.name == "host_syncs") == len(waits) + 2

@@ -646,6 +646,13 @@ def test_server_json_equals_jax_serve(served):
     assert victim not in [r["id"] for r in after]
     status = _http(port_url, "/api/status")[1]
     assert status["scan_batches"] >= 1 and status["scan_queries"] >= 3
+    # The recorder's aggregates beside them: each batch a span with each
+    # request's queue wait; and its counters (a CPU server syncs no card).
+    spans = status["spans"]
+    assert spans["serving.batch.semantic"]["count"] >= 1
+    assert spans["serving.queue_wait"]["count"] >= status["scan_queries"]
+    assert spans["serving.batch.semantic"]["max_ms"] >= spans["serving.batch.semantic"]["mean_ms"]
+    assert set(status["counters"]) == {"host_syncs", "repaired_queries"}
 
 
 def test_server_refuses_what_is_not_ported(served):
