@@ -347,7 +347,8 @@ def oracle_topk(q, db, valid, k, md):
 
 class Recorder:
     """Wraps the kernel wrappers of ops.fused_scan; records inputs and
-    outputs so each call can be replayed through its plain version."""
+    outputs so each call can be replayed through its plain version.  The
+    threshold pass runs eager inside (a graph's replay runs no wrapper)."""
 
     NAMES = (
         "cosine_threshold_collect", "cosine_chunk_topk", "lex_topk_select",
@@ -367,15 +368,24 @@ class Recorder:
         self.slots = [(fs, n) for n in self.NAMES] + [(ivf, n) for n in self.IVF_NAMES]
         self.orig = {(m, n): getattr(m, n) for m, n in self.slots}
         self.calls = []
+        self.fs = fs
 
     def __enter__(self):
+        from pixelbox_tpu_torch.ops.scan_graphs import GraphCache
+
+        class Eager(GraphCache):
+            def _on_card(self, t):
+                return False
+
         for m, n in self.slots:
             setattr(m, n, self._wrap(n, self.orig[(m, n)]))
+        self.graphs, self.fs.SCAN_GRAPHS = self.fs.SCAN_GRAPHS, Eager(self.fs.LAUNCHES)
         return self
 
     def __exit__(self, *exc):
         for m, n in self.slots:
             setattr(m, n, self.orig[(m, n)])
+        self.fs.SCAN_GRAPHS = self.graphs
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):

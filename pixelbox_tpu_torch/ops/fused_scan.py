@@ -79,7 +79,9 @@ collect and chunk kernels:
   ``pallas_hamming_threshold_scan_topk(_v2)``): K1a/K4a/K2a + K1c at
   every batch size, or with ``epilogue="cos"`` (cosine kinds only) K1d/K4d
   + K1e + K1c; proof ``count <= cap ∧ (k-th distance finite ∨ θ unbound)``
-  (the JAX buffer contract);
+  (the JAX buffer contract).  On a card, :func:`threshold_pass` replays
+  the chain from the query prep to the proof flags as one CUDA graph a
+  shape (``ops/scan_graphs.py``);
 - exact scan (:func:`fused_cosine_scan_topk`, was
   ``pallas_cosine_scan_topk``; :func:`fused_cosine4_scan_topk`, where the
   JAX package ran its XLA ``cosine4(a)_scan_topk``;
@@ -138,6 +140,7 @@ from pixelbox_tpu_torch.ops.packed import (
     query4_moments_from_u8,
     query_moments_from_u8,
 )
+from pixelbox_tpu_torch.ops import scan_graphs
 from pixelbox_tpu_torch.utils.timing import bump, span
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -381,8 +384,8 @@ def _check_query_args(q_codes, q_sum, q_mag2, qr, data, meta, packed=False):
 
 
 #: Plain-integer launch counts, one per kernel wrapper; each wrapper adds
-#: one where it launches its kernel and nowhere else (CPU tensors, which
-#: take the plain version, do not count).
+#: one (:func:`count_launch`) where it launches its kernel and nowhere else
+#: (CPU tensors, which take the plain version, do not count).
 LAUNCHES = {
     "cosine_threshold_collect": 0,
     "cosine_threshold_collect_dp4a": 0,
@@ -407,6 +410,16 @@ LAUNCHES = {
     "ivf_probe_collect_dp4a": 0,
     "ivf_gathered_collect": 0,
 }
+
+
+#: The threshold pass's graphs (:func:`threshold_pass`, ``ops/scan_graphs.py``).
+SCAN_GRAPHS = scan_graphs.GraphCache(LAUNCHES)
+
+
+def count_launch(name: str) -> None:
+    """One launch of the kernel ``name`` (a graph's capture keeps its own
+    count, which each replay adds: ``scan_graphs.count_launch``)."""
+    scan_graphs.count_launch(LAUNCHES, name)
 
 
 def reset_launch_counts() -> None:
@@ -584,7 +597,7 @@ def _tc_collect(name, kind, q_codes, q_sum, q_mag2, qr, theta, data, meta, cap):
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
     _check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return count, cand_d, cand_i
 
 
@@ -620,7 +633,7 @@ def _collect_on_card(name, entry, q_codes, q_sum, q_mag2, qr, theta, data, meta,
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
     _check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return count, cand_d, cand_i
 
 
@@ -705,7 +718,7 @@ def _tc_cosine_chunk(name, kind, q_codes, q_sum, q_mag2, qr, md, data, meta, k):
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out_d, out_i
 
 
@@ -731,7 +744,7 @@ def cosine_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, data, meta,
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "cosine_chunk_topk_dp4a")
-    LAUNCHES["cosine_chunk_topk_dp4a"] += 1
+    count_launch("cosine_chunk_topk_dp4a")
     return out_d, out_i
 
 
@@ -940,7 +953,7 @@ def cosine4_chunk_topk_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, data, meta
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "cosine4_chunk_topk_dp4a")
-    LAUNCHES["cosine4_chunk_topk_dp4a"] += 1
+    count_launch("cosine4_chunk_topk_dp4a")
     return out_d, out_i
 
 
@@ -1157,7 +1170,7 @@ def coskey_rescore(q_codes, q_sum, q_mag2, qr, theta, data, meta, kind: str, len
             _ptr(lens), _ptr(cand_i), _ptr(out), _stream(dev),
         )
     _check(rc, "coskey_rescore")
-    LAUNCHES["coskey_rescore"] += 1
+    count_launch("coskey_rescore")
     return out
 
 
@@ -1309,7 +1322,7 @@ def lex_topk_select(dist, idx, k: int, lens=None, segment: Optional[int] = None,
             qn, m, seg, k, n_seg, _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "lex_topk_select")
-    LAUNCHES["lex_topk_select"] += 1
+    count_launch("lex_topk_select")
     return out_d, out_i
 
 
@@ -1343,7 +1356,7 @@ def lex_topk_segments(dist, idx, k: int, lens=None, segment: int = SEGMENT):
             qn, m, segment, k, n_seg, _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "lex_topk_segments")
-    LAUNCHES["lex_topk_segments"] += 1
+    count_launch("lex_topk_segments")
     return out_d, out_i
 
 
@@ -1486,7 +1499,7 @@ def hamming_threshold_collect(q, theta, data, meta, byte_limit: int, wrap_u8: bo
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
     _check(rc, "hamming_threshold_collect")
-    LAUNCHES["hamming_threshold_collect"] += 1
+    count_launch("hamming_threshold_collect")
     return count, cand_d, cand_i
 
 
@@ -1511,7 +1524,7 @@ def hamming_threshold_collect_popc(q, theta, data, meta, byte_limit: int, wrap_u
             _ptr(count), _ptr(cand_d), _ptr(cand_i), _stream(dev),
         )
     _check(rc, "hamming_threshold_collect_popc")
-    LAUNCHES["hamming_threshold_collect_popc"] += 1
+    count_launch("hamming_threshold_collect_popc")
     return count, cand_d, cand_i
 
 
@@ -1559,7 +1572,7 @@ def hamming_chunk_topk(q, max_distance, data, meta, byte_limit: int, wrap_u8: bo
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "hamming_chunk_topk")
-    LAUNCHES["hamming_chunk_topk"] += 1
+    count_launch("hamming_chunk_topk")
     return out_d, out_i
 
 
@@ -1584,7 +1597,7 @@ def hamming_chunk_topk_popc(q, max_distance, data, meta, byte_limit: int, wrap_u
             _ptr(out_d), _ptr(out_i), _stream(dev),
         )
     _check(rc, "hamming_chunk_topk_popc")
-    LAUNCHES["hamming_chunk_topk_popc"] += 1
+    count_launch("hamming_chunk_topk_popc")
     return out_d, out_i
 
 
@@ -1780,6 +1793,10 @@ class HammingQueries(NamedTuple):
     q: torch.Tensor
     byte_limit: int
     wrap_u8: bool
+
+    @classmethod
+    def from_u8(cls, query_u8: torch.Tensor, byte_limit: int, wrap_u8: bool) -> "HammingQueries":
+        return cls(query_u8.contiguous(), byte_limit, wrap_u8)
 
     kind = "hamming"
 
@@ -2028,7 +2045,7 @@ def _tc_sample_theta(qk, smp, max_distance, j: int, plan=None):
             _ptr(ws), _ptr(part_vals), _ptr(cand), _ptr(out[0]), _ptr(out[1]), _stream(dev),
         )
     _check(rc, "sample_theta")
-    LAUNCHES["sample_theta"] += 1
+    count_launch("sample_theta")
     return out[1]
 
 
@@ -2091,6 +2108,32 @@ def _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap, epi
         # result).
         exact = (count <= cap) & (torch.isfinite(best_d[:, k - 1]) | unbound)
     return best_d, best_i, exact
+
+
+def threshold_pass(q, queries, data, meta, smp, k, max_distance, target_count=None, cap=None,
+                   epilogue="dist"):
+    """:func:`_threshold_scan` of the u8 queries ``q`` [Q, D], already on
+    ``data``'s device, from the kind's prep on: ``queries`` is ``(make,
+    *fields)``, the prep ``make(q, *fields)`` (``CosineQueries.from_u8``,
+    ``(Int4Queries.from_u8, mode)``, ``(HammingQueries.from_u8,
+    byte_limit, wrap_u8)``).  On a card the chain is one CUDA graph a
+    shape (:data:`SCAN_GRAPHS`, ``ops/scan_graphs.py``), keyed by the kind
+    and its fields, the shapes and scalars, and the layout and address of
+    every tensor it reads.
+    Returns (dist [Q,k], idx [Q,k], exact [Q])."""
+    make, *fields = queries
+
+    def chain(qq):
+        with span("scan.prep"):
+            qk = make(qq, *fields)
+        return _threshold_scan(qk, data, meta, smp, k, max_distance, target_count, cap, epilogue)
+
+    reads = (data, meta, smp.data, smp.meta)
+    key = (
+        queries, tuple(q.shape), k, float(np.float32(max_distance)), target_count, cap, epilogue,
+        *((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in reads),
+    )
+    return SCAN_GRAPHS(key, q, chain, reads)
 
 
 def _exact_scan(qk, qn, data, meta, k, max_distance):
@@ -2164,9 +2207,10 @@ def fused_threshold_scan_topk(
     collected top-k the true top-k.  Use via
     ``ops.scan.cosine_scan_topk_auto``, which repairs unproven queries.
     """
-    qk, squeeze = _cosine_queries(query_u8, index)
-    out = _threshold_scan(
-        qk, index.data, row_meta, smp, k, max_distance, target_count, cap, epilogue,
+    q, squeeze = _uploaded(query_u8, index)
+    out = threshold_pass(
+        q, (CosineQueries.from_u8,), index.data, row_meta, smp, k, max_distance, target_count,
+        cap, epilogue,
     )
     return _squeezed(out, squeeze)
 
@@ -2182,23 +2226,22 @@ def fused_cosine_scan_topk(
     (θ = max_distance for every query; K1b + K1c).  Unconditionally the
     exact top-k of ``WHERE dist < max_distance``: the auto path's repair
     and ``--scan-mode pallas``."""
-    qk, squeeze = _cosine_queries(query_u8, index)
+    q, squeeze = _uploaded(query_u8, index)
+    with span("scan.prep"):
+        qk = CosineQueries.from_u8(q)
     out = _exact_scan(qk, qk.q_codes.shape[0], index.data, row_meta, k, max_distance)
     return _squeezed(out, squeeze)
 
 
-def _cosine_queries(query_u8, index):
+def _uploaded(query_u8, index, check_width: bool = False):
+    """The u8 queries on the index's device (span ``scan.prep``) and
+    :func:`_as_queries`' squeeze flag; ``check_width``: their width must
+    be the index's."""
     with span("scan.prep") as stage:
         q, squeeze = _as_queries(query_u8, index.device, stage)
-        return CosineQueries.from_u8(q), squeeze
-
-
-def _int4_queries(query_u8, index, query_mode):
-    with span("scan.prep") as stage:
-        q, squeeze = _as_queries(query_u8, index.device, stage)
-        if q.shape[1] != index.dim:
-            raise ValueError(f"query width {q.shape[1]} != index dim {index.dim}")
-        return Int4Queries.from_u8(q, query_mode), squeeze
+    if check_width and q.shape[1] != index.dim:
+        raise ValueError(f"query width {q.shape[1]} != index width {index.dim}")
+    return q, squeeze
 
 
 def fused_threshold4_scan_topk(
@@ -2222,9 +2265,10 @@ def fused_threshold4_scan_topk(
     "cosine4"); ``epilogue="cos"`` selects on the cos key (K4d + K1e).
     Returns (dist [Q,k], idx [Q,k], exact [Q]); repair the unproven
     queries with :func:`fused_cosine4_scan_topk`."""
-    qk, squeeze = _int4_queries(query_u8, index, query_mode)
-    out = _threshold_scan(
-        qk, index.data, row_meta, smp, k, max_distance, target_count, cap, epilogue
+    q, squeeze = _uploaded(query_u8, index, check_width=True)
+    out = threshold_pass(
+        q, (Int4Queries.from_u8, query_mode), index.data, row_meta, smp, k, max_distance,
+        target_count, cap, epilogue,
     )
     return _squeezed(out, squeeze)
 
@@ -2240,18 +2284,17 @@ def fused_cosine4_scan_topk(
     """Exact int4 top-k of ``WHERE dist < max_distance`` (K4b + K1c) — the
     int4 auto path's repair and small-index scan, equal to
     ``ops.int4.cosine4a_scan_topk`` (asym) / ``cosine4_scan_topk`` (sym)."""
-    qk, squeeze = _int4_queries(query_u8, index, query_mode)
+    q, squeeze = _uploaded(query_u8, index, check_width=True)
+    with span("scan.prep"):
+        qk = Int4Queries.from_u8(q, query_mode)
     out = _exact_scan(qk, qk.q_codes.shape[0], index.data, row_meta, k, max_distance)
     return _squeezed(out, squeeze)
 
 
-def _hamming_queries(query_u8, index, byte_limit, wrap_u8):
-    with span("scan.prep") as stage:
-        q, squeeze = _as_queries(query_u8, index.device, stage)
-        if q.shape[1] != index.dim:
-            raise ValueError(f"query width {q.shape[1]} != store width {index.dim}")
-        limit = index.dim if byte_limit is None else int(byte_limit)
-        return HammingQueries(q.contiguous(), limit, bool(wrap_u8)), squeeze
+def _hamming_fields(index, byte_limit, wrap_u8):
+    """``HammingQueries``' fields: the byte limit (the store's width by
+    default) and the u8 wrap."""
+    return (index.dim if byte_limit is None else int(byte_limit)), bool(wrap_u8)
 
 
 def fused_hamming_threshold_scan_topk(
@@ -2272,8 +2315,11 @@ def fused_hamming_threshold_scan_topk(
     scan's θ estimate and proof.  ``meta`` is :func:`build_hamming_meta`
     (validity AND an optional group mask) and ``smp`` its strided sample.
     Returns (dist [Q,k], idx [Q,k], exact [Q])."""
-    qk, squeeze = _hamming_queries(query_u8, index, byte_limit, wrap_u8)
-    out = _threshold_scan(qk, index.data, meta, smp, k, max_distance, target_count, cap)
+    q, squeeze = _uploaded(query_u8, index, check_width=True)
+    out = threshold_pass(
+        q, (HammingQueries.from_u8, *_hamming_fields(index, byte_limit, wrap_u8)), index.data, meta, smp, k, max_distance,
+        target_count, cap,
+    )
     return _squeezed(out, squeeze)
 
 
@@ -2289,6 +2335,7 @@ def fused_hamming_scan_topk(
     """Exact Hamming top-k of ``WHERE dist < max_distance`` (K2b + K1c):
     the Hamming repair, and the per-group scan of the mixed-width phash
     search and of the duplicate finder (``byte_limit`` + group ``meta``)."""
-    qk, squeeze = _hamming_queries(query_u8, index, byte_limit, wrap_u8)
+    q, squeeze = _uploaded(query_u8, index, check_width=True)
+    qk = HammingQueries.from_u8(q, *_hamming_fields(index, byte_limit, wrap_u8))
     out = _exact_scan(qk, qk.q.shape[0], index.data, meta, k, max_distance)
     return _squeezed(out, squeeze)

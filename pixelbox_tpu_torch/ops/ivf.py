@@ -598,7 +598,7 @@ def ivf_probe_topk(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucket_data, 
             fs._ptr(out_d), fs._ptr(out_i), fs._stream(dev),
         )
     fs._check(rc, "ivf_probe_topk")
-    fs.LAUNCHES["ivf_probe_topk"] += 1
+    fs.count_launch("ivf_probe_topk")
     return out_d, out_i
 
 
@@ -660,7 +660,7 @@ def ivf_probe_invert(bids, n_clusters: int):
             fs._stream(dev),
         )
     fs._check(rc, "ivf_probe_invert")
-    fs.LAUNCHES["ivf_probe_invert"] += 1
+    fs.count_launch("ivf_probe_invert")
     return work
 
 
@@ -732,7 +732,7 @@ def ivf_probe_collect_dp4a(q_codes, q_sum, q_mag2, qr, max_distance, bids, bucke
             fs._ptr(out_d), fs._ptr(out_i), fs._stream(dev),
         )
     fs._check(rc, "ivf_probe_collect_dp4a")
-    fs.LAUNCHES["ivf_probe_collect_dp4a"] += 1
+    fs.count_launch("ivf_probe_collect_dp4a")
     return out_d, out_i
 
 
@@ -805,7 +805,7 @@ def ivf_gathered_collect(q_codes, q_sum, q_mag2, qr, max_distance, cand, rows_u8
             fs._ptr(rows_u8), qn, n, m, d, fs._ptr(out_d), fs._ptr(out_i), fs._stream(dev),
         )
     fs._check(rc, "ivf_gathered_collect")
-    fs.LAUNCHES["ivf_gathered_collect"] += 1
+    fs.count_launch("ivf_gathered_collect")
     return out_d, out_i
 
 

@@ -285,18 +285,20 @@ def sharded_cosine_scan_topk(
     return _finish(index, _per_shard(index, q, scan), k, squeeze)
 
 
-def sharded_threshold_pass(q, index: ShardedIndex, k, max_distance, make_queries):
+def sharded_threshold_pass(q, index: ShardedIndex, k, max_distance, make_queries, *fields):
     """Row 8 of the kernel table: per shard the fused threshold scan over
     its rows and its θ sample (K1a/K4a + K1c), ids offset, the k·n
     candidates merged on the first device.
-    ``make_queries`` prepares the queries on a shard's device
-    (``CosineQueries.from_u8`` or ``Int4Queries.from_u8``).  Returns
-    (dist [Q, k], idx [Q, k], proven [Q]): the merged result is exact
-    where every shard proved its local top-k."""
+    ``make_queries(q, *fields)`` prepares the queries on a shard's device
+    (``CosineQueries.from_u8``, or ``Int4Queries.from_u8`` with the
+    mode); each shard's chain is ``fused_scan.threshold_pass``'s, one CUDA
+    graph a shard on a card.  Returns (dist [Q, k], idx [Q, k], proven
+    [Q]): the merged result is exact where every shard proved its local
+    top-k."""
     def scan(s, shard, qs):
-        return fs._threshold_scan(
-            make_queries(qs), shard.data, index.meta(s), index.sample(s), k,
-            max_distance, None, None, "dist",
+        return fs.threshold_pass(
+            qs, (make_queries, *fields), shard.data, index.meta(s), index.sample(s), k,
+            max_distance,
         )
 
     parts = _per_shard(index, q, scan)
@@ -306,14 +308,15 @@ def sharded_threshold_pass(q, index: ShardedIndex, k, max_distance, make_queries
     return best_d, best_i, proven
 
 
-def _sharded_auto(q, squeeze, index, k, max_distance, block_rows, make_queries, exact):
-    """The shared auto path: the threshold pass, then one repair of the
-    unproven queries through ``exact``; shards of at most 4·block_rows
-    rows take ``exact`` directly (selection is cheap there)."""
+def _sharded_auto(q, squeeze, index, k, max_distance, block_rows, queries, exact):
+    """The shared auto path: the threshold pass (``queries``: its
+    ``(make_queries, *fields)``), then one repair of the unproven queries
+    through ``exact``; shards of at most 4·block_rows rows take ``exact``
+    directly (selection is cheap there)."""
     if index.local_rows <= 4 * _block_rows(index, block_rows):
         best_d, best_i = exact(q)
     else:
-        best_d, best_i, proven = sharded_threshold_pass(q, index, k, max_distance, make_queries)
+        best_d, best_i, proven = sharded_threshold_pass(q, index, k, max_distance, *queries)
         best_d, best_i = repair_unproven(q, best_d, best_i, proven, exact)
     best_d, best_i = topk_ops.finalize_topk(best_d, best_i)
     return (best_d[0], best_i[0]) if squeeze else (best_d, best_i)
@@ -342,7 +345,7 @@ def sharded_cosine_scan_topk_auto(
         )
 
     return _sharded_auto(
-        q, squeeze, index, k, max_distance, block_rows, fs.CosineQueries.from_u8, exact
+        q, squeeze, index, k, max_distance, block_rows, (fs.CosineQueries.from_u8,), exact
     )
 
 
@@ -401,11 +404,8 @@ def sharded_cosine4_scan_topk_auto(
             query_mode=query_mode, mode="pallas",
         )
 
-    def make_queries(qs):
-        return fs.Int4Queries.from_u8(qs, query_mode)
-
     return _sharded_auto(
-        q, squeeze, index, k, max_distance, block_rows, make_queries, exact
+        q, squeeze, index, k, max_distance, block_rows, (fs.Int4Queries.from_u8, query_mode), exact
     )
 
 

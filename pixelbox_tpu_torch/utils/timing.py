@@ -54,11 +54,12 @@ _recording = False
 
 #: The spans that name a profiled run's idle time without recording: the
 #: duplicates pass, its row gathers, each batch's scan and pair loop, and
-#: the scan call's host stages.  The waits are left out: the host blocks
-#: inside a torch operation there, which names the time itself.
+#: the scan call's host stages (eager, or a graph's replay).  The waits are
+#: left out: the host blocks inside a torch operation there, which names
+#: the time itself.
 ANNOTATED = frozenset({
     "engine.duplicate_scan", "dedup.gather", "dedup.scan", "dedup.pairs",
-    "scan.prep", "scan.theta", "scan.collect", "scan.select",
+    "scan.prep", "scan.theta", "scan.collect", "scan.select", "scan.replay",
 })
 
 #: Events counted where they happen.  ``host_syncs``: each point where a
@@ -66,7 +67,9 @@ ANNOTATED = frozenset({
 #: the proof's ``exact.all()``, the repair's ``nonzero``, each result
 #: tensor copied from the card).  ``repaired_queries``: queries the
 #: threshold pass could not prove, re-scanned exactly.
-COUNTER_NAMES = ("host_syncs", "repaired_queries")
+#: ``scan_graph_captures`` / ``scan_graph_replays``: the threshold pass's
+#: CUDA graphs captured and replayed (``ops/scan_graphs.py``).
+COUNTER_NAMES = ("host_syncs", "repaired_queries", "scan_graph_captures", "scan_graph_replays")
 _RETIRED_COUNTS: Dict[str, int] = dict.fromkeys(COUNTER_NAMES, 0)
 
 # A profiler range from C++, a few times cheaper than ``record_function``.

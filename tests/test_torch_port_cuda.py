@@ -1090,3 +1090,245 @@ def test_threshold_scan_counts_its_host_syncs():
     # The upload and each wait one, the download two (a repair adds its
     # ``scan.unproven``).
     assert sum(b.n for b in rec.bumps if b.name == "host_syncs") == len(waits) + 2
+
+
+# --------------------------------------------------------------------- #
+# The threshold pass as one CUDA graph a shape (ops/scan_graphs.py)
+
+_GRAPH_KINDS = ["cosine", "int4_asym", "int4_sym", "hamming", "hamming_wrap"]
+
+
+def _graph_lib(kind, dev, n=262144, seed=21):
+    """(index, meta, θ sample, queries [3, 256, width] u8 on ``dev``, the
+    prep spec of ``fused_scan.threshold_pass``, max_distance) of a kind."""
+    rng = np.random.default_rng(seed)
+    if kind.startswith("hamming"):
+        base = rng.integers(0, 256, (4096, 32), dtype=np.uint8)
+        noise = rng.integers(0, 256, (n, 32), dtype=np.uint8) & rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        rows = base[rng.integers(0, 4096, n)] ^ (noise & rng.integers(0, 256, (n, 32), dtype=np.uint8))
+        valid = rng.uniform(size=n) > 0.01
+        idx = PackedHammingIndex(torch.from_numpy(rows).to(dev), torch.from_numpy(valid).to(dev))
+        meta = fs.build_hamming_meta(idx)
+        smp = hg.build_hamming_scan_sample(idx, meta)
+        q = rows[rng.integers(0, n, 768)]
+        q[1] = ~rows[7]  # every bit differs: 256 bits, 0 under the u8 wrap
+        spec = (fs.HammingQueries.from_u8, 32, kind == "hamming_wrap")
+        return idx, meta, smp, torch.from_numpy(q).to(dev).reshape(3, 256, -1), spec, 0.1
+    c = rng.standard_normal((512, 128)).astype(np.float32)
+    x = c[rng.integers(0, 512, n)] + 0.35 * rng.standard_normal((n, 128)).astype(np.float32)
+    db = quantize_embedding_np(np.tanh(x))
+    if kind == "cosine":
+        data, rs, rm = semantic_rows_from_u8(db)
+        valid = rng.uniform(size=n) > 0.01
+        idx = PackedSemanticIndex(*(torch.from_numpy(v).to(dev) for v in (data, rs, rm, valid)))
+        meta = fs.build_row_meta(idx)
+        spec = (fs.CosineQueries.from_u8,)
+    else:
+        idx = int4.build_semantic4_index(db, device=dev)
+        meta = int4.build_semantic4_meta(idx)
+        spec = (fs.Int4Queries.from_u8, kind[5:])
+    q = db[rng.integers(0, n, 768)].astype(np.int32)
+    q[:, :6] = np.clip(q[:, :6] + rng.integers(-40, 41, (768, 6)), 0, 255)
+    q = torch.from_numpy(q.astype(np.uint8)).to(dev).reshape(3, 256, -1)
+    return idx, meta, tscan.build_scan_sample(idx), q, spec, 1e3
+
+
+def _fresh_graphs(monkeypatch):
+    from pixelbox_tpu_torch.ops.scan_graphs import GraphCache
+
+    cache = GraphCache(fs.LAUNCHES)
+    monkeypatch.setattr(fs, "SCAN_GRAPHS", cache)
+    return cache
+
+
+def _graph_counts():
+    from pixelbox_tpu_torch.utils import timing
+
+    c = timing.counters()
+    return c["scan_graph_captures"], c["scan_graph_replays"]
+
+
+def _counted(fn, *args):
+    """(fn(*args), the hand-kernel launches it counted)."""
+    before = fs.launch_counts()
+    out = fn(*args)
+    return out, {n: c - before[n] for n, c in fs.launch_counts().items() if c != before[n]}
+
+
+@pytest.mark.parametrize("qn,k", [(256, 8), (1, 100)], ids=["q256_k8", "q1_k100"])
+@pytest.mark.parametrize("kind", _GRAPH_KINDS)
+def test_graphed_threshold_pass_equals_eager(kind, qn, k, monkeypatch):
+    """Eager, then captured, then replayed: every call bit-equal to the
+    eager chain with the same launches counted; a caller's results survive
+    the next replay."""
+    dev = _card()
+    idx, meta, smp, qs, spec, md = _graph_lib(kind, dev)
+    cache = _fresh_graphs(monkeypatch)
+    make, *fields = spec
+    batches = [qs[i, :qn] for i in (0, 1, 2, 0)]
+
+    def eager(q):
+        return fs._threshold_scan(make(q, *fields), idx.data, meta, smp, k, md, None, None, "dist")
+
+    def graphed(q):
+        return fs.threshold_pass(q, spec, idx.data, meta, smp, k, md)
+
+    want = [_counted(eager, q) for q in batches]
+    c0, r0 = _graph_counts()
+    got = []
+    for q, (w, launches) in zip(batches, want):
+        out, n = _counted(graphed, q)
+        assert n == launches and sum(launches.values()) >= 3
+        assert all(torch.equal(a, b) for a, b in zip(out, w))
+        got.append(out)
+    assert _graph_counts() == (c0 + 1, r0 + 3) and len(cache) == 1
+    held = want[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], held))   # after two more replays
+
+
+def test_graphed_pass_follows_store_appends_and_meta_rebuilds(monkeypatch):
+    """An append that reallocates the rows, then tombstones that rebuild
+    the meta: each is a new key, captured anew, equal to the exact scan.
+    The cache keeps none of the tensors a step left behind: they are
+    freed, and their graph goes at the next call."""
+    import gc
+
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    from pixelbox_tpu_torch.index.store import VectorStore
+
+    dev = _card()
+    rng = np.random.default_rng(23)
+    c = rng.standard_normal((256, 128)).astype(np.float32)
+    x = c[rng.integers(0, 256, 300000)] + 0.35 * rng.standard_normal((300000, 128)).astype(np.float32)
+    db = quantize_embedding_np(np.tanh(x))
+    store = VectorStore(dim=128, kind="semantic", device=dev)
+    store.append(db[:200000])
+    cache = _fresh_graphs(monkeypatch)
+    q = torch.from_numpy(db[[5, 77, 1000, 150000, 210000, 250000, 299999, 3]]).to(dev)
+    captures = _graph_counts()[0]
+    left = []
+    for step in ("filled", "reallocated", "tombstoned"):
+        if step == "reallocated":
+            before = store.device_index.data.data_ptr()
+            store.append(db[200000:])
+            assert store.device_index.data.data_ptr() != before
+        elif step == "tombstoned":
+            store.delete([5, 77, 210000])
+        idx = store.device_index
+        meta, smp = fs.build_row_meta(idx), tscan.build_scan_sample(idx)
+        gc.collect()
+        assert all(r.expired() for r in left), step      # the last step's, freed
+        left = [StorageWeakRef(t.untyped_storage()) for t in (meta, smp.data, smp.meta)]
+        if step == "filled":
+            left.append(StorageWeakRef(idx.data.untyped_storage()))
+        want = fs.fused_cosine_scan_topk(q, idx, meta, k=8)
+        for _ in range(3):
+            got = tscan.cosine_scan_topk_auto(q, idx, k=8, sample=smp, row_meta=meta)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), step
+        captures += 1
+        assert _graph_counts()[0] == captures and len(cache) == 1
+    assert not bool(torch.isin(got[1], torch.tensor([5, 77, 210000], device=dev)).any())
+
+
+def test_threads_replaying_one_graph_get_their_own_results(monkeypatch):
+    import threading
+
+    dev = _card()
+    idx, meta, smp, qs, spec, md = _graph_lib("cosine", dev)
+    cache = _fresh_graphs(monkeypatch)
+    make = spec[0]
+    want = [fs._threshold_scan(make(qs[i]), idx.data, meta, smp, 8, md, None, None, "dist")
+            for i in (0, 1)]
+    for i in (0, 1):
+        fs.threshold_pass(qs[i], spec, idx.data, meta, smp, 8, md)
+    assert len(cache) == 1
+    wrong, done = [], []
+
+    def worker(i):
+        for _ in range(30):
+            got = fs.threshold_pass(qs[i], spec, idx.data, meta, smp, 8, md)
+            if not all(torch.equal(a, b) for a, b in zip(got, want[i])):
+                wrong.append(i)
+        done.append(i)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and sorted(done) == [0, 1]
+    assert not wrong and len(cache) == 1
+
+
+def test_capture_beside_a_thread_scanning_eager(monkeypatch):
+    """One thread captures graph after graph while another runs exact
+    scans (K1b + K1c, not graphed) on the same card: both get the eager
+    results, and every launch is counted once, where it ran."""
+    import threading
+
+    dev = _card()
+    idx, meta, smp, qs, spec, md = _graph_lib("cosine", dev)
+    cache = _fresh_graphs(monkeypatch)
+    make = spec[0]
+    ks = range(4, 12)
+    want = {k: _counted(fs._threshold_scan, make(qs[0]), idx.data, meta, smp, k, md, None, None,
+                        "dist") for k in ks}
+    other_want, other_launches = _counted(fs.fused_cosine_scan_topk, qs[1], idx, meta, 8, md)
+    for k in ks:                                         # each key's eager call
+        fs.threshold_pass(qs[0], spec, idx.data, meta, smp, k, md)
+    stop, other_calls, wrong = threading.Event(), [], []
+
+    def other():
+        while not stop.is_set():
+            got = fs.fused_cosine_scan_topk(qs[1], idx, meta, 8, md)
+            if not all(torch.equal(a, b) for a, b in zip(got, other_want)):
+                wrong.append("other")
+            other_calls.append(1)
+
+    before = fs.launch_counts()
+    t = threading.Thread(target=other)
+    t.start()
+    try:
+        for k in ks:                                     # each captures, then replays
+            for _ in range(2):
+                got = fs.threshold_pass(qs[0], spec, idx.data, meta, smp, k, md)
+                if not all(torch.equal(a, b) for a, b in zip(got, want[k][0])):
+                    wrong.append(k)
+    finally:
+        stop.set()
+        t.join(timeout=300)
+    torch.cuda.synchronize(dev)
+    assert not t.is_alive() and not wrong and len(cache) == len(ks) and other_calls
+    added = {n: c - before[n] for n, c in fs.launch_counts().items() if c != before[n]}
+    expect = {}
+    for k in ks:
+        for n, c in want[k][1].items():
+            expect[n] = expect.get(n, 0) + 2 * c
+    for n, c in other_launches.items():
+        expect[n] = expect.get(n, 0) + len(other_calls) * c
+    assert added == expect
+
+
+def test_sharded_threshold_pass_graphed_matches_one_device(monkeypatch):
+    from pixelbox_tpu_torch.parallel import sharded_scan as ss
+    from pixelbox_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card()
+    idx, meta, smp, qs, spec, md = _graph_lib("cosine", dev, n=4 * 262144)
+    cache = _fresh_graphs(monkeypatch)
+    mesh = make_mesh(4)
+    sh = ss.shard_semantic_index(idx, mesh)
+    q = qs[0]
+    c0, _ = _graph_counts()
+    outs = [ss.sharded_threshold_pass(q, sh, 8, md, fs.CosineQueries.from_u8) for _ in range(3)]
+    assert _graph_counts()[0] == c0 + 4 and len(cache) == 4     # a graph a shard
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+    d, i, proven = outs[-1]
+    ed, ei = fs.fused_cosine_scan_topk(q, idx, meta, k=8)
+    assert bool(proven.any())
+    assert torch.equal(d[proven], ed[proven]) and torch.equal(i[proven], ei[proven])
+    for _ in range(3):
+        got = ss.sharded_cosine_scan_topk_auto(q, sh, mesh, k=8)
+        assert torch.equal(got[0], ed) and torch.equal(got[1], ei)

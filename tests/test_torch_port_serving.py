@@ -652,7 +652,9 @@ def test_server_json_equals_jax_serve(served):
     assert spans["serving.batch.semantic"]["count"] >= 1
     assert spans["serving.queue_wait"]["count"] >= status["scan_queries"]
     assert spans["serving.batch.semantic"]["max_ms"] >= spans["serving.batch.semantic"]["mean_ms"]
-    assert set(status["counters"]) == {"host_syncs", "repaired_queries"}
+    assert set(status["counters"]) == {
+        "host_syncs", "repaired_queries", "scan_graph_captures", "scan_graph_replays",
+    }
 
 
 def test_server_refuses_what_is_not_ported(served):
